@@ -1,0 +1,155 @@
+"""ResNet-50 with FrozenBatchNorm (counterpart of
+``dfvod_tpu/models/backbone_resnet.py``).
+
+The public layout is channels-last: ``ResNet50`` takes ``(B, H, W, 3)`` and
+returns ``(B, h, w, C)`` stage outputs. Inside, the convolutions run NCHW;
+a channels-last input permuted to NCHW is already in
+``torch.channels_last`` memory order, which cuDNN prefers.
+
+Submodules carry the flax module names (``layer1.block_0.conv1``, ...) so
+that ``utils/convert.py`` maps weights mechanically. The JAX package's
+``StemConvS2D`` is an exact reparameterization of the 7x7/s2/p3 stem that
+keeps the ``(7, 7, 3, 64)`` parameter; the port runs that conv as it is.
+The fused layer1 kernel (``fused_stages``) waits for a later slice.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class FrozenBatchNorm(nn.Module):
+    """BN with fixed statistics and affine parameters, all buffers."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def fold(self):
+        """(scale, bias) of the equivalent affine map, in the stored
+        dtype."""
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return scale, self.bias - self.running_mean * scale
+
+    def forward(self, x):                       # NCHW
+        scale, bias = self.fold()
+        return (x * scale.to(x.dtype)[None, :, None, None]
+                + bias.to(x.dtype)[None, :, None, None])
+
+
+def conv(in_features: int, features: int, kernel: int, stride: int = 1,
+         dilation: int = 1) -> nn.Conv2d:
+    """Bias-free conv with torch-style symmetric padding."""
+    return nn.Conv2d(in_features, features, kernel, stride,
+                     padding=dilation * (kernel - 1) // 2, dilation=dilation,
+                     bias=False)
+
+
+class Bottleneck(nn.Module):
+    """torchvision Bottleneck block (1x1 -> 3x3 -> 1x1, expansion 4)."""
+
+    def __init__(self, in_features: int, planes: int, stride: int = 1,
+                 dilation: int = 1, downsample: bool = False):
+        super().__init__()
+        p = planes
+        self.conv1 = conv(in_features, p, 1)
+        self.bn1 = FrozenBatchNorm(p)
+        self.conv2 = conv(p, p, 3, stride, dilation)
+        self.bn2 = FrozenBatchNorm(p)
+        self.conv3 = conv(p, p * 4, 1)
+        self.bn3 = FrozenBatchNorm(p * 4)
+        self.downsample = downsample
+        if downsample:
+            self.downsample_conv = conv(in_features, p * 4, 1, stride)
+            self.downsample_bn = FrozenBatchNorm(p * 4)
+
+    def forward(self, x):
+        identity = x
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
+
+
+class ResNetStage(nn.Module):
+    def __init__(self, planes: int, blocks: int, stride: int = 1,
+                 dilate: bool = False):
+        super().__init__()
+        # torchvision wiring: layer1 reads the 64-ch stem, layerN the
+        # previous stage's planes * 2
+        in_features = 64 if planes == 64 else planes * 2
+        # replace_stride_with_dilation: the stage keeps stride 1 and later
+        # blocks dilate; the first block uses the previous dilation (1 for
+        # layer4 in DC5 ResNet-50)
+        first_stride = 1 if dilate else stride
+        dil = stride if dilate else 1
+        self.blocks = blocks
+        for i in range(blocks):
+            if i == 0:
+                blk = Bottleneck(in_features, planes, first_stride, 1,
+                                 downsample=True)
+            else:
+                blk = Bottleneck(planes * 4, planes, 1, dil)
+            self.add_module(f"block_{i}", blk)
+
+    def forward(self, x):
+        for i in range(self.blocks):
+            x = getattr(self, f"block_{i}")(x)
+        return x
+
+
+def max_pool_torch(x, window: int, stride: int, pad: int):
+    """Max pool with explicit symmetric padding (NCHW)."""
+    return F.max_pool2d(x, window, stride, pad)
+
+
+class ResNet50(nn.Module):
+    """ResNet-50 trunk returning the requested stage outputs.
+
+    ``return_stages``: subset of (1, 2, 3, 4). DC5 (``dilation=True``)
+    replaces layer4's stride with dilation (stride 32 -> 16).
+    """
+
+    def __init__(self, dilation: bool = False,
+                 return_stages: Sequence[int] = (4,)):
+        super().__init__()
+        self.return_stages = tuple(return_stages)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+        self.layer1 = ResNetStage(64, 3, 1)
+        self.layer2 = ResNetStage(128, 4, 2)
+        self.layer3 = ResNetStage(256, 6, 2)
+        self.layer4 = ResNetStage(512, 3, 2, dilate=dilation)
+
+    def forward(self, x):
+        """x: (B, H, W, 3). Returns {stage: (B, h, w, C)}."""
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = max_pool_torch(x, 3, 2, 1)
+        outs = {}
+        for s in (1, 2, 3, 4):
+            x = getattr(self, f"layer{s}")(x)
+            if s in self.return_stages:
+                outs[s] = x.permute(0, 2, 3, 1)
+            if s >= max(self.return_stages):
+                break
+        return outs
+
+
+def downsample_mask(mask, shape: Tuple[int, int]):
+    """Nearest-resize a (B, H, W) bool padding mask to a feature shape, as
+    ``F.interpolate(mask[None].float(), size=...).bool()`` does: output
+    index i reads input index ``(i * in) // out``."""
+    _, H, W = mask.shape
+    ri = torch.arange(shape[0], device=mask.device) * H // shape[0]
+    ci = torch.arange(shape[1], device=mask.device) * W // shape[1]
+    return mask[:, ri][:, :, ci]
