@@ -9,10 +9,12 @@ channels-last images ``(B, H, W, C)``, tokens ``(B, S, C)`` and MSDA values
 
 Layout
 ------
-- ``ops``      : MSDA (plain PyTorch version + hand-written CUDA kernel in
-                 ``csrc/``) and the kernel build.
+- ``ops``      : MSDA (plain PyTorch forward and backward + hand-written
+                 CUDA kernels in ``csrc/``, joined as an autograd
+                 Function) and the kernel build.
 - ``models``   : backbones, transformer trunk, LateFusion adapter, heads,
-                 postprocess.
+                 postprocess, matcher, criterion.
+- ``train``    : the grouped optimizer and the train step.
 - ``data``     : on-device uint8 normalization.
 - ``utils``    : box ops, config, weight conversion from the JAX package,
                  device choice.

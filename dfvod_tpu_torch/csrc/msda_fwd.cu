@@ -31,40 +31,11 @@
 //
 // Plain C interface, loaded with ctypes; see dfvod_tpu_torch/ops/msda.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda_common.cuh"
+
+using namespace msda;
 
 namespace {
-
-constexpr int kMaxLevels = 4;
-constexpr int kWarpsPerBlock = 8;
-
-// dtype codes shared with the Python wrapper
-constexpr int kFloat32 = 0;
-constexpr int kBFloat16 = 1;
-
-struct Levels {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // value (B, S, M, D); loc (B, Lq, M, L, P, 2) in (x, y) order;
 // attw (B, Lq, M, L, P); out (B, Lq, M, D). All contiguous.
@@ -174,17 +145,9 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
                         void* out, int B, int S, int M, int D, int Lq, int L,
                         int P, const int* shapes, int value_dtype,
                         int loc_dtype, int attw_dtype, void* stream) {
-  if (L < 1 || L > kMaxLevels) return -1;
-  Levels lv = {};
-  lv.n = L;
-  long long start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = (int)start;
-    start += (long long)lv.h[l] * lv.w[l];
-  }
-  if (start != S) return -2;
+  Levels lv;
+  const int rc = make_levels(L, shapes, S, &lv);
+  if (rc != 0) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_dtype == kFloat32)
     return dispatch_coords<float>(loc_dtype, attw_dtype, value, loc, attw,
@@ -196,6 +159,6 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
   return -3;
 }
 
-extern "C" const char* msda_error_string(int code) {
+extern "C" const char* msda_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

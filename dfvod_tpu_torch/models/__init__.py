@@ -1,11 +1,11 @@
 """Model factory (counterpart of ``dfvod_tpu/models/__init__.py``):
-``build_model(cfg, device)`` -> (model, postprocess). The criterion waits
-for the training slice."""
+``build_model(cfg, device, seed)`` -> (model, criterion, postprocess)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from dfvod_tpu_torch.models.criterion import SetCriterion
 from dfvod_tpu_torch.models.detr import DeformableDETR
 from dfvod_tpu_torch.models.postprocess import postprocess
 from dfvod_tpu_torch.models.transformer import DeformableTransformer
@@ -40,10 +40,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
 
 
 def build_model(cfg: Config, device=None, seed: int = 0):
-    """The model, in eval mode on ``device`` (the card unless the caller
-    passes one), with random weights drawn from ``seed``, and postprocess.
-    Raises when CUDA is absent and no device was asked for."""
+    """(model, criterion, postprocess): the model in eval mode on
+    ``device`` (the card unless the caller passes one) with random weights
+    drawn from ``seed``, the ``SetCriterion`` of ``cfg.loss``, and
+    postprocess. Raises when CUDA is absent and no device was asked for."""
     device = resolve_device(device)
     model = DeformableDETR(cfg.model)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.eval().to(device), postprocess
+    criterion = SetCriterion(cfg.model.num_classes, cfg.loss,
+                             dec_layers=cfg.model.dec_layers)
+    return model.eval().to(device), criterion, postprocess

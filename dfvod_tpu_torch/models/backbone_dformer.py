@@ -2,10 +2,12 @@
 ``dfvod_tpu/models/backbone_dformer.py``).
 
 stem = Conv3x3 s2 -> BN -> exact GELU -> Conv3x3 s2 -> BN (dims[0] = 32),
-then per stage BN -> Conv3x3 s2; output stride 16, 128 channels. The BNs use
-their running statistics (eval mode, eps 1e-5); training-mode BN waits for
-the training slice, and the space-to-depth stem (``Conv3x3S2D``, off by
-default in the JAX package) for a later one.
+then per stage BN -> Conv3x3 s2; output stride 16, 128 channels. The BNs
+are trainable: in ``train()`` mode they normalize with the batch's
+statistics and update their running statistics as flax does, in
+``eval()`` mode they use the running statistics (eps 1e-5). The
+space-to-depth stem (``Conv3x3S2D``, off by default in the JAX package)
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -19,20 +21,41 @@ from dfvod_tpu_torch.models.backbone_resnet import downsample_mask
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm (NCHW, eps 1e-5): affine parameters plus
-    running statistics, the flax ``params`` + ``batch_stats`` pair."""
+    """BatchNorm (NCHW, eps 1e-5): affine parameters plus running
+    statistics, the flax ``params`` + ``batch_stats`` pair
+    (``dfvod_tpu/models/backbone_dformer.py:25-27``).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    In ``train()`` mode it normalizes with the batch mean and the *biased*
+    batch variance, both in f32, and updates ``running = (1 - momentum) *
+    running + momentum * batch`` with that same biased variance, as flax's
+    ``nn.BatchNorm(momentum=0.9)`` does. ``F.batch_norm(training=True)``
+    would update ``running_var`` with the unbiased variance instead. The
+    running statistics stay f32 whatever dtype the activations have."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        y = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
+             + self.bias.float()[None, :, None, None])
+        return y.to(x.dtype)
 
 
 def _conv(in_features: int, features: int) -> nn.Conv2d:

@@ -59,6 +59,7 @@ class DeformableDETR(nn.Module):
             num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers,
             dim_feedforward=cfg.dim_feedforward,
+            dropout=cfg.dropout,
             num_feature_levels=cfg.num_feature_levels,
             dec_n_points=cfg.dec_n_points,
             enc_n_points=cfg.enc_n_points,

@@ -5,11 +5,13 @@ Submodule names follow the flax modules (``value_proj``,
 ``sampling_offsets``, ``q_proj``, ``linear1``, ``norm`` ...) so weights map
 mechanically (``utils/convert.py``). Tokens are ``(B, S, C)``.
 
-Forward only: dropout is the identity at inference and waits for the
-training slice, as does the int8 path of ``QDense`` (here a plain
-``nn.Linear``). Linear layers whose initial value is part of the model's
-definition (zero kernels, the ring bias of ``sampling_offsets``) are marked
-``keep_init`` so that ``models.init_parameters`` leaves them alone.
+Dropout sits where the JAX package has it and is active only in
+``train()`` mode, drawing from a ``torch.Generator`` that the trainer owns
+(``set_dropout_generator``). The int8 path of ``QDense`` waits for a later
+slice (here a plain ``nn.Linear``). Linear layers whose initial value is
+part of the model's definition (zero kernels, the ring bias of
+``sampling_offsets``) are marked ``keep_init`` so that
+``models.init_parameters`` leaves them alone.
 """
 from __future__ import annotations
 
@@ -30,6 +32,41 @@ def gelu(x):
 
 
 ACTIVATIONS: dict = {"relu": F.relu, "gelu": gelu}
+
+
+class Dropout(nn.Module):
+    """Inverted dropout as flax's ``nn.Dropout``: in ``train()`` mode keep
+    each element with probability ``1 - p`` and scale it by ``1 / (1 - p)``.
+    The Bernoulli mask is drawn from ``self.generator``, which the trainer
+    sets (``set_dropout_generator``); ``F.dropout`` takes no generator."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode needs a generator: "
+                               "call set_dropout_generator(model, gen)")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator):
+    """Let every ``Dropout`` of ``model`` draw from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def fixed_linear(in_features: int, out_features: int,
@@ -120,15 +157,17 @@ class MSDeformAttn(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Softmax MHA with separate q/k/v/out projections; logits and softmax
-    in f32, probabilities cast back to the projection dtype."""
+    in f32, probabilities cast back to the projection dtype, then dropout
+    on them (``dfvod_tpu/models/layers.py:183-185``)."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.dropout = Dropout(dropout)
 
     def forward(self, q, k, v, key_padding_mask=None):
         M = self.n_heads
@@ -143,7 +182,7 @@ class MultiHeadAttention(nn.Module):
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
-        probs = logits.softmax(-1).to(qp.dtype)
+        probs = self.dropout(logits.softmax(-1).to(qp.dtype))
         out = torch.einsum("bmqk,bkmd->bqmd", probs, vp)
         return self.out_proj(out.reshape(B, Lq, self.d_model))
 
@@ -168,30 +207,38 @@ class MLP(nn.Module):
 
 
 class FFN(nn.Module):
-    """Linear -> act -> Linear -> residual -> LayerNorm."""
+    """Linear -> act -> dropout -> Linear -> dropout -> residual ->
+    LayerNorm."""
 
-    def __init__(self, d_model: int, d_ffn: int, activation: str = "relu"):
+    def __init__(self, d_model: int, d_ffn: int, activation: str = "relu",
+                 dropout: float = 0.1):
         super().__init__()
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
         self.act = ACTIVATIONS[activation]
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
 
     def forward(self, x):
-        return self.norm(x + self.linear2(self.act(self.linear1(x))))
+        h = self.dropout1(self.act(self.linear1(x)))
+        return self.norm(x + self.dropout2(self.linear2(h)))
 
 
 class SingleLinearFFN(nn.Module):
-    """One-linear FFN of the fusion layers: LayerNorm(x + act(Linear(x)))."""
+    """One-linear FFN of the fusion layers:
+    LayerNorm(x + dropout(act(Linear(x))))."""
 
-    def __init__(self, d_model: int, activation: str = "gelu"):
+    def __init__(self, d_model: int, activation: str = "gelu",
+                 dropout: float = 0.1):
         super().__init__()
         self.linear1 = nn.Linear(d_model, d_model)
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
         self.act = ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
-        return self.norm(x + self.act(self.linear1(x)))
+        return self.norm(x + self.dropout(self.act(self.linear1(x))))
 
 
 def with_pos(tensor, pos):

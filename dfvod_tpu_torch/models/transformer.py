@@ -22,6 +22,7 @@ from torch import nn
 
 from dfvod_tpu_torch.models.layers import (
     FFN,
+    Dropout,
     MSDeformAttn,
     MultiHeadAttention,
     SingleLinearFFN,
@@ -83,59 +84,63 @@ def flatten_levels(srcs, masks, pos_embeds, level_embed=None):
 
 
 class DeformableTransformerEncoderLayer(nn.Module):
-    """Self-MSDeformAttn + FFN."""
+    """Self-MSDeformAttn + dropout + FFN."""
 
     def __init__(self, d_model=256, d_ffn=1024, activation="relu",
-                 n_levels=4, n_heads=8, n_points=4):
+                 n_levels=4, n_heads=8, n_points=4, dropout=0.1):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.ffn = FFN(d_model, d_ffn, activation)
+        self.ffn = FFN(d_model, d_ffn, activation, dropout)
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None):
         src2 = self.self_attn(with_pos(src, pos), reference_points, src,
                               spatial_shapes, padding_mask)
-        return self.ffn(self.norm1(src + src2))
+        return self.ffn(self.norm1(src + self.dropout1(src2)))
 
 
 class DeformableTransformerDecoderLayer(nn.Module):
-    """MHA self-attn + cross-MSDeformAttn + FFN."""
+    """MHA self-attn + dropout + cross-MSDeformAttn + dropout + FFN."""
 
     def __init__(self, d_model=256, d_ffn=1024, activation="relu",
-                 n_levels=4, n_heads=8, n_points=4):
+                 n_levels=4, n_heads=8, n_points=4, dropout=0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dropout)
+        self.dropout2 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.ffn = FFN(d_model, d_ffn, activation)
+        self.ffn = FFN(d_model, d_ffn, activation, dropout)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask=None):
         q = with_pos(tgt, query_pos)
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + self.dropout2(self.self_attn(q, q, tgt)))
         tgt2 = self.cross_attn(with_pos(tgt, query_pos), reference_points,
                                src, spatial_shapes, src_padding_mask)
-        return self.ffn(self.norm1(tgt + tgt2))
+        return self.ffn(self.norm1(tgt + self.dropout1(tgt2)))
 
 
 class DepthFusionLayer(nn.Module):
     """Deformable cross-attention from a token stream onto depth tokens
     (the LateFusion layer): depth_scale_adapt -> LayerNorm ->
     cross-MSDeformAttn -> cross_scale_adapt -> residual + LN ->
-    single-linear GELU FFN."""
+    single-linear GELU FFN, with dropout after the cross-attention."""
 
     def __init__(self, d_model=256, n_levels=1, n_heads=8, n_points=4,
-                 ffn_activation="gelu"):
+                 ffn_activation="gelu", dropout=0.1):
         super().__init__()
         self.n_levels = n_levels
         self.depth_scale_adapt = nn.Linear(d_model, d_model)
         self.norm_depth_scale = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.cross_scale_adapt = nn.Linear(d_model, d_model)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.ffn = SingleLinearFFN(d_model, ffn_activation)
+        self.ffn = SingleLinearFFN(d_model, ffn_activation, dropout)
 
     def forward(self, tgt, query_pos, reference_points, src,
                 src_spatial_shapes, src_padding_mask=None):
@@ -144,7 +149,7 @@ class DepthFusionLayer(nn.Module):
         ref = reference_points[:, :, :self.n_levels, :]
         tgt2 = self.cross_attn(with_pos(tgt, query_pos), ref, src,
                                src_spatial_shapes, src_padding_mask)
-        tgt = self.norm1(tgt + self.cross_scale_adapt(tgt2))
+        tgt = self.norm1(tgt + self.dropout1(self.cross_scale_adapt(tgt2)))
         return self.ffn(tgt)
 
 
@@ -193,7 +198,7 @@ class DeformableTransformer(nn.Module):
                  activation="relu", num_feature_levels=4, dec_n_points=4,
                  enc_n_points=4, num_queries=300, with_box_refine=False,
                  num_classes=3, fusion="none", dpth_n_points=4,
-                 dpth_feature_levels=1):
+                 dpth_feature_levels=1, dropout=0.1):
         super().__init__()
         if fusion not in ("none", "late"):
             raise NotImplementedError(
@@ -209,17 +214,20 @@ class DeformableTransformer(nn.Module):
         self.reference_points = nn.Linear(d_model, 2)
         if fusion == "late":
             self.depth_encoder_layer = DepthFusionLayer(
-                d_model, dpth_feature_levels, n_heads, dpth_n_points)
+                d_model, dpth_feature_levels, n_heads, dpth_n_points,
+                dropout=dropout)
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layers_{i}",
                             DeformableTransformerEncoderLayer(
                                 d_model, dim_feedforward, activation,
-                                num_feature_levels, n_heads, enc_n_points))
+                                num_feature_levels, n_heads, enc_n_points,
+                                dropout))
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layers_{i}",
                             DeformableTransformerDecoderLayer(
                                 d_model, dim_feedforward, activation,
-                                num_feature_levels, n_heads, dec_n_points))
+                                num_feature_levels, n_heads, dec_n_points,
+                                dropout))
         if with_box_refine:
             for i in range(num_decoder_layers):
                 self.add_module(f"head_{i}",

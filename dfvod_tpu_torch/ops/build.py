@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under
 ``dfvod_tpu_torch/build/`` (listed in ``.gitignore``) at first use and
 loaded with ``ctypes``. The library's file name carries a hash of the
-source, so an edited source is rebuilt and a built one is reused. A failed
-build raises; nothing falls back.
+source and of the shared headers, so an edited source is rebuilt and a
+built one is reused. A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -34,8 +34,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode())
+    """The library's path; its name hashes the source, the shared headers
+    (``csrc/*.cuh``) and the target flags."""
+    digest = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

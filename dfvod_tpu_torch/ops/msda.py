@@ -1,5 +1,7 @@
-"""Multi-scale deformable attention (MSDA): the plain PyTorch version and
-the wrapper of the hand-written CUDA kernel (``csrc/msda_fwd.cu``).
+"""Multi-scale deformable attention (MSDA): the plain PyTorch version, its
+backward, and the wrappers of the hand-written CUDA kernels
+(``csrc/msda_fwd.cu``, ``csrc/msda_bwd.cu``) joined as a
+``torch.autograd.Function``.
 
 Counterpart of ``dfvod_tpu/ops/msda.py``. The contract is the same:
 
@@ -15,8 +17,10 @@ Bilinear sampling follows ``F.grid_sample`` with ``align_corners=False`` and
 ``padding_mode='zeros'``: pixel coordinates are ``loc * size - 0.5`` and any
 corner outside the map contributes 0.
 
-``ms_deform_attn`` takes the plain version for CPU tensors only. For CUDA
-tensors it launches the kernel or raises.
+``ms_deform_attn`` takes the plain version for CPU tensors only, and
+autograd differentiates it there. For CUDA tensors it goes through
+``MSDeformAttnFunction``, whose forward and backward launch their kernels
+or raise.
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ def ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
 
 def _check_kernel_args(value, spatial_shapes, loc, attw):
     if value.dtype not in _DTYPE_CODES:
-        raise TypeError(f"msda_fwd takes f32 or bf16 values, not "
+        raise TypeError(f"the MSDA kernels take f32 or bf16 values, not "
                         f"{value.dtype}")
     for name, t in (("sampling_locations", loc), ("attention_weights", attw)):
         if t.dtype not in (torch.float32, value.dtype):
@@ -110,15 +114,33 @@ def _check_kernel_args(value, spatial_shapes, loc, attw):
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = build.load("msda_fwd")
-    lib.msda_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                             + [ctypes.POINTER(ctypes.c_int)]
-                             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.msda_fwd.restype = ctypes.c_int
-    lib.msda_error_string.argtypes = [ctypes.c_int]
-    lib.msda_error_string.restype = ctypes.c_char_p
+def _library(name: str):
+    """The loaded ``csrc/<name>.cu`` (``msda_fwd`` or ``msda_bwd``) with its
+    argument types set."""
+    lib = build.load(name)
+    n_ptrs = {"msda_fwd": 4, "msda_bwd": 8}[name]
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(name: str, lib, rc: int):
+    if rc < 0:
+        raise ValueError(f"{name} refused its arguments (code {rc})")
+    if rc > 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, f"{name}_error_string")(rc).decode())
+
+
+def _shape_array(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(
+        *[v for hw in spatial_shapes for v in hw])
 
 
 def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
@@ -129,40 +151,143 @@ def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
                        attention_weights)
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
-    lib = _library()
+    lib = _library("msda_fwd")
     out = torch.empty((B, Lq, M * D), dtype=value.dtype,
                       device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[v for hw in spatial_shapes
-                                        for v in hw])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.msda_fwd(
             value.data_ptr(), sampling_locations.data_ptr(),
             attention_weights.data_ptr(), out.data_ptr(),
-            B, S, M, D, Lq, L, P, shapes, _DTYPE_CODES[value.dtype],
+            B, S, M, D, Lq, L, P, _shape_array(spatial_shapes),
+            _DTYPE_CODES[value.dtype],
             _DTYPE_CODES[sampling_locations.dtype],
             _DTYPE_CODES[attention_weights.dtype], stream)
-    if rc < 0:
-        raise ValueError(f"msda_fwd refused its arguments (code {rc})")
-    if rc > 0:
-        raise RuntimeError("msda_fwd launch failed: "
-                           + lib.msda_error_string(rc).decode())
+    _raise_on("msda_fwd", lib, rc)
     ms_deform_attn.launches += 1
     return out
 
 
+def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
+                            attention_weights, grad_out,
+                            needs=(True, True, True)):
+    """Launch ``csrc/msda_bwd.cu`` on CUDA tensors: (grad_value, grad_loc,
+    grad_attw), each in its input's dtype, or None where ``needs`` (value,
+    loc, attw) is False; that gradient is not computed. ``grad_out`` has the
+    value's dtype."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check_kernel_args(value, spatial_shapes, sampling_locations,
+                       attention_weights)
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if grad_out.shape != (B, Lq, M * D) or grad_out.dtype != value.dtype:
+        raise ValueError(f"grad_out must be {(B, Lq, M * D)} in "
+                         f"{value.dtype}, not {tuple(grad_out.shape)} in "
+                         f"{grad_out.dtype}")
+    if grad_out.device != value.device or not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous, on the value's device")
+    need_v, need_l, need_a = needs
+    lib = _library("msda_bwd")
+    grad_value = grad_value_f32 = grad_loc = grad_attw = None
+    if need_v:
+        # atomics accumulate in f32; an f32 value accumulates in place
+        grad_value_f32 = torch.zeros(value.shape, dtype=torch.float32,
+                                     device=value.device)
+        grad_value = (grad_value_f32 if value.dtype == torch.float32
+                      else torch.empty_like(value))
+    if need_l:
+        grad_loc = torch.empty_like(sampling_locations)
+    if need_a:
+        grad_attw = torch.empty_like(attention_weights)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msda_bwd(
+            value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), grad_out.data_ptr(),
+            ptr(grad_value_f32), ptr(grad_value), ptr(grad_loc),
+            ptr(grad_attw), B, S, M, D, Lq, L, P,
+            _shape_array(spatial_shapes), _DTYPE_CODES[value.dtype],
+            _DTYPE_CODES[sampling_locations.dtype],
+            _DTYPE_CODES[attention_weights.dtype], stream)
+    _raise_on("msda_bwd", lib, rc)
+    ms_deform_attn_bwd.launches += 1
+    return grad_value, grad_loc, grad_attw
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA on CUDA tensors with its gradient: the forward launches
+    ``csrc/msda_fwd.cu``, the backward ``csrc/msda_bwd.cu``. The kernels
+    take the mixed dtypes autocast feeds them as they come."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
+                                   attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attw = ctx.saved_tensors
+        need_v, _, need_l, need_a = ctx.needs_input_grad
+        grad_value, grad_loc, grad_attw = ms_deform_attn_bwd_cuda(
+            value, ctx.spatial_shapes, loc, attw,
+            grad_out.to(value.dtype).contiguous(),
+            (need_v, need_l, need_a))
+        return grad_value, None, grad_loc, grad_attw
+
+
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
                    attention_weights):
-    """MSDA: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors. ``ms_deform_attn.launches`` counts kernel launches."""
+    """MSDA: the plain version for CPU tensors (autograd differentiates
+    it), ``MSDeformAttnFunction`` for CUDA tensors.
+    ``ms_deform_attn.launches`` counts forward kernel launches,
+    ``ms_deform_attn_bwd.launches`` backward ones."""
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes,
                                     sampling_locations, attention_weights)
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn runs on cpu or cuda, not "
                          f"{value.device}")
-    return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
-                               attention_weights)
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDeformAttnFunction.apply(value, spatial_shapes,
+                                      sampling_locations, attention_weights)
 
 
 ms_deform_attn.launches = 0
+
+
+def ms_deform_attn_plain_bwd(value, spatial_shapes, sampling_locations,
+                             attention_weights, grad_out):
+    """The plain backward: ``torch.autograd.grad`` through
+    ``ms_deform_attn_plain``. Returns (grad_value, grad_loc, grad_attw),
+    each in its input's dtype."""
+    inputs = [t.detach().requires_grad_() for t in
+              (value, sampling_locations, attention_weights)]
+    with torch.enable_grad():
+        out = ms_deform_attn_plain(inputs[0], spatial_shapes, inputs[1],
+                                   inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out)
+
+
+def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
+                       attention_weights, grad_out):
+    """The MSDA VJP as a function: the plain backward for CPU tensors,
+    ``csrc/msda_bwd.cu`` for CUDA tensors."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_plain_bwd(value, spatial_shapes,
+                                        sampling_locations,
+                                        attention_weights, grad_out)
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_bwd runs on cpu or cuda, not "
+                         f"{value.device}")
+    return ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
+                                   attention_weights, grad_out)
+
+
+ms_deform_attn_bwd.launches = 0

@@ -31,7 +31,7 @@ class Server:
                  dtype=torch.bfloat16, seed: int = 0):
         self.cfg = cfg
         self.dtype = dtype
-        model, self.postprocess = build_model(cfg, device, seed)
+        model, _, self.postprocess = build_model(cfg, device, seed)
         if variables is not None:
             load_jax_variables(model, variables)
         self.device = next(model.parameters()).device

@@ -10,6 +10,53 @@ def box_cxcywh_to_xyxy(x):
         [cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
+def box_area(boxes):
+    """Area of xyxy boxes, (..., 4) -> (...)."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou(boxes1, boxes2):
+    """Pairwise IoU of xyxy boxes, batched over leading dims:
+    (..., N, 4), (..., M, 4) -> ((..., N, M) iou, (..., N, M) union)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union.clamp(min=1e-9), union
+
+
+def generalized_box_iou(boxes1, boxes2):
+    """Pairwise GIoU of xyxy boxes, batched over leading dims. As in the
+    JAX package, degenerate boxes are not rejected: the 1e-9 guards keep
+    the result finite."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)
+
+
+def elementwise_generalized_box_iou(boxes1, boxes2):
+    """GIoU of aligned box pairs, (..., 4), (..., 4) -> (...)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1 + area2 - inter
+    iou = inter / union.clamp(min=1e-9)
+    lt_c = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb_c = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh_c = (rb_c - lt_c).clamp(min=0)
+    area_c = wh_c[..., 0] * wh_c[..., 1]
+    return iou - (area_c - union) / area_c.clamp(min=1e-9)
+
+
 def inverse_sigmoid(x, eps: float = 1e-5):
     """Logit with clamping, parity with ``util/misc.py`` inverse_sigmoid."""
     x = x.clamp(0, 1)

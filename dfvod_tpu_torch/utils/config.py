@@ -1,5 +1,6 @@
-"""Model and run configuration: the port's own copy of the ``ModelConfig``
-and ``Config`` dataclasses of ``dfvod_tpu/utils/config.py``.
+"""Model and run configuration: the port's own copy of the ``ModelConfig``,
+``LossConfig``, ``TrainConfig``, ``DataConfig`` and ``Config`` dataclasses
+of ``dfvod_tpu/utils/config.py``.
 
 The dataclasses take every value the JAX package takes, so one
 configuration describes both. What this slice of the port can build is
@@ -82,17 +83,111 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Criterion weights (reference ``main.py`` loss coef flags)."""
+    cls_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    mask_loss_coef: float = 1.0
+    dice_loss_coef: float = 1.0
+    focal_alpha: float = 0.25
+    set_cost_class: float = 2.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer/schedule config (``main.py:311-435``). ``batch_size``,
+    ``num_devices``, ``profile_dir`` and ``eval_every`` are carried for the
+    data-path and CLI slices; the train step reads none of them (it takes
+    the batch it is given, on one device)."""
+    lr: float = 1e-4
+    lr_backbone: float = 1e-5
+    lr_linear_proj_mult: float = 0.1
+    weight_decay: float = 2e-5
+    clip_max_norm: float = 0.1
+    epochs: int = 20
+    batch_size: int = 4
+    seed: int = 42
+    sgd: bool = False
+    cosine_eta_min_mult: float = 0.1    # CosineAnnealingLR eta_min = 0.1*lr
+    num_devices: int = 0
+    # 'bfloat16': mixed-precision training. In the port: autocast to bf16
+    # around the forward, f32 master parameters and optimizer state
+    train_dtype: str = "float32"
+    profile_dir: str = ""
+    eval_every: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset config (``datasets/vid_single.py`` / ``vid_multi.py``)."""
+    coco_path: str = ""
+    coco_panoptic_path: str = ""
+    dataset_file: str = "vid_single"
+    use_depth: bool = False
+    num_ref_frames: int = 3
+    max_boxes: int = 64                  # static padding for targets
+    train_short_sides: Tuple[int, ...] = (480, 512, 544, 576, 608, 640,
+                                          672, 704, 736, 768, 800)
+    max_size: int = 1333
+    eval_short_side: int = 600
+    rgb_mean: Tuple[float, ...] = (0.485, 0.456, 0.406)
+    rgb_std: Tuple[float, ...] = (0.229, 0.224, 0.225)
+    depth_mean: float = 0.48
+    depth_std: float = 0.28
+    device_preprocess: bool = False
+    pack_s2d: bool = False
+    cache_mode: bool = False
+    num_workers: int = 0
+    strong_aug: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
-    """The run configuration. This slice has the model part only; the
-    loss, train and data parts of the JAX ``Config`` come with the training
-    slice."""
+    """The run configuration. The data part is carried for the data-path
+    slice; nothing in the port reads it yet (the train step normalizes
+    uint8 frames on the device, as ``device_preprocess=True`` would)."""
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    output_dir: str = ""
+
+    def __post_init__(self):
+        # a depth-fusion model forces the data pipeline's use_depth
+        if self.model.use_depth and not self.data.use_depth:
+            object.__setattr__(self, "data", dataclasses.replace(
+                self.data, use_depth=True))
+        if self.model.temporal_mode != "none" and \
+                self.data.num_ref_frames != self.model.num_ref_frames:
+            object.__setattr__(self, "data", dataclasses.replace(
+                self.data, num_ref_frames=self.model.num_ref_frames))
+
+    @staticmethod
+    def from_flat(**kw) -> "Config":
+        """Build from flat argparse-style keywords."""
+        def pick(cls):
+            names = {f.name for f in dataclasses.fields(cls)}
+            return {k: v for k, v in kw.items() if k in names and
+                    v is not None}
+        return Config(
+            model=ModelConfig(**pick(ModelConfig)),
+            loss=LossConfig(**pick(LossConfig)),
+            train=TrainConfig(**pick(TrainConfig)),
+            data=DataConfig(**pick(DataConfig)),
+            output_dir=kw.get("output_dir", "") or "",
+        )
 
 
-def check_supported(m: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice cannot build,
-    naming the slice it waits for."""
+def check_supported(m: ModelConfig, training: bool = False) -> None:
+    """Raise ``NotImplementedError`` for what this slice cannot build (or,
+    with ``training``, train), naming the slice it waits for."""
     waits = []
+    if training and m.remat:
+        waits.append("remat=True waits for the next training slice "
+                     "(activation recompute)")
     if m.fusion_type not in ("Baseline", "LateFusion"):
         waits.append(f"fusion_type={m.fusion_type!r} waits for the "
                      "other-fusion-modes slice")

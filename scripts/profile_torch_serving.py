@@ -1,8 +1,8 @@
-"""Where the port's serving time goes on the card.
+"""Where the port's serving or training time goes on the card.
 
-Drives the same full-width LateFusion bf16 serving request as
-``chip_smoke.py`` (B=8 608x800 uint8 RGB-D, random weights from a seed)
-through ``dfvod_tpu_torch.serve.Server`` and prints:
+Serving (default): drives the same full-width LateFusion bf16 serving
+request as ``chip_smoke.py`` (B=8 608x800 uint8 RGB-D, random weights from
+a seed) through ``dfvod_tpu_torch.serve.Server`` and prints:
 
 1. host ms per request (``torch.cuda.synchronize`` around each);
 2. per-layer device time from CUDA events recorded by forward hooks on the
@@ -12,7 +12,18 @@ through ``dfvod_tpu_torch.serve.Server`` and prints:
    ``msda_fwd`` kernel's share, and the device busy share (kernel time over
    the window's wall time).
 
+Training (``--train``): the train step of ``chip_smoke.py``'s train phase
+(the LateFusion_bf16.sh recipe, B=6 608x800, bf16 autocast) and prints:
+
+1. host ms per step, and the step's phases by CUDA events: forward,
+   criterion (with the matcher), backward, clip + optimizer;
+2. the matcher's host time per step (its one device-to-host copy waits for
+   the forward) and the scipy solves' share of it;
+3. a ``torch.profiler`` window over a few steps: device busy share, the
+   ``msda_fwd`` / ``msda_bwd`` kernels' time, the top kernels and ops.
+
     python3 scripts/profile_torch_serving.py [--requests 3]
+    python3 scripts/profile_torch_serving.py --train [--requests 3]
 
 Needs one CUDA device.
 """
@@ -63,6 +74,17 @@ def hook_events(groups):
     return pairs, handles
 
 
+def is_device_activity(evt):
+    """A kernel or copy on the card, not a CPU op and not a range
+    (``record_function``, an autograd Function, ``Optimizer.step``) that
+    the profiler mirrors onto the device timeline, which would count its
+    kernels twice."""
+    from torch.autograd import DeviceType
+    return (getattr(evt, "device_type", None) == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)
+            and device_time_us(evt, True) > 0)
+
+
 def device_time_us(evt, self_only):
     for attr in (("self_device_time_total", "self_cuda_time_total")
                  if self_only else ("device_time_total",
@@ -72,22 +94,137 @@ def device_time_us(evt, self_only):
     return 0.0
 
 
+def profiler_window(fn, n, label):
+    """Run ``fn`` ``n`` times under ``torch.profiler``; print the device
+    busy share, the MSDA kernels' time and the top kernels and ops per
+    call. Returns the averages."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if is_device_activity(e)]
+    busy_ms = sum(device_time_us(e, True) for e in kernels) / 1e3
+    if busy_ms == 0:
+        raise RuntimeError("the profiler recorded no device activity")
+    print(f"[prof] window {wall_ms:.3f} ms for {n} {label}s; kernel time "
+          f"{busy_ms:.3f} ms; device busy {100 * busy_ms / wall_ms:.1f}%, "
+          f"idle {100 - 100 * busy_ms / wall_ms:.1f}% (profiler on)",
+          flush=True)
+    for name in ("msda_fwd", "msda_bwd"):
+        us = sum(device_time_us(e, True) for e in kernels if name in e.key)
+        calls = sum(e.count for e in kernels if name in e.key)
+        if calls:
+            print(f"[prof] {name} kernels {us / 1e3 / n:.3f} ms per {label}"
+                  f" (x{calls // n}; {100 * us / 1e3 / busy_ms:.1f}% of "
+                  f"kernel time)", flush=True)
+    ops = sorted((e for e in avgs if e.key.startswith("aten::")),
+                 key=lambda e: -device_time_us(e, False))
+    for e in ops[:12]:
+        print(f"[prof] op {e.key:40s} "
+              f"{device_time_us(e, False) / 1e3 / n:8.3f} ms/{label} "
+              f"(x{e.count // n})", flush=True)
+    for e in sorted(kernels, key=lambda e: -device_time_us(e, True))[:15]:
+        print(f"[prof] kernel {e.key[:70]:70s} "
+              f"{device_time_us(e, True) / 1e3 / n:8.3f} ms/{label} "
+              f"(x{e.count // n})", flush=True)
+    return avgs
+
+
+def profile_train(cs, n):
+    """The training breakdown (module docstring, ``--train``)."""
+    from dfvod_tpu_torch.models import build_model, criterion as crit_mod
+    from dfvod_tpu_torch.models import matcher
+    from dfvod_tpu_torch.train import create_train_state, train_step
+    from dfvod_tpu_torch.train.engine import apply_gradients, forward
+    from dfvod_tpu_torch.utils.config import Config
+
+    cfg = Config.from_flat(
+        fusion_type="LateFusion", dropout=0.2, lr=1e-5, weight_decay=2e-5,
+        clip_max_norm=0.1, train_dtype="bfloat16")
+    model, criterion, _ = build_model(cfg, device="cpu", seed=0)
+    model = cs.randomize(model, seed=1).to("cuda")
+    state = create_train_state(model, cfg)
+    batch = {k: v.to("cuda") for k, v in cs.train_batch(0).items()}
+    for _ in range(2):                      # warm-up
+        train_step(state, criterion, batch)
+    torch.cuda.synchronize()
+
+    # host time of the matcher (its copy waits for the forward) and of the
+    # scipy solves inside it
+    host = collections.defaultdict(float)
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host[key] += time.perf_counter() - t0
+        return wrapper
+    crit_mod.match_layers = timed(crit_mod.match_layers, "matcher")
+    matcher.solve = timed(matcher.solve, "scipy")
+
+    spans = collections.defaultdict(float)
+    steps = []
+    # the phases of ``train_step``, through the functions it composes
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        out, targets = forward(state, batch)
+        ev[1].record()
+        loss, _ = criterion(out, targets)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        apply_gradients(state)
+        ev[4].record()
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t0))
+        for name, a, b in (("forward", 0, 1), ("criterion + matcher", 1, 2),
+                           ("backward", 2, 3), ("clip + AdamW", 3, 4)):
+            spans[name] += ev[a].elapsed_time(ev[b])
+    total = sum(spans.values()) / n
+    print(f"[time] host ms per step: {', '.join(f'{t:.3f}' for t in steps)}"
+          f"; device span {total:.3f} ms", flush=True)
+    for name, ms in spans.items():
+        print(f"[phase] {name:22s} {ms / n:8.3f} ms "
+              f"{100 * ms / n / total:5.1f}%", flush=True)
+    print(f"[matcher] host {1e3 * host['matcher'] / n:.3f} ms per step, of "
+          f"which scipy solves {1e3 * host['scipy'] / n:.3f} ms (the rest "
+          f"waits for the forward and copies the costs)", flush=True)
+    profiler_window(lambda: train_step(state, criterion, batch), n, "step")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=3,
+                    help="requests (or train steps) per measurement")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of serving")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
     import chip_smoke as cs
+    print(f"[card] {cs.card_line()}; torch {torch.__version__}", flush=True)
+    if args.train:
+        return profile_train(cs, args.requests)
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.serve import Server
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
-    print(f"[card] {cs.card_line()}; torch {torch.__version__}", flush=True)
     cfg = Config(model=ModelConfig(fusion_type="LateFusion"))
-    ref_model, _ = build_model(cfg, device="cpu", seed=0)
+    ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
     cs.randomize(ref_model, seed=1)
     server = Server(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     server.model.load_state_dict(ref_model.state_dict())
@@ -128,40 +265,8 @@ def main() -> int:
           f"{100 * (total - accounted) / total:5.1f}%", flush=True)
 
     # 3: profiler window
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            server(x, s)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs if device_time_us(e, True) > 0
-               and not e.key.startswith("aten::")
-               and not e.key.startswith("cuda")]
-    busy_ms = sum(device_time_us(e, True) for e in kernels) / 1e3
-    print(f"[prof] window {wall_ms:.3f} ms for {n} requests; kernel time "
-          f"{busy_ms:.3f} ms; device busy {100 * busy_ms / wall_ms:.1f}%, "
-          f"idle {100 - 100 * busy_ms / wall_ms:.1f}% (profiler on)",
-          flush=True)
-    msda_us = sum(device_time_us(e, True) for e in kernels
-                  if "msda_fwd" in e.key)
-    print(f"[prof] msda_fwd kernels {msda_us / 1e3 / n:.3f} ms per request "
-          f"({100 * msda_us / 1e3 / busy_ms:.1f}% of kernel time)",
-          flush=True)
-    ops = sorted((e for e in avgs if e.key.startswith("aten::")),
-                 key=lambda e: -device_time_us(e, False))
-    for e in ops[:12]:
-        print(f"[prof] op {e.key:40s} {device_time_us(e, False) / 1e3 / n:8.3f}"
-              f" ms/request (x{e.count // n})", flush=True)
-    for e in sorted(kernels, key=lambda e: -device_time_us(e, True))[:12]:
-        print(f"[prof] kernel {e.key[:70]:70s} "
-              f"{device_time_us(e, True) / 1e3 / n:8.3f} ms/request "
-              f"(x{e.count // n})", flush=True)
+    profiler_window(lambda: server(x, s), n, "request")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

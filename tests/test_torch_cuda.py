@@ -1,7 +1,9 @@
-"""Tests of the port that need the card: the CUDA MSDA kernel against its
-plain version, and a small model on the card against the same model on the
-CPU. They skip without a CUDA device. This file imports neither JAX nor the
-JAX package, so it also runs where JAX is not installed:
+"""Tests of the port that need the card: the CUDA MSDA kernels (forward
+and backward) against their plain versions, gradients through the MSDA
+module on the card, and a small model and a small train step on the card
+against the same on the CPU. They skip without a CUDA device. This file
+imports neither JAX nor the JAX package, so it also runs where JAX is not
+installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
@@ -10,7 +12,9 @@ import torch
 
 from dfvod_tpu_torch.data.device_pipeline import device_normalize
 from dfvod_tpu_torch.models import build_model
+from dfvod_tpu_torch.models.layers import MSDeformAttn
 from dfvod_tpu_torch.ops import msda
+from dfvod_tpu_torch.train.engine import create_train_state, forward
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
 pytestmark = pytest.mark.cuda
@@ -23,7 +27,11 @@ CASES = {
 }
 DTYPES = {"f32": (torch.float32,) * 3,
           "bf16_serving": (torch.bfloat16, torch.float32, torch.bfloat16),
+          "bf16_training": (torch.bfloat16, torch.float32, torch.float32),
           "bf16_all": (torch.bfloat16,) * 3}
+SMALL = dict(fusion_type="LateFusion", num_queries=12, hidden_dim=64,
+             nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128,
+             dropout=0.0)
 
 
 @pytest.fixture
@@ -81,11 +89,9 @@ def test_small_model_card_matches_cpu(cuda_device):
     """The LateFusion model on the card (CUDA kernel) against the same
     weights on the CPU (plain MSDA), f32, padded input: atol 1e-4 / rtol
     1e-3, TF32 off."""
-    cfg = Config(model=ModelConfig(
-        fusion_type="LateFusion", num_queries=12, hidden_dim=64, nheads=4,
-        enc_layers=2, dec_layers=2, dim_feedforward=128))
-    cpu_model, _ = build_model(cfg, device="cpu", seed=3)
-    gpu_model, _ = build_model(cfg, device=cuda_device, seed=3)
+    cfg = Config(model=ModelConfig(**SMALL))
+    cpu_model, _, _ = build_model(cfg, device="cpu", seed=3)
+    gpu_model, _, _ = build_model(cfg, device=cuda_device, seed=3)
     gen = torch.Generator().manual_seed(0)
     x = torch.randint(0, 256, (2, 96, 128, 4), generator=gen,
                       dtype=torch.uint8)
@@ -99,3 +105,115 @@ def test_small_model_card_matches_cpu(cuda_device):
     for k in ("pred_logits", "pred_boxes"):
         torch.testing.assert_close(got[k].cpu(), ref[k], atol=1e-4,
                                    rtol=1e-3)
+
+
+def msda_inputs(device, case, dtypes, seed=0):
+    shapes, B, Lq, M, D, P = CASES[case]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    value = torch.randn((B, S, M, D), generator=gen, device=device)
+    loc = torch.rand((B, Lq, M, L, P, 2), generator=gen,
+                     device=device) * 1.2 - 0.1
+    attw = torch.randn((B, Lq, M, L * P), generator=gen,
+                       device=device).softmax(-1).reshape(B, Lq, M, L, P)
+    go = torch.randn((B, Lq, M * D), generator=gen, device=device)
+    vdt, ldt, adt = dtypes
+    return shapes, value.to(vdt), loc.to(ldt), attw.to(adt), go.to(vdt)
+
+
+@pytest.mark.parametrize("dtypes", list(DTYPES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_bwd_kernel_matches_plain(cuda_device, case, dtypes):
+    """K2 against the plain backward on the same (bf16-rounded) inputs in
+    f32: f32 atol/rtol 1e-4 (the order of the atomics), bf16 rtol 2e-2 /
+    atol 3e-2 (the JAX package's bf16 backward gate). Gradients come in
+    each input's dtype."""
+    shapes, value, loc, attw, go = msda_inputs(cuda_device, case,
+                                               DTYPES[dtypes])
+    before = msda.ms_deform_attn_bwd.launches
+    got = msda.ms_deform_attn_bwd(value, shapes, loc, attw, go)
+    torch.cuda.synchronize()
+    assert msda.ms_deform_attn_bwd.launches == before + 1
+    ref = msda.ms_deform_attn_plain_bwd(value.float(), shapes, loc.float(),
+                                        attw.float(), go.float())
+    atol, rtol = ((1e-4, 1e-4) if value.dtype == torch.float32
+                  else (3e-2, 2e-2))
+    for g, r, x in zip(got, ref, (value, loc, attw)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        torch.testing.assert_close(g.float(), r, atol=atol, rtol=rtol)
+
+
+def test_bwd_kernel_out_of_bounds_gives_exact_zeros(cuda_device):
+    shapes, value, loc, attw, go = msda_inputs(cuda_device, "multi_odd_d",
+                                               DTYPES["f32"])
+    loc = torch.where(loc < 0.5, -0.6, 1.6)
+    for g in msda.ms_deform_attn_bwd(value, shapes, loc, attw, go):
+        assert int(torch.count_nonzero(g)) == 0
+
+
+def test_msda_module_grads_reach_its_projections(cuda_device):
+    """The repaired fault: before MSDeformAttnFunction, the kernel's output
+    had no grad_fn and value_proj, sampling_offsets and attention_weights
+    got no gradient through MSDA on the card. Now each gets one, launched
+    through msda_fwd and msda_bwd once each, and it equals the CPU
+    module's (plain MSDA) within atol 1e-4 / rtol 1e-3."""
+    torch.manual_seed(0)
+    cpu = MSDeformAttn(64, 2, 4, 4)
+    with torch.no_grad():
+        cpu.sampling_offsets.weight.normal_(0, 0.02)
+        cpu.attention_weights.weight.normal_(0, 0.2)
+    gpu = MSDeformAttn(64, 2, 4, 4).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    shapes = ((6, 8), (3, 4))
+    query = torch.randn(2, 20, 64)
+    src = torch.randn(2, 60, 64)
+    ref = torch.rand(2, 20, 2, 2)
+    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    for mod, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        out = mod(query.to(dev), ref.to(dev), src.to(dev), shapes)
+        out.square().sum().backward()
+    assert msda.ms_deform_attn.launches == fwd + 1
+    assert msda.ms_deform_attn_bwd.launches == bwd + 1
+    for name in ("value_proj", "sampling_offsets", "attention_weights"):
+        g = getattr(gpu, name).weight.grad
+        assert g is not None and bool(g.abs().sum() > 0), name
+        torch.testing.assert_close(g.cpu(), getattr(cpu, name).weight.grad,
+                                   atol=1e-4, rtol=1e-3)
+
+
+def test_small_train_step_card_matches_cpu(cuda_device):
+    """One train-step loss and every gradient: the small LateFusion model
+    on the card (both kernels) against the same weights and batch on the
+    CPU (plain MSDA), f32, dropout 0. Loss and components atol 1e-5 /
+    rtol 1e-4, gradients atol 1e-4 / rtol 1e-3, TF32 off."""
+    cfg = Config(model=ModelConfig(**SMALL))
+    cpu_model, criterion, _ = build_model(cfg, device="cpu", seed=3)
+    gpu_model, _, _ = build_model(cfg, device=cuda_device, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    B, T = 2, 8
+    valid = torch.arange(T)[None] < torch.tensor([[3], [5]])
+    batch = {"images": torch.randint(0, 256, (B, 96, 128, 4), generator=gen,
+                                     dtype=torch.uint8),
+             "sizes": torch.tensor([[96, 128], [60, 84]]),
+             "labels": torch.randint(0, 2, (B, T), generator=gen),
+             "boxes": torch.cat([torch.rand((B, T, 2), generator=gen) * 0.6
+                                 + 0.2, torch.rand((B, T, 2), generator=gen)
+                                 * 0.3 + 0.05], -1),
+             "valid": valid}
+    results = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda_device)):
+        state = create_train_state(model, cfg)
+        loss, parts = criterion(*forward(
+            state, {k: v.to(dev) for k, v in batch.items()}))
+        loss.backward()
+        results.append(({"loss": loss.detach(), **parts},
+                        {n: p.grad for n, p in model.named_parameters()
+                         if p.grad is not None}))
+    (ref_parts, ref_grads), (parts, grads) = results
+    for k, r in ref_parts.items():
+        torch.testing.assert_close(parts[k].detach().cpu(), r.detach(),
+                                   atol=1e-5, rtol=1e-4)
+    assert grads.keys() == ref_grads.keys()
+    for n, r in ref_grads.items():
+        torch.testing.assert_close(grads[n].cpu(), r, atol=1e-4, rtol=1e-3)

@@ -67,7 +67,7 @@ def flax_run(request):
 
 
 def port_model(kw, variables):
-    model, _ = build_model(Config(model=ModelConfig(**kw)), device="cpu")
+    model, _, _ = build_model(Config(model=ModelConfig(**kw)), device="cpu")
     return load_jax_variables(model, variables)
 
 
