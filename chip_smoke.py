@@ -14,7 +14,9 @@ Phases, each on lines of its own:
    the bf16 mixes the paths feed, at their shapes and edge cases, with
    times: kernel, plain version, a PyTorch yardstick, and the least time
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
-   f32). K1 (``msda_fwd``) first, then K2 (``msda_bwd``);
+   f32). K1 (``msda_fwd``, also at 5 levels, TDAM with 5 reference
+   frames), then K2 (``msda_bwd``), then K3 (``hat_sample_fwd``, the
+   bilinear sampling under RoIAlign) at the QRF shape and edge cases;
 4. the serving path at full width: LateFusion RGB-D DeformableDETR (ResNet-50
    DC5 + DFormer, hidden 256, 8 heads, 6+6 layers, 300 queries, box
    refinement) at B=8 608x800 from uint8 frames in bf16, random weights from
@@ -22,15 +24,24 @@ Phases, each on lines of its own:
    after; the detections must be finite and agree with the port's own f32
    forward; a small model on the card must agree with the same model on
    the CPU;
-5. the training path at full width: the recipe of
+5. the clip serving path at full width: the TransVOD++ LateFusion model of
+   ``configs/training/TransVOD++_withdepth.sh`` (the model above, 4
+   reference frames, QRF + 3 temporal rounds) on 2 clips x 5 frames at
+   608x800 in bf16: one warm-up and five timed requests with 16 K1 and 1
+   K3 launches each (counts set to 0 just before, read just after), finite
+   outputs, boxes in [0, 1], the key frames' single-frame outputs against
+   the f32 forward; then small f32 TransVOD++ and TransVOD+TDAM (5
+   reference frames) models on the card against the same on the CPU;
+6. the training path at full width: the recipe of
    ``configs/training/LateFusion_bf16.sh`` at B=6 608x800, one warm-up and
    five timed ``train_step``s with 13 K1 and 13 K2 launches each (counts
    set to 0 just before, read just after), finite losses, the frozen
    ResNet-50 bitwise unchanged, every trainable group and the DFormer BN
    statistics moved; then a small f32 train step on the card against the
    same step on the CPU (loss, components and every gradient);
-6. the card line, a JSON line of the train phase, a JSON line of the
-   kernels, and the final line ``{"ok": true, "device": {...}}``.
+7. the card line, a JSON line of the train phase, a JSON line of the
+   kernels and the serving paths, and the final line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -159,8 +170,11 @@ def phase_msda_kernel():
     enc = (((38, 50),), BATCH, 1900, 8, 32, 4)
     dec = (((38, 50),), BATCH, 300, 8, 32, 4)
     multi = (((19, 25), (10, 13)), 2, 301, 8, 24, 4)
+    # TDAM with 5 reference frames: the key frame's tokens into 5 levels
+    tdam = (((38, 50),) * 5, 2, 1900, 8, 32, 4)
     cases = [("enc", enc, f32, False), ("enc", enc, serve, False),
              ("dec", dec, f32, False), ("dec", dec, serve, False),
+             ("tdam_l5", tdam, f32, False), ("tdam_l5", tdam, serve, False),
              ("multi_d24", multi, f32, False),
              ("multi_d24", multi, serve, False),
              ("multi_d24", multi, (torch.bfloat16,) * 3, False),
@@ -309,9 +323,11 @@ def phase_msda_bwd_kernel():
     multi = (((19, 25), (10, 13)), 2, 301, 8, 24, 4)
     oob = (((38, 50),), 2, 64, 8, 32, 4)
     integer = (((32, 64), (16, 8)), 2, 128, 8, 32, 4)
+    tdam = (((38, 50),) * 5, 1, 1900, 8, 32, 4)
     cases = [(name, dims, dt) for name, dims in
              (("enc", enc), ("dec", dec), ("multi_d24", multi), ("oob", oob),
-              ("integer_px", integer)) for dt in (f32, train, serve)]
+              ("integer_px", integer), ("tdam_l5", tdam))
+             for dt in (f32, train, serve)]
     results = {}
     for name, (shapes, B, Lq, M, D, P), dtypes in cases:
         value, loc, attw = msda_inputs(gen, shapes, B, Lq, M, D, P, dtypes,
@@ -369,6 +385,142 @@ def phase_msda_bwd_kernel():
     results["training_mix"] = "/".join(str(d).replace("torch.", "")
                                        for d in train)
     return results
+
+
+# ------------------------------------------------- K3: RoIAlign's sampling
+QRF_FRAMES, QRF_ROIS = 10, 300     # 2 clips x 5 frames, 300 queries each
+HAT_OPS_PER_POINT, HAT_OPS_PER_CHANNEL = 25, 8
+
+
+def grid_sample_hat(value, px, py, aw):
+    """Yardstick only, never called by the port: ``F.grid_sample``
+    (``align_corners=True`` maps pixel indices exactly, zeros outside) over
+    the PL points, then the weighted sum. value (BM, H, W, D); the grid is
+    in the value's dtype, as grid_sample requires."""
+    import torch.nn.functional as F
+    BM, H, W, D = value.shape
+    grid = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1)
+    s = F.grid_sample(value.permute(0, 3, 1, 2), grid.to(value.dtype),
+                      mode="bilinear", padding_mode="zeros",
+                      align_corners=True)                  # (BM, D, Lq, PL)
+    return (s * aw[:, None].to(value.dtype)).sum(-1).transpose(1, 2)
+
+
+def hat_bound(value, px, py, aw, out):
+    """(least ms, 'bytes' | 'operations') of K3: each input read once, the
+    output written once; per sample point ~25 coordinate and corner-weight
+    ops and 8 per channel (4 corner multiply-adds)."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (value, px, py, aw, out))
+    BM, Lq, PL = px.shape
+    ops = BM * Lq * PL * (HAT_OPS_PER_CHANNEL * value.shape[-1]
+                          + HAT_OPS_PER_POINT)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def qrf_points(gen):
+    """px, py, aw of the QRF RoIAlign at full width: 300 random boxes per
+    frame on the 608x800 image, sampled on the 38x50 stride-16 memory with
+    the model's spatial_scale 1/32, 7x7 bins, 2x2 points per bin."""
+    from dfvod_tpu_torch.ops.roi_align import roi_sample_points
+    from dfvod_tpu_torch.utils.box_ops import box_cxcywh_to_xyxy
+    cxcy = torch.rand((QRF_FRAMES, QRF_ROIS, 2), generator=gen,
+                      device="cuda") * 0.9 + 0.05
+    wh = torch.rand((QRF_FRAMES, QRF_ROIS, 2), generator=gen,
+                    device="cuda") * 0.6 + 0.02
+    whwh = torch.tensor([W, H, W, H], dtype=torch.float32, device="cuda")
+    boxes = box_cxcywh_to_xyxy(torch.cat([cxcy, wh], -1)) * whwh
+    return roi_sample_points(boxes, H // 16, W // 16, output_size=7,
+                             spatial_scale=1 / 32, sampling_ratio=2)
+
+
+def edge_points(gen, BM, Lq, PL, h, w):
+    """Points outside the grid, in (-1, 0) and (h-1, h), on integer
+    coordinates, with aw = 0, the -1e6 padding, NaN and inf."""
+    dev = "cuda"
+    px = torch.rand((BM, Lq, PL), generator=gen, device=dev) * (w + 4) - 2.5
+    py = torch.rand((BM, Lq, PL), generator=gen, device=dev) * (h + 4) - 2.5
+    aw = torch.randn((BM, Lq, PL), generator=gen, device=dev)
+    px[:, :10] = torch.floor(px[:, :10])
+    py[:, 5:15] = torch.floor(py[:, 5:15])
+    px[:, 15:20] = -0.5
+    py[:, 20:25] = h - 0.5
+    px[:, 25:30] = w - 0.25
+    aw[:, 30:35] = 0.0
+    px[:, 35:40] = -1e6
+    py[:, 35:40] = -1e6
+    px[:, 40:42, 0] = float("nan")
+    py[:, 42:44, 1] = float("inf")
+    return px, py, aw
+
+
+def hat_agrees(got, ref):
+    """(ok, tolerance): f32 atol/rtol 1e-5; bf16 against the f32 plain
+    version on the same bf16 value, where rounding the output once costs
+    at most 2^-8 of it."""
+    if got.dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * ref.abs()
+        return bool(((got - ref).abs() <= tol).all()), "atol 1e-5 rtol 1e-5"
+    tol = 1e-5 + 2.0 ** -8 * ref.abs()
+    return (bool(((got.float() - ref).abs() <= tol).all()),
+            "atol 1e-5 rtol 2^-8 (bf16 output rounding)")
+
+
+def phase_hat_kernel():
+    """K3 (``csrc/hat_sample_fwd.cu``) against its plain version at the QRF
+    shape and at edge cases, f32 and bf16; times at the QRF shape."""
+    from dfvod_tpu_torch.ops import hat_sample as hs
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [("qrf", dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(f"edge_d{d}", dt) for d in (8, 40, 256)
+              for dt in (torch.float32, torch.bfloat16)]
+    result = {}
+    for name, dt in cases:
+        if name == "qrf":
+            value = torch.randn((QRF_FRAMES, H // 16, W // 16, 256),
+                                generator=gen, device="cuda").to(dt)
+            px, py, aw = qrf_points(gen)
+        else:
+            d = int(name[len("edge_d"):])
+            value = torch.randn((3, 7, 9, d), generator=gen,
+                                device="cuda").to(dt)
+            px, py, aw = edge_points(gen, 3, 133, 5, 7, 9)
+        got = hs.hat_sample(value, px, py, aw)
+        torch.cuda.synchronize()
+        ref = hs.hat_sample_plain(value.float(), px, py, aw)
+        ok, tol = hat_agrees(got, ref)
+        ok = ok and bool(torch.isfinite(got.float()).all())
+        max_err = float((got.float() - ref).abs().max())
+        print(f"[hat] {name:9s} {str(dt).replace('torch.', ''):9s} "
+              f"value={tuple(value.shape)} Lq={px.shape[1]} PL={px.shape[2]}"
+              f" max_abs_err={max_err:.3e} ({tol}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"hat_sample_fwd disagrees with its plain version: {name} "
+                  f"{dt} max_abs_err {max_err}")
+        if name == "qrf" and dt == torch.bfloat16:
+            yard = grid_sample_hat(value, px, py, aw)
+            result = {
+                "max_abs_err": max_err,
+                "ms": cuda_ms(lambda: hs.hat_sample(value, px, py, aw), 50),
+                "plain_ms": cuda_ms(
+                    lambda: hs.hat_sample_plain(value, px, py, aw), 5),
+                "yardstick_ms": cuda_ms(
+                    lambda: grid_sample_hat(value, px, py, aw), 20),
+                "yardstick_max_abs_err": float(
+                    (yard.float() - ref).abs().max()),
+            }
+            result["bound_ms"], result["bound_by"] = hat_bound(
+                value, px, py, aw, got)
+            r = result
+            print(f"[hat] time qrf bf16 value, f32 points: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"grid_sample yardstick {r['yardstick_ms']:.4f} ms "
+                  f"(max_abs_err {r['yardstick_max_abs_err']:.3e}: a bf16 "
+                  f"grid), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+    return result
 
 
 # ----------------------------------------------------------- serving path
@@ -508,6 +660,184 @@ def phase_small_cpu_reference():
               f" {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"small model on the card disagrees with the CPU on {k}")
 
+
+# ------------------------------------------------------ clip serving path
+CLIPS, CLIP_FRAMES = 2, 5          # TransVOD++_withdepth.sh: 4 ref frames
+
+
+def clip_frames(seed, n_clips=CLIPS, F=CLIP_FRAMES, h=H, w=W):
+    """uint8 RGB-D frames of ``n_clips`` contiguous clips of F frames,
+    [key, ref_1, ...] each, with their content sizes: a reference frame of
+    the first clip and the key frame of the second are padded
+    bottom/right."""
+    gen = torch.Generator().manual_seed(seed)
+    n = n_clips * F
+    imgs = torch.randint(0, 256, (n, h, w, 4), generator=gen,
+                         dtype=torch.uint8)
+    sizes = torch.tensor([[h, w]] * n)
+    sizes[2] = torch.tensor([h * 3 // 4, w])
+    if n_clips > 1:
+        sizes[F] = torch.tensor([h - 8, w * 15 // 16])
+    for i, (hh, ww) in enumerate(sizes.tolist()):
+        imgs[i, hh:] = 0
+        imgs[i, :, ww:] = 0
+    return imgs, sizes
+
+
+def phase_clip_serve(requests=5):
+    """The TransVOD++ LateFusion recipe at full width, 2 clips x 5 frames
+    at 608x800 in bf16: one warm-up, then ``requests`` timed requests."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.ops import hat_sample, msda
+    from dfvod_tpu_torch.serve import Server
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+
+    cfg = Config(model=ModelConfig(fusion_type="LateFusion",
+                                   temporal_mode="transvod_pp",
+                                   num_ref_frames=CLIP_FRAMES - 1))
+    m = cfg.model
+    print(f"[clip] TransVOD++ LateFusion hidden={m.hidden_dim} heads="
+          f"{m.nheads} enc={m.enc_layers} dec={m.dec_layers} queries="
+          f"{m.num_queries} dc5={m.dilation} refine={m.with_box_refine} "
+          f"ref_frames={m.num_ref_frames} temporal_dec="
+          f"{m.n_temporal_decoder_layers}; {CLIPS} clips x {CLIP_FRAMES} "
+          f"frames {H}x{W} bf16", flush=True)
+    t0 = time.perf_counter()
+    ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
+    randomize(ref_model, seed=1)
+    ref_model = ref_model.to("cuda")
+    server = Server(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    server.model.load_state_dict(ref_model.state_dict())
+    print(f"[clip] built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in server.model.parameters())} params",
+          flush=True)
+    reqs = [tuple(t.to("cuda") for t in clip_frames(seed))
+            for seed in range(requests + 1)]
+    t0 = time.perf_counter()
+    server(*reqs[0])                                # warm-up
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+
+    msda.ms_deform_attn.launches = 0
+    hat_sample.hat_sample.launches = 0
+    times, dets = [], []
+    for x, s in reqs[1:]:
+        t0 = time.perf_counter()
+        dets.append(server(x, s))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    k1, k3 = msda.ms_deform_attn.launches, hat_sample.hat_sample.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[clip] launches over {requests} requests: msda_fwd {k1}, "
+          f"hat_sample_fwd {k3} ({k1 / requests:g} and {k3 / requests:g} "
+          f"per request)", flush=True)
+    check(k1 == 16 * requests and k3 == requests,
+          f"expected 16 msda_fwd and 1 hat_sample_fwd launches per request, "
+          f"got {k1} and {k3} over {requests}")
+    for d in dets:
+        check(d["scores"].shape == (CLIPS, 100)
+              and d["boxes"].shape == (CLIPS, 100, 4),
+              f"clip detections of shape {tuple(d['boxes'].shape)}")
+        check(bool(torch.isfinite(d["scores"]).all()
+                   and torch.isfinite(d["boxes"].float()).all()),
+              "non-finite clip detections")
+    ms = 1e3 * sum(times) / len(times)
+    n = CLIPS * CLIP_FRAMES
+    print(f"[clip] ms per request of {CLIPS} clips x {CLIP_FRAMES} frames: "
+          f"mean {ms:.3f} (first request {first_ms:.1f}; per request "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in times)}) -> "
+          f"{n / (ms / 1e3):.1f} frames/s, {CLIPS / (ms / 1e3):.2f} clips/s;"
+          f" peak memory {peak:.2f} GiB", flush=True)
+
+    # outputs: finite, boxes in [0, 1]; the key frames' single-frame
+    # outputs against the port's own f32 forward (same weights and input)
+    x, s = reqs[1]
+    with torch.no_grad():
+        out16 = server.forward(x, s)
+        out32 = ref_model(*device_normalize(x, s))
+    heads = [("final", out16, out32)] + [
+        (f"aux{i}", a, b) for i, (a, b) in
+        enumerate(zip(out16["aux_outputs"], out32["aux_outputs"]))]
+    for tag, o16, _ in heads + [("single_frame", out16["_single_frame"],
+                                 None)]:
+        boxes = o16["pred_boxes"].float()
+        check(bool(torch.isfinite(o16["pred_logits"].float()).all()
+                   and torch.isfinite(boxes).all()
+                   and (boxes >= 0).all() and (boxes <= 1).all()),
+              f"clip {tag} outputs not finite or boxes outside [0, 1]")
+    diff = (out16["_single_frame"]["pred_boxes"].float()
+            - out32["_single_frame"]["pred_boxes"]).abs()
+    print(f"[clip] key frames' single-frame boxes, bf16 vs f32: max "
+          f"{float(diff.max()):.3e} mean {float(diff.mean()):.3e} "
+          f"(tolerance max {BOX_MAX_TOL}, mean {BOX_MEAN_TOL})", flush=True)
+    check(float(diff.max()) <= BOX_MAX_TOL
+          and float(diff.mean()) <= BOX_MEAN_TOL,
+          "bf16 clip serve's key-frame trunk disagrees with the f32 forward")
+    drift = {}
+    for tag, o16, o32 in heads:
+        for k in ("pred_logits", "pred_boxes"):
+            e = (o16[k].float() - o32[k]).abs()
+            drift[f"{tag}_{k}"] = (float(e.max()), float(e.mean()))
+    print("[clip] temporal outputs, bf16 vs f32 (not gated: top-k may "
+          "select other reference queries in bf16): " + ", ".join(
+              f"{k} max {a:.3e} mean {b:.3e}" for k, (a, b) in drift.items()),
+          flush=True)
+    return {"ms_per_request": ms, "frames_per_s": n / (ms / 1e3),
+            "clips_per_s": CLIPS / (ms / 1e3), "first_request_ms": first_ms,
+            "peak_memory_gib": peak, "launches_msda_fwd": k1,
+            "launches_hat_sample_fwd": k3, "requests": requests}
+
+
+def phase_small_temporal_reference():
+    """Small f32 TransVOD++ and TransVOD+TDAM (5 reference frames, so K1
+    takes 5 levels) models on the card against the same weights on the
+    CPU, padded clips: atol 1e-4 / rtol 1e-3, TF32 off."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.ops import hat_sample, msda
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    small = dict(fusion_type="LateFusion", num_queries=100, hidden_dim=64,
+                 nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128)
+    variants = (("transvod_pp", dict(temporal_mode="transvod_pp",
+                                     num_ref_frames=2), 8, 1),
+                ("transvod_tdam", dict(temporal_mode="transvod",
+                                       use_tdam=True, num_ref_frames=5), 7,
+                 0))
+    for name, kw, k1_want, k3_want in variants:
+        cfg = Config(model=ModelConfig(**small, **kw))
+        cpu_model, _, _ = build_model(cfg, device="cpu", seed=3)
+        randomize(cpu_model, seed=4)
+        gpu_model, _, _ = build_model(cfg, device="cuda", seed=3)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        x, s = clip_frames(7, n_clips=2, F=1 + kw["num_ref_frames"], h=96,
+                           w=128)
+        msda.ms_deform_attn.launches = hat_sample.hat_sample.launches = 0
+        with torch.no_grad():
+            ref = cpu_model(*device_normalize(x, s))
+            got = gpu_model(*device_normalize(x.cuda(), s.cuda()))
+        k1, k3 = msda.ms_deform_attn.launches, hat_sample.hat_sample.launches
+        check(k1 == k1_want and k3 == k3_want,
+              f"small {name} on the card launched msda_fwd {k1} and "
+              f"hat_sample_fwd {k3} times, not {k1_want} and {k3_want}")
+        pairs = [("final", got, ref),
+                 ("single_frame", got["_single_frame"],
+                  ref["_single_frame"])]
+        pairs += [(f"aux{i}", a, b) for i, (a, b) in
+                  enumerate(zip(got.get("aux_outputs", []),
+                                ref.get("aux_outputs", [])))]
+        worst = 0.0
+        for tag, g, r in pairs:
+            for k in ("pred_logits", "pred_boxes"):
+                err = (g[k].cpu() - r[k]).abs()
+                worst = max(worst, float(err.max()))
+                check(bool((err <= 1e-4 + 1e-3 * r[k].abs()).all()),
+                      f"small {name} on the card disagrees with the CPU on "
+                      f"{tag} {k}: max_abs_err {float(err.max()):.3e}")
+        print(f"[small-clip] {name} card vs cpu, {len(pairs)} heads: "
+              f"max_abs_err {worst:.3e} (atol 1e-4 rtol 1e-3) ok; launches "
+              f"msda_fwd {k1} hat_sample_fwd {k3}", flush=True)
 
 
 # ------------------------------------------------------------ training path
@@ -702,7 +1032,7 @@ def main() -> int:
     print(f"[card] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32}"
           f" cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    names = ("msda_fwd", "msda_bwd")
+    names = ("msda_fwd", "msda_bwd", "hat_sample_fwd")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         built = list(pool.map(build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -715,8 +1045,11 @@ def main() -> int:
 
     kern = phase_msda_kernel()
     kern_bwd = phase_msda_bwd_kernel()
+    kern_hat = phase_hat_kernel()
     serve = phase_serve()
     phase_small_cpu_reference()
+    clip = phase_clip_serve()
+    phase_small_temporal_reference()
     train = phase_train()
     phase_small_train_reference()
 
@@ -736,6 +1069,7 @@ def main() -> int:
                  "f32 loc, bf16 attw",
         "decoder": kern["dec"],
         "train_launches": train["launches_fwd"],
+        "clip_launches": clip["launches_msda_fwd"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -753,8 +1087,23 @@ def main() -> int:
                  f"{kern_bwd['training_mix']} value/loc/attw (training mix)",
         "decoder": kern_bwd["dec"],
     }
+    record_hat = {
+        "name": "hat_sample_fwd", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/hat_sample_fwd.cu",
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:112",
+        "launches": clip["launches_hat_sample_fwd"],
+        **{k: kern_hat[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+        # torchvision.ops.roi_align would be the one library call, and the
+        # card machine has no torchvision; F.grid_sample over the points is
+        # timed as a labelled yardstick
+        "library_ms": None,
+        "yardstick_ms": kern_hat["yardstick_ms"],
+        "shape": f"QRF BM={QRF_FRAMES} 38x50 D=256 bf16 value, "
+                 f"Lq={QRF_ROIS}x49 PL=4 f32 points",
+    }
     for r in (record, record["decoder"], record_bwd, record_bwd["decoder"],
-              train):
+              record_hat, train, clip):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -762,7 +1111,10 @@ def main() -> int:
     print(json.dumps({"train": {k: train[k] for k in (
         "ms_per_step", "frames_per_s", "first_step_ms", "peak_memory_gib",
         "steps")}}))
-    print(json.dumps({"kernels": [record, record_bwd],
+    print(json.dumps({"clip_serve": {k: clip[k] for k in (
+        "ms_per_request", "frames_per_s", "clips_per_s", "first_request_ms",
+        "peak_memory_gib", "requests")}}))
+    print(json.dumps({"kernels": [record, record_bwd, record_hat],
                       "serve": {k: serve[k] for k in ("ms_per_batch",
                                                       "frames_per_s")}}))
     print(json.dumps({"ok": True, "device": {

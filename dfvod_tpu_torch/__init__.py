@@ -11,14 +11,16 @@ Layout
 ------
 - ``ops``      : MSDA (plain PyTorch forward and backward + hand-written
                  CUDA kernels in ``csrc/``, joined as an autograd
-                 Function) and the kernel build.
+                 Function), the bilinear sampling under RoIAlign (plain
+                 version + CUDA kernel) and RoIAlign, and the kernel build.
 - ``models``   : backbones, transformer trunk, LateFusion adapter, heads,
-                 postprocess, matcher, criterion.
+                 the TransVOD / TransVOD++ temporal heads, postprocess,
+                 matcher, criterion.
 - ``train``    : the grouped optimizer and the train step.
 - ``data``     : on-device uint8 normalization.
 - ``utils``    : box ops, config, weight conversion from the JAX package,
                  device choice.
-- ``serve``    : the serving entry point.
+- ``serve``    : the serving entry point (single frames or clips).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

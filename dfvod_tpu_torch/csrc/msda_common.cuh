@@ -1,5 +1,6 @@
-// Shared pieces of the MSDA kernels (msda_fwd.cu, msda_bwd.cu): the level
-// table, the dtype codes of the Python wrapper, and f32 conversions.
+// Shared pieces of the CUDA kernels: the MSDA level table (msda_fwd.cu,
+// msda_bwd.cu), and the dtype codes of the Python wrappers, the block size
+// and the f32 conversions (also hat_sample_fwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -7,7 +8,7 @@
 
 namespace msda {
 
-constexpr int kMaxLevels = 4;
+constexpr int kMaxLevels = 16;
 constexpr int kWarpsPerBlock = 8;
 
 // dtype codes shared with the Python wrapper

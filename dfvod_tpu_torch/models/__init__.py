@@ -1,5 +1,7 @@
 """Model factory (counterpart of ``dfvod_tpu/models/__init__.py``):
-``build_model(cfg, device, seed)`` -> (model, criterion, postprocess)."""
+``build_model(cfg, device, seed)`` -> (model, criterion, postprocess), the
+single-frame ``DeformableDETR`` or, by ``cfg.model.temporal_mode``, the
+TransVOD / TransVOD++ ``TemporalDeformableDETR``."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +10,7 @@ from torch import nn
 from dfvod_tpu_torch.models.criterion import SetCriterion
 from dfvod_tpu_torch.models.detr import DeformableDETR
 from dfvod_tpu_torch.models.postprocess import postprocess
+from dfvod_tpu_torch.models.temporal import TemporalDeformableDETR
 from dfvod_tpu_torch.models.transformer import DeformableTransformer
 from dfvod_tpu_torch.utils.config import Config
 from dfvod_tpu_torch.utils.device import resolve_device
@@ -45,7 +48,10 @@ def build_model(cfg: Config, device=None, seed: int = 0):
     drawn from ``seed``, the ``SetCriterion`` of ``cfg.loss``, and
     postprocess. Raises when CUDA is absent and no device was asked for."""
     device = resolve_device(device)
-    model = DeformableDETR(cfg.model)
+    if cfg.model.temporal_mode == "none":
+        model = DeformableDETR(cfg.model)
+    else:
+        model = TemporalDeformableDETR(cfg.model)
     init_parameters(model, torch.Generator().manual_seed(seed))
     criterion = SetCriterion(cfg.model.num_classes, cfg.loss,
                              dec_layers=cfg.model.dec_layers)

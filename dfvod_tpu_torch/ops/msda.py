@@ -33,7 +33,7 @@ import torch
 from dfvod_tpu_torch.ops import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_LEVELS = 4
+MAX_LEVELS = 16
 
 
 def total_tokens(spatial_shapes: Sequence[Tuple[int, int]]) -> int:

@@ -5,6 +5,11 @@ without file IO. Each request runs ``device_normalize`` -> the model ->
 ``postprocess``. In serving mode (``dtype=torch.bfloat16``, the default)
 every float parameter and buffer is cast to bf16 and the model is fed a
 bf16 image, as the JAX package's bench does.
+
+With ``temporal_mode`` ``"transvod"`` or ``"transvod_pp"`` a request is
+whole clips: ``B`` clips of ``F = 1 + num_ref_frames`` frames each,
+contiguous, frame order ``[key, ref_1, ..., ref_N]``, and the detections
+are the key frames'.
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ class Server:
                  dtype=torch.bfloat16, seed: int = 0):
         self.cfg = cfg
         self.dtype = dtype
+        m = cfg.model
+        # frames per clip; 1 for the single-frame model
+        self.frames = 1 if m.temporal_mode == "none" else 1 + m.num_ref_frames
         model, _, self.postprocess = build_model(cfg, device, seed)
         if variables is not None:
             load_jax_variables(model, variables)
@@ -42,19 +50,27 @@ class Server:
     def forward(self, images_u8, sizes):
         """The model's output dict for one request (see ``__call__``)."""
         images_u8 = _as_tensor(images_u8, self.device)
+        sizes = _as_tensor(sizes, self.device)
         if images_u8.dtype != torch.uint8 or images_u8.dim() != 4:
             raise ValueError("images must be uint8 (B, H, W, C)")
-        img, mask = device_normalize(images_u8,
-                                     _as_tensor(sizes, self.device))
+        if images_u8.shape[0] % self.frames:
+            raise ValueError(f"{images_u8.shape[0]} frames are not whole "
+                             f"clips of {self.frames}")
+        if sizes.shape != (images_u8.shape[0], 2):
+            raise ValueError(f"sizes must be ({images_u8.shape[0]}, 2), not "
+                             f"{tuple(sizes.shape)}")
+        img, mask = device_normalize(images_u8, sizes)
         return self.model(img.to(self.dtype), mask)
 
     def __call__(self, images_u8, sizes):
-        """images_u8: (B, H, W, C) uint8 frames padded bottom/right;
-        sizes: (B, 2) content (h, w). Returns scores (B, k), labels (B, k)
-        and boxes (B, k, 4) as xyxy pixels of the content frame."""
+        """images_u8: (B*F, H, W, C) uint8 frames padded bottom/right, F
+        frames per clip (F = 1 for the single-frame model); sizes: (B*F, 2)
+        content (h, w). Returns scores (B, k), labels (B, k) and boxes
+        (B, k, 4) as xyxy pixels of the (key) frame's content."""
         out = self.forward(images_u8, sizes)
+        key_sizes = _as_tensor(sizes, self.device)[::self.frames]
         return self.postprocess(out["pred_logits"], out["pred_boxes"],
-                                _as_tensor(sizes, self.device))
+                                key_sizes)
 
 
 def _as_tensor(x, device):

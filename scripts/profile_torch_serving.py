@@ -12,6 +12,12 @@ a seed) through ``dfvod_tpu_torch.serve.Server`` and prints:
    ``msda_fwd`` kernel's share, and the device busy share (kernel time over
    the window's wall time).
 
+Clip serving (``--clips``): the full-width TransVOD++ LateFusion request of
+``chip_smoke.py``'s clip phase (2 clips x 5 frames at 608x800, bf16) and
+the same three readings, with the layer groups of the trunk plus the
+temporal head: the QRF's RoIAlign (K3), its RCNNHead, the temporal query
+layers, the temporal decoders and the temporal heads.
+
 Training (``--train``): the train step of ``chip_smoke.py``'s train phase
 (the LateFusion_bf16.sh recipe, B=6 608x800, bf16 autocast) and prints:
 
@@ -23,6 +29,7 @@ Training (``--train``): the train step of ``chip_smoke.py``'s train phase
    ``msda_fwd`` / ``msda_bwd`` kernels' time, the top kernels and ops.
 
     python3 scripts/profile_torch_serving.py [--requests 3]
+    python3 scripts/profile_torch_serving.py --clips [--requests 3]
     python3 scripts/profile_torch_serving.py --train [--requests 3]
 
 Needs one CUDA device.
@@ -41,6 +48,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def layer_groups(model):
+    if hasattr(model, "detr"):                  # TransVOD++
+        groups = layer_groups(model.detr)
+        groups.update({
+            "QRF RCNNHead": [model.qrf_dynamic_layer1],
+            "temporal query layers (3)": [
+                getattr(model, f"temporal_query_layer{i}") for i in (1, 2, 3)],
+            "temporal decoders (3)": [
+                getattr(model, f"temporal_decoder{i}") for i in (1, 2, 3)],
+            "temporal heads (3)": [getattr(model, f"temp_head_{i}")
+                                   for i in (0, 1, 2)]})
+        return groups
     t = model.transformer
     groups = {"backbone (ResNet-50 DC5)": [model.backbone],
               "depth backbone (DFormer)": [model.depth_backbone],
@@ -116,7 +134,7 @@ def profiler_window(fn, n, label):
           f"{busy_ms:.3f} ms; device busy {100 * busy_ms / wall_ms:.1f}%, "
           f"idle {100 - 100 * busy_ms / wall_ms:.1f}% (profiler on)",
           flush=True)
-    for name in ("msda_fwd", "msda_bwd"):
+    for name in ("msda_fwd", "msda_bwd", "hat_sample_fwd"):
         us = sum(device_time_us(e, True) for e in kernels if name in e.key)
         calls = sum(e.count for e in kernels if name in e.key)
         if calls:
@@ -208,8 +226,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=3,
                     help="requests (or train steps) per measurement")
-    ap.add_argument("--train", action="store_true",
-                    help="profile the train step instead of serving")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the train step instead of serving")
+    mode.add_argument("--clips", action="store_true",
+                      help="profile TransVOD++ clip serving (2 clips x 5 "
+                           "frames) instead of single frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -220,21 +242,39 @@ def main() -> int:
     if args.train:
         return profile_train(cs, args.requests)
     from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.models import temporal
     from dfvod_tpu_torch.serve import Server
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
-    cfg = Config(model=ModelConfig(fusion_type="LateFusion"))
+    if args.clips:
+        cfg = Config(model=ModelConfig(fusion_type="LateFusion",
+                                       temporal_mode="transvod_pp",
+                                       num_ref_frames=cs.CLIP_FRAMES - 1))
+        x, s = (t.to("cuda") for t in cs.clip_frames(0))
+    else:
+        cfg = Config(model=ModelConfig(fusion_type="LateFusion"))
+        x, s = (t.to("cuda") for t in cs.frames(0))
     ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
     cs.randomize(ref_model, seed=1)
     server = Server(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
     server.model.load_state_dict(ref_model.state_dict())
-    x, s = (t.to("cuda") for t in cs.frames(0))
     for _ in range(2):                      # warm-up
         server(x, s)
     torch.cuda.synchronize()
 
-    # 1 + 2: host ms per request and per-layer device time
+    # 1 + 2: host ms per request and per-layer device time; RoIAlign is a
+    # function, timed by wrapping it
     pairs, handles = hook_events(layer_groups(server.model))
+    roi_align = temporal.roi_align
+
+    def timed_roi_align(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = roi_align(*args, **kwargs)
+        ev[1].record()
+        pairs["QRF RoIAlign (K3)"].append(ev)
+        return out
+    temporal.roi_align = timed_roi_align
     totals = []
     host = []
     for _ in range(args.requests):
@@ -249,6 +289,7 @@ def main() -> int:
         totals.append(start.elapsed_time(end))
     for h in handles:
         h.remove()
+    temporal.roi_align = roi_align
     n = args.requests
     total = sum(totals) / n
     print(f"[time] host ms per request: "

@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the CUDA MSDA kernels (forward
-and backward) against their plain versions, gradients through the MSDA
-module on the card, and a small model and a small train step on the card
-against the same on the CPU. They skip without a CUDA device. This file
+and backward, up to TDAM's 5 levels) and the bilinear-sampling kernel under
+RoIAlign (K3) against their plain versions, gradients through the MSDA
+module on the card, the refused backward through K3, and small models
+(single-frame, TransVOD++, TransVOD+TDAM) and a small train step on the
+card against the same on the CPU. They skip without a CUDA device. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed:
 
@@ -13,7 +15,9 @@ import torch
 from dfvod_tpu_torch.data.device_pipeline import device_normalize
 from dfvod_tpu_torch.models import build_model
 from dfvod_tpu_torch.models.layers import MSDeformAttn
+from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops import msda
+from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.train.engine import create_train_state, forward
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
@@ -24,6 +28,8 @@ CASES = {
     "enc": (((38, 50),), 2, 1900, 8, 32, 4),
     "multi_odd_d": (((7, 9), (4, 5)), 2, 37, 3, 5, 2),
     "three_level_d40": (((5, 6), (3, 3), (2, 2)), 1, 131, 2, 40, 3),
+    # TDAM with 5 reference frames: 5 levels of one frame's shape
+    "five_level_tdam": (((6, 7),) * 5, 2, 42, 2, 16, 4),
 }
 DTYPES = {"f32": (torch.float32,) * 3,
           "bf16_serving": (torch.bfloat16, torch.float32, torch.bfloat16),
@@ -217,3 +223,104 @@ def test_small_train_step_card_matches_cpu(cuda_device):
     assert grads.keys() == ref_grads.keys()
     for n, r in ref_grads.items():
         torch.testing.assert_close(grads[n].cpu(), r, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 40, 256])
+def test_hat_kernel_matches_plain(cuda_device, D, dtype):
+    """K3 against its plain version on the same (bf16-rounded) value, with
+    points outside the grid, in (-1, 0) and (H-1, H), on integers, with
+    aw = 0, the -1e6 padding and NaN: f32 atol/rtol 1e-5; bf16 atol 1e-5 /
+    rtol 2^-8 (the output rounded once to bf16)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    BM, H, W, Lq, PL = 3, 7, 9, 133, 5
+    value = torch.randn((BM, H, W, D), generator=gen,
+                        device=cuda_device).to(dtype)
+    px = torch.rand((BM, Lq, PL), generator=gen, device=cuda_device) * 13 - 2
+    py = torch.rand((BM, Lq, PL), generator=gen, device=cuda_device) * 11 - 2
+    aw = torch.randn((BM, Lq, PL), generator=gen, device=cuda_device)
+    px[:, :10] = torch.floor(px[:, :10])
+    px[:, 10:15] = -0.5
+    py[:, 15:20] = H - 0.5
+    aw[:, 20:25] = 0
+    px[:, 25:30] = -1e6
+    py[:, 25:30] = -1e6
+    px[:, 30:32, 0] = float("nan")
+    before = hs.hat_sample.launches
+    got = hs.hat_sample(value, px, py, aw)
+    torch.cuda.synchronize()
+    assert hs.hat_sample.launches == before + 1
+    assert got.dtype == dtype and got.shape == (BM, Lq, D)
+    ref = hs.hat_sample_plain(value.float(), px, py, aw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref, atol=1e-5,
+                                   rtol=2.0 ** -8)
+
+
+def test_hat_kernel_refuses_what_it_does_not_take(cuda_device):
+    value = torch.randn(1, 4, 5, 8, device=cuda_device)
+    p = torch.rand(1, 6, 4, device=cuda_device)
+    with pytest.raises(TypeError):
+        hs.hat_sample(value.half(), p, p, p)
+    with pytest.raises(TypeError):
+        hs.hat_sample(value, p.double(), p, p)
+    with pytest.raises(ValueError):
+        hs.hat_sample(value, p.cpu(), p, p)
+    with pytest.raises(ValueError):
+        hs.hat_sample(value, p[:, :, :2], p, p)
+
+
+def test_roi_align_backward_on_card_raises(cuda_device):
+    """K3's backward (K4) waits for the TransVOD++ training slice: a
+    backward through RoIAlign on the card raises rather than returning no
+    gradient for the features."""
+    feat = torch.randn(1, 9, 11, 8, device=cuda_device, requires_grad=True)
+    boxes = torch.tensor([[[1.0, 1.5, 8.0, 7.0]]], device=cuda_device)
+    out = roi_align(feat, boxes, output_size=3)
+    assert out.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="K4"):
+        out.sum().backward()
+
+
+TEMPORAL = {
+    "transvod_pp": (dict(temporal_mode="transvod_pp", num_ref_frames=2), 8,
+                    1),
+    "transvod_tdam": (dict(temporal_mode="transvod", use_tdam=True,
+                           num_ref_frames=5), 7, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(TEMPORAL))
+def test_small_temporal_model_card_matches_cpu(cuda_device, name):
+    """A small TransVOD++ or TransVOD+TDAM (5 reference frames: K1 at 5
+    levels) model on the card against the same weights on the CPU, f32,
+    2 padded clips: every head atol 1e-4 / rtol 1e-3, TF32 off; the card
+    launches K1 once per deformable layer and K3 once for TransVOD++."""
+    kw, k1_want, k3_want = TEMPORAL[name]
+    cfg = Config(model=ModelConfig(**dict(SMALL, num_queries=100), **kw))
+    cpu_model, _, _ = build_model(cfg, device="cpu", seed=3)
+    gpu_model, _, _ = build_model(cfg, device=cuda_device, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    F = 1 + kw["num_ref_frames"]
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 256, (2 * F, 96, 128, 4), generator=gen,
+                      dtype=torch.uint8)
+    sizes = torch.tensor([[96, 128]] * (2 * F))
+    sizes[1], sizes[F] = torch.tensor([60, 84]), torch.tensor([80, 128])
+    k1, k3 = msda.ms_deform_attn.launches, hs.hat_sample.launches
+    with torch.no_grad():
+        ref = cpu_model(*device_normalize(x, sizes))
+        got = gpu_model(*device_normalize(x.to(cuda_device),
+                                          sizes.to(cuda_device)))
+    assert msda.ms_deform_attn.launches == k1 + k1_want
+    assert hs.hat_sample.launches == k3 + k3_want
+    pairs = [(got, ref), (got["_single_frame"], ref["_single_frame"])]
+    pairs += list(zip(got.get("aux_outputs", []), ref.get("aux_outputs",
+                                                          [])))
+    for g, r in pairs:
+        for k in ("pred_logits", "pred_boxes"):
+            torch.testing.assert_close(g[k].cpu(), r[k], atol=1e-4,
+                                       rtol=1e-3)
