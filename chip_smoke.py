@@ -16,7 +16,10 @@ Phases, each on lines of its own:
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
    f32). K1 (``msda_fwd``, also at 5 levels, TDAM with 5 reference
    frames), then K2 (``msda_bwd``), then K3 (``hat_sample_fwd``, the
-   bilinear sampling under RoIAlign) at the QRF shape and edge cases;
+   bilinear sampling under RoIAlign) at the QRF shape and edge cases, then
+   K4 (``hat_sample_bwd``, its backward) at the QRF training shape with
+   real and uniform points, in the bf16 mix and at the edge cases, with
+   and without the point gradients;
 4. the serving path at full width: LateFusion RGB-D DeformableDETR (ResNet-50
    DC5 + DFormer, hidden 256, 8 heads, 6+6 layers, 300 queries, box
    refinement) at B=8 608x800 from uint8 frames in bf16, random weights from
@@ -39,9 +42,17 @@ Phases, each on lines of its own:
    ResNet-50 bitwise unchanged, every trainable group and the DFormer BN
    statistics moved; then a small f32 train step on the card against the
    same step on the CPU (loss, components and every gradient);
-7. the card line, a JSON line of the train phase, a JSON line of the
-   kernels and the serving paths, and the final line
-   ``{"ok": true, "device": {...}}``.
+7. the video training path at full width: the TransVOD++ recipe on 1 clip
+   x 5 frames at 608x800 in f32, one warm-up and five timed ``train_step``s
+   with 16 K1, 1 K3, 16 K2 and 1 K4 launches each (counts set to 0 just
+   before each step, read just after), finite losses, every group moved,
+   the ResNet-50 included, and the DFormer BN statistics; one step in the
+   bf16 mix and one with ``fixed_pretrained_model`` (16 / 1 / 3 / 0
+   launches, the trunk bitwise unchanged); then small f32 TransVOD++ and
+   TransVOD+TDAM train steps on the card against the same on the CPU;
+8. the card line, JSON lines of the train, video-train and clip-serve
+   phases, a JSON line of the kernels and the serving path, and the final
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -420,15 +431,15 @@ def hat_bound(value, px, py, aw, out):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def qrf_points(gen):
+def qrf_points(gen, frames=QRF_FRAMES):
     """px, py, aw of the QRF RoIAlign at full width: 300 random boxes per
     frame on the 608x800 image, sampled on the 38x50 stride-16 memory with
     the model's spatial_scale 1/32, 7x7 bins, 2x2 points per bin."""
     from dfvod_tpu_torch.ops.roi_align import roi_sample_points
     from dfvod_tpu_torch.utils.box_ops import box_cxcywh_to_xyxy
-    cxcy = torch.rand((QRF_FRAMES, QRF_ROIS, 2), generator=gen,
+    cxcy = torch.rand((frames, QRF_ROIS, 2), generator=gen,
                       device="cuda") * 0.9 + 0.05
-    wh = torch.rand((QRF_FRAMES, QRF_ROIS, 2), generator=gen,
+    wh = torch.rand((frames, QRF_ROIS, 2), generator=gen,
                     device="cuda") * 0.6 + 0.02
     whwh = torch.tensor([W, H, W, H], dtype=torch.float32, device="cuda")
     boxes = box_cxcywh_to_xyxy(torch.cat([cxcy, wh], -1)) * whwh
@@ -438,7 +449,8 @@ def qrf_points(gen):
 
 def edge_points(gen, BM, Lq, PL, h, w):
     """Points outside the grid, in (-1, 0) and (h-1, h), on integer
-    coordinates, with aw = 0, the -1e6 padding, NaN and inf."""
+    coordinates, with aw = 0, the -1e6 padding, NaN and inf, at exactly -1
+    and exactly w or h."""
     dev = "cuda"
     px = torch.rand((BM, Lq, PL), generator=gen, device=dev) * (w + 4) - 2.5
     py = torch.rand((BM, Lq, PL), generator=gen, device=dev) * (h + 4) - 2.5
@@ -453,6 +465,10 @@ def edge_points(gen, BM, Lq, PL, h, w):
     py[:, 35:40] = -1e6
     px[:, 40:42, 0] = float("nan")
     py[:, 42:44, 1] = float("inf")
+    px[:, 44:47] = -1.0                # exactly -1: value 0, derivative kept
+    py[:, 47:50] = -1.0
+    px[:, 50:52] = float(w)            # exactly W and H: outside
+    py[:, 52:54] = float(h)
     return px, py, aw
 
 
@@ -520,6 +536,131 @@ def phase_hat_kernel():
                   f"(max_abs_err {r['yardstick_max_abs_err']:.3e}: a bf16 "
                   f"grid), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
                   flush=True)
+    return result
+
+
+# ------------------------------------- K4: the backward of RoIAlign's sampling
+CLIP_TRAIN_FRAMES = 5   # TransVOD++_withdepth.sh: batch_size 1, 4 ref frames
+# per sample point ~30 coordinate, weight and reduction ops; per channel 8
+# for gv (4 corners x scale and add), 8 more for the 4 corner dot products
+HAT_BWD_OPS_PER_POINT, HAT_BWD_OPS_PER_CHANNEL = 30, 8
+
+
+def hat_bwd_bound(value, px, py, aw, go, point_grads):
+    """(least ms, 'bytes' | 'operations') of K4: go, px, py, aw read once
+    and gv written once in the value's dtype; with the point gradients the
+    value read once more and gpx, gpy, gaw (f32) written once."""
+    pts = px.numel() * px.element_size()
+    nbytes = (go.numel() * go.element_size() + 3 * pts
+              + value.numel() * value.element_size())
+    per_channel = HAT_BWD_OPS_PER_CHANNEL
+    if point_grads:
+        nbytes += value.numel() * value.element_size() + 3 * pts
+        per_channel *= 2
+    ops = px.numel() * (per_channel * value.shape[-1] + HAT_BWD_OPS_PER_POINT)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hat_bwd_agrees(got, ref):
+    """(ok, tolerance, {output: max abs err}) of K4's outputs against the
+    plain backward's in f32 on the same (bf16-rounded) inputs: atol 1e-4
+    rtol 1e-4, since the atomics add gv in another order on every run and
+    the dot products sum lane by lane; a bf16 gv also rounded once
+    (rtol 2^-8 more)."""
+    ok, errs = True, {}
+    for name, g, r in zip(("gv", "gpx", "gpy", "gaw"), got, ref):
+        if g is None:
+            continue
+        rtol = 1e-4 + (2.0 ** -8 if g.dtype == torch.bfloat16 else 0.0)
+        e = (g.float() - r.reshape(g.shape)).abs()
+        ok &= bool((e <= 1e-4 + rtol * r.reshape(g.shape).abs()).all())
+        errs[name] = float(e.max())
+    return ok, "atol 1e-4 rtol 1e-4 (+2^-8 for a bf16 gv)", errs
+
+
+def uniform_points(gen, BM, Lq, PL, h, w):
+    """Points spread uniformly over the grid, aw 1/4: RoIAlign's weights
+    without its clustering."""
+    px = torch.rand((BM, Lq, PL), generator=gen, device="cuda") * (w - 1)
+    py = torch.rand((BM, Lq, PL), generator=gen, device="cuda") * (h - 1)
+    return px, py, torch.full_like(px, 0.25)
+
+
+def phase_hat_bwd_kernel():
+    """K4 (``csrc/hat_sample_bwd.cu``) against the plain backward on the
+    card: at the f32 training shape (1 clip x 5 frames, 300 RoIs x 49 bins
+    x 4 points on the 38x50 memory, D=256) with real QRF points and with
+    uniform ones, in the bf16 mix (bf16 value and go, as autocast feeds
+    it), and at the edge points at D=256 and D=40; with and without the
+    point gradients. Times at the training shape."""
+    from dfvod_tpu_torch.ops import hat_sample as hs
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h, w = H // 16, W // 16
+    value_only, every = (True, False, False, False), (True,) * 4
+    cases = [(pts, dt, needs)
+             for pts in ("qrf", "uniform", "edge_d256", "edge_d40")
+             for dt in (torch.float32, torch.bfloat16)
+             for needs in (value_only, every)]
+    result = {}
+    for pts, dt, needs in cases:
+        if pts in ("qrf", "uniform"):
+            value = torch.randn((CLIP_TRAIN_FRAMES, h, w, 256), generator=gen,
+                                device="cuda").to(dt)
+            px, py, aw = (qrf_points(gen, CLIP_TRAIN_FRAMES) if pts == "qrf"
+                          else uniform_points(gen, CLIP_TRAIN_FRAMES,
+                                              QRF_ROIS * 49, 4, h, w))
+        else:
+            value = torch.randn((3, 7, 9, int(pts[len("edge_d"):])),
+                                generator=gen, device="cuda").to(dt)
+            px, py, aw = edge_points(gen, 3, 133, 5, 7, 9)
+        go = torch.randn((value.shape[0], px.shape[1], value.shape[-1]),
+                         generator=gen, device="cuda").to(dt)
+        got = hs.hat_sample_bwd(value, px, py, aw, go, needs=needs)
+        torch.cuda.synchronize()
+        ref = hs.hat_sample_plain_bwd(value.float(), px, py, aw, go.float())
+        ok, tol, errs = hat_bwd_agrees(got, ref)
+        ok &= all(g is None or bool(torch.isfinite(g.float()).all())
+                  for g in got)
+        ok &= [g is not None for g in got] == list(needs)
+        ok &= got[0].dtype == dt and got[0].shape == value.shape
+        form = "gv" if needs == value_only else "gv+points"
+        tag = str(dt).replace("torch.", "")
+        print(f"[hat_bwd] {pts:9s} {tag:8s} {form:9s} "
+              f"value={tuple(value.shape)} Lq={px.shape[1]} PL={px.shape[2]} "
+              f"max_abs_err {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}"
+              f" ({tol}) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"hat_sample_bwd disagrees with its plain version: {pts} "
+                  f"{tag} {form} {errs}")
+        if pts not in ("qrf", "uniform") or (pts == "uniform"
+                                             and needs != value_only):
+            continue
+        # the plain version's and the yardstick's backward for the same
+        # gradients, through autograd
+        if needs == value_only:
+            leaves = (value,)
+
+            def plain(v):
+                return hs.hat_sample_plain(v, px, py, aw)
+
+            def yard(v):
+                return grid_sample_hat(v, px, py, aw)
+        else:
+            leaves, plain, yard = ((value, px, py, aw), hs.hat_sample_plain,
+                                   grid_sample_hat)
+        r = {"max_abs_err": max(errs.values()),
+             "ms": cuda_ms(lambda: hs.hat_sample_bwd(value, px, py, aw, go,
+                                                     needs=needs), 20),
+             "plain_ms": backward_ms(plain, leaves, go, 5),
+             "yardstick_ms": backward_ms(yard, leaves, go, 10)}
+        r["bound_ms"], r["bound_by"] = hat_bwd_bound(
+            value, px, py, aw, go, needs != value_only)
+        result[f"{pts}_{tag}_{form}"] = r
+        print(f"[hat_bwd] time {pts} {tag} {form}: kernel {r['ms']:.4f} ms, "
+              f"plain backward {r['plain_ms']:.4f} ms, grid_sample backward "
+              f"yardstick {r['yardstick_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return result
 
 
@@ -846,6 +987,22 @@ def train_batch(seed, B=TRAIN_BATCH, max_boxes=64):
     frames (two padded, as ``frames`` makes them) with their sizes, and
     targets padded to ``max_boxes`` with 1..8 valid boxes per image."""
     imgs, sizes = frames(seed, B)
+    return {"images": imgs, "sizes": sizes,
+            **random_targets(seed, B, max_boxes)}
+
+
+def clip_train_batch(seed, F=CLIP_TRAIN_FRAMES, h=H, w=W, max_boxes=64):
+    """The ``to_batch`` dict of one clip of F frames (a reference frame
+    padded, as ``clip_frames`` makes it), with targets on every frame row;
+    the train step reads the key frame's."""
+    imgs, sizes = clip_frames(seed, n_clips=1, F=F, h=h, w=w)
+    return {"images": imgs, "sizes": sizes,
+            **random_targets(seed, F, max_boxes)}
+
+
+def random_targets(seed, B, max_boxes):
+    """labels, boxes (normalized cxcywh), valid of B rows padded to
+    ``max_boxes``, with 1..8 valid boxes per row."""
     gen = torch.Generator().manual_seed(1000 + seed)
     n_valid = torch.randint(1, 9, (B,), generator=gen)
     valid = torch.arange(max_boxes)[None] < n_valid[:, None]
@@ -854,8 +1011,7 @@ def train_batch(seed, B=TRAIN_BATCH, max_boxes=64):
     cxcy = torch.rand((B, max_boxes, 2), generator=gen) * 0.6 + 0.2
     wh = torch.rand((B, max_boxes, 2), generator=gen) * 0.3 + 0.05
     boxes = torch.cat([cxcy, wh], -1) * valid[..., None]
-    return {"images": imgs, "sizes": sizes, "labels": labels,
-            "boxes": boxes, "valid": valid}
+    return {"labels": labels, "boxes": boxes, "valid": valid}
 
 
 def phase_train(steps=5):
@@ -958,50 +1114,80 @@ def phase_train(steps=5):
             "launches_bwd": bwd, "steps": steps}
 
 
+def counted(fn):
+    """(fn(), {kernel: launches}): every kernel's count set to 0 just before
+    ``fn`` and read just after."""
+    from dfvod_tpu_torch.ops import hat_sample, msda
+    counters = {"msda_fwd": msda.ms_deform_attn,
+                "hat_sample_fwd": hat_sample.hat_sample,
+                "msda_bwd": msda.ms_deform_attn_bwd,
+                "hat_sample_bwd": hat_sample.hat_sample_bwd}
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def step_on_cpu_and_card(cfg, batch):
+    """One train-step loss and backward of a small model (seeded weights,
+    ``randomize``d) on the CPU and, with the same weights, batch and
+    generator seed, on the card: ((parts, grads) on the CPU, (parts, grads)
+    on the card, the card's launches)."""
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train.engine import create_train_state, forward
+    cpu_model, criterion, _ = build_model(cfg, device="cpu", seed=3)
+    randomize(cpu_model, seed=4)
+    gpu_model, _, _ = build_model(cfg, device="cuda", seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    results = []
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        state = create_train_state(model, cfg)
+
+        def step():
+            loss, parts = criterion(*forward(
+                state, {k: v.to(dev) for k, v in batch.items()}))
+            loss.backward()
+            return {k: v.detach() for k, v in {"loss": loss, **parts}.items()}
+        parts, launches = counted(step)
+        results.append((parts, {n: p.grad for n, p in model.named_parameters()
+                                if p.grad is not None}))
+    return results[0], results[1], launches
+
+
+def check_parts(ref_parts, parts, tag):
+    """Loss and components, card against CPU: atol 1e-5 rtol 1e-4. Returns
+    the largest error."""
+    worst = 0.0
+    for k, r in ref_parts.items():
+        err = abs(float(parts[k]) - float(r))
+        worst = max(worst, err)
+        check(err <= 1e-5 + 1e-4 * abs(float(r)),
+              f"{tag}: card {k} {float(parts[k])} vs cpu {float(r)}")
+    return worst
+
+
 def phase_small_train_reference():
     """One train-step loss and every gradient, a small model on the card
     (CUDA kernels) against the same model on the CPU (plain MSDA): f32, TF32
     off, the same weights, batch and generator seed, dropout 0. Loss and
     components atol 1e-5 / rtol 1e-4, gradients atol 1e-4 / rtol 1e-3:
     summation order and the backward's atomics are the only differences."""
-    from dfvod_tpu_torch.models import build_model
-    from dfvod_tpu_torch.ops import msda
-    from dfvod_tpu_torch.train.engine import create_train_state, forward
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
     cfg = Config(model=ModelConfig(
         fusion_type="LateFusion", num_queries=12, hidden_dim=64, nheads=4,
         enc_layers=2, dec_layers=2, dim_feedforward=128, dropout=0.0))
-    cpu_model, criterion, _ = build_model(cfg, device="cpu", seed=3)
-    randomize(cpu_model, seed=4)
-    gpu_model, _, _ = build_model(cfg, device="cuda", seed=3)
-    gpu_model.load_state_dict(cpu_model.state_dict())
     batch = train_batch(5, B=2, max_boxes=8)
     batch["images"] = batch["images"][:, :96, :128].contiguous()
     batch["sizes"] = torch.tensor([[96, 128], [60, 84]])
-    results = []
-    msda.ms_deform_attn.launches = msda.ms_deform_attn_bwd.launches = 0
-    for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
-        state = create_train_state(model, cfg)
-        loss, parts = criterion(*forward(
-            state, {k: v.to(dev) for k, v in batch.items()}))
-        loss.backward()
-        results.append(({k: v.detach() for k, v in
-                         {"loss": loss, **parts}.items()},
-                        {n: p.grad for n, p in model.named_parameters()
-                         if p.grad is not None}))
-    check(msda.ms_deform_attn.launches == 5
-          and msda.ms_deform_attn_bwd.launches == 5,
-          "the small card step did not launch msda_fwd and msda_bwd 5 "
-          "times each")
-    (ref_parts, ref_grads), (parts, grads) = results
-    worst = 0.0
-    for k, r in ref_parts.items():
-        err = abs(float(parts[k]) - float(r))
-        worst = max(worst, err)
-        check(err <= 1e-5 + 1e-4 * abs(float(r)),
-              f"small train step: card {k} {float(parts[k])} vs cpu "
-              f"{float(r)}")
+    (ref_parts, ref_grads), (parts, grads), launches = step_on_cpu_and_card(
+        cfg, batch)
+    check(launches == {"msda_fwd": 5, "hat_sample_fwd": 0, "msda_bwd": 5,
+                       "hat_sample_bwd": 0},
+          f"the small card step launched {launches}, not msda_fwd and "
+          f"msda_bwd 5 times each")
+    worst = check_parts(ref_parts, parts, "small train step")
     check(grads.keys() == ref_grads.keys(), "gradients on different sets")
     gworst = 0.0
     for n, r in ref_grads.items():
@@ -1016,24 +1202,232 @@ def phase_small_train_reference():
           f"{gworst:.3e} (atol 1e-4 rtol 1e-3) ok", flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
+# ------------------------------------------------------ video training path
+# launches per TransVOD++ step: 13 trunk + 3 temporal decoder layers (K1,
+# K2), the QRF RoIAlign (K3, K4); with fixed_pretrained_model the trunk
+# gets no gradient, so K2 runs for the temporal decoders only and K4 not
+VIDEO_LAUNCHES = {"msda_fwd": 16, "hat_sample_fwd": 1, "msda_bwd": 16,
+                  "hat_sample_bwd": 1}
+FIXED_LAUNCHES = dict(VIDEO_LAUNCHES, msda_bwd=3, hat_sample_bwd=0)
+
+
+def video_train_cfg(**kw):
+    """configs/training/TransVOD++_withdepth.sh (f32: the recipe sets no
+    train_dtype)."""
+    from dfvod_tpu_torch.utils.config import Config
+    return Config.from_flat(**{
+        "fusion_type": "LateFusion", "temporal_mode": "transvod_pp",
+        "num_ref_frames": CLIP_TRAIN_FRAMES - 1, "num_classes": 3,
+        "num_queries": 300, "num_feature_levels": 1, "dilation": True,
+        "with_box_refine": True, "dropout": 0.2, "lr": 1e-4,
+        "weight_decay": 2e-5, "clip_max_norm": 0.1, "epochs": 7,
+        "train_dtype": "float32", **kw})
+
+
+def check_finite(metrics, tag):
+    bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
+    check(not bad, f"{tag}: non-finite {bad}")
+
+
+def phase_train_clips(steps=5):
+    """The TransVOD++ recipe at full width, 1 clip x 5 frames at 608x800 in
+    f32: one warm-up step, then ``steps`` timed ones; then one step in the
+    bf16 mix of configs/training/SynthHard_Temporal.sh and one with
+    fixed_pretrained_model (that recipe's default)."""
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.models.backbone_dformer import BatchNorm
+    from dfvod_tpu_torch.train import create_train_state, train_step
+
+    cfg = video_train_cfg()
+    m = cfg.model
+    print(f"[train_clips] TransVOD++ LateFusion hidden={m.hidden_dim} heads="
+          f"{m.nheads} enc={m.enc_layers} dec={m.dec_layers} queries="
+          f"{m.num_queries} ref_frames={m.num_ref_frames} dropout="
+          f"{m.dropout} lr={cfg.train.lr} clip={cfg.train.clip_max_norm}; 1 "
+          f"clip x {CLIP_TRAIN_FRAMES} frames {H}x{W} "
+          f"{cfg.train.train_dtype}", flush=True)
+    model, criterion, _ = build_model(cfg, device="cpu", seed=0)
+    model = randomize(model, seed=1).to("cuda")
+    state = create_train_state(model, cfg, steps_per_epoch=1000)
+    for g in state.optimizer.param_groups:
+        print(f"[train_clips] group {g['label']}: "
+              f"{sum(p.numel() for p in g['params'])} params, lr "
+              f"{g['lr']:g}", flush=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    bns = [mod for mod in model.detr.depth_backbone.modules()
+           if isinstance(mod, BatchNorm)]
+    bn_before = [(b.running_mean.clone(), b.running_var.clone())
+                 for b in bns]
+    batches = [{k: v.to("cuda") for k, v in clip_train_batch(seed).items()}
+               for seed in range(steps + 1)]
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    metrics = [train_step(state, criterion, batches[0])]
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    times, totals = [], dict.fromkeys(VIDEO_LAUNCHES, 0)
+    for i, batch in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        mt, launches = counted(lambda: train_step(state, criterion, batch))
+        times.append(time.perf_counter() - t0)
+        metrics.append(mt)
+        check(launches == VIDEO_LAUNCHES,
+              f"step {i + 1} launched {launches}, not {VIDEO_LAUNCHES}")
+        totals = {k: totals[k] + launches[k] for k in totals}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train_clips] launches over {steps} steps: {totals} (counts set "
+          f"to 0 before each step, read after)", flush=True)
+    for i, mt in enumerate(metrics):
+        check_finite(mt, f"train_clips step {i}")
+        print(f"[train_clips] step {i}: loss {float(mt['loss']):.4f} "
+              f"grad_norm {float(mt['grad_norm']):.4f} loss_ce "
+              f"{float(mt['loss_ce']):.4f} loss_ce_0 "
+              f"{float(mt['loss_ce_0']):.4f} loss_ce_1 "
+              f"{float(mt['loss_ce_1']):.4f} loss_bbox "
+              f"{float(mt['loss_bbox']):.4f}", flush=True)
+
+    changed = {n: not torch.equal(p.detach(), before[n])
+               for n, p in model.named_parameters()}
+    check(set(state.labels.values()) == {"base", "linear_proj"},
+          f"temporal label groups {set(state.labels.values())}")
+    for label in ("base", "linear_proj"):
+        names = [n for n, lab in state.labels.items() if lab == label]
+        n_changed = sum(changed[n] for n in names)
+        print(f"[train_clips] group {label}: {n_changed} of {len(names)} "
+              f"tensors changed", flush=True)
+        check(n_changed > 0, f"no parameter of group {label} changed")
+    resnet = [n for n in changed if n.startswith("detr.backbone.")]
+    print(f"[train_clips] ResNet-50 (trains here): "
+          f"{sum(changed[n] for n in resnet)} of {len(resnet)} tensors "
+          f"changed", flush=True)
+    check(any(changed[n] for n in resnet), "the ResNet-50 did not train")
+    bn_moved = sum(not (torch.equal(b.running_mean, m0)
+                        and torch.equal(b.running_var, v0))
+                   for b, (m0, v0) in zip(bns, bn_before))
+    print(f"[train_clips] DFormer BN running statistics changed in "
+          f"{bn_moved} of {len(bns)} layers", flush=True)
+    check(bn_moved == len(bns), "DFormer BN running statistics unchanged")
+    ms = 1e3 * sum(times) / len(times)
+    result = {"ms_per_step": ms, "clips_per_s": 1e3 / ms,
+              "frames_per_s": CLIP_TRAIN_FRAMES * 1e3 / ms,
+              "first_step_ms": first_ms, "steps_ms": [1e3 * t for t in times],
+              "peak_memory_gib": peak, "launches": totals, "steps": steps}
+    print(f"[train_clips] ms per step of 1 clip x {CLIP_TRAIN_FRAMES} frames:"
+          f" mean {ms:.3f} (first step {first_ms:.1f}; per step "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in times)}) -> "
+          f"{result['clips_per_s']:.2f} clips/s, "
+          f"{result['frames_per_s']:.1f} frames/s; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+
+    # one step in the bf16 mix, on a fresh optimizer
+    del state
+    cfg16 = video_train_cfg(train_dtype="bfloat16")
+    state = create_train_state(model, cfg16, steps_per_epoch=1000)
+    t0 = time.perf_counter()
+    mt, launches = counted(lambda: train_step(state, criterion, batches[1]))
+    result["bf16_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    check_finite(mt, "train_clips bf16 step")
+    check(launches == VIDEO_LAUNCHES,
+          f"the bf16 step launched {launches}, not {VIDEO_LAUNCHES}")
+    print(f"[train_clips] bf16 autocast step: loss {float(mt['loss']):.4f}, "
+          f"{result['bf16_step_ms']:.1f} ms (its first), launches {launches}"
+          f" ok", flush=True)
+
+    # one step with fixed_pretrained_model: the trunk frozen
+    del state
+    cfg_fixed = video_train_cfg(fixed_pretrained_model=True)
+    fixed, criterion, _ = build_model(cfg_fixed, device="cuda", seed=0)
+    fixed.load_state_dict(model.state_dict())
+    del model
+    state = create_train_state(fixed, cfg_fixed, steps_per_epoch=1000)
+    trunk = {n: p.detach().clone() for n, p in fixed.named_parameters()
+             if n.startswith("detr.")}
+    check(all(state.labels[n] == "frozen" for n in trunk)
+          and not any(lab == "frozen" for n, lab in state.labels.items()
+                      if n not in trunk), "fixed_pretrained_model labels")
+    head = {n: p.detach().clone() for n, p in fixed.named_parameters()
+            if n not in trunk}
+    mt, launches = counted(lambda: train_step(state, criterion, batches[1]))
+    check_finite(mt, "train_clips fixed_pretrained_model step")
+    check(launches == FIXED_LAUNCHES,
+          f"the fixed_pretrained_model step launched {launches}, not "
+          f"{FIXED_LAUNCHES}")
+    params = dict(fixed.named_parameters())
+    check(all(torch.equal(params[n], p) for n, p in trunk.items()),
+          "a frozen trunk parameter changed")
+    n_head = sum(not torch.equal(params[n], p) for n, p in head.items())
+    check(n_head > 0, "no temporal-head parameter changed")
+    print(f"[train_clips] fixed_pretrained_model step: loss "
+          f"{float(mt['loss']):.4f}, {len(trunk)} trunk tensors bitwise "
+          f"unchanged, {n_head} of {len(head)} temporal-head tensors changed,"
+          f" launches {launches} ok", flush=True)
+    return result
+
+
+def grads_close(got, ref):
+    """(ok, relative L2 error) of a gradient on the card against the
+    CPU's: within 1e-2 in relative L2 norm, or atol 1e-4 where the CPU's
+    is structurally zero (largest entry below 1e-4)."""
+    rel = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+    tiny = float(ref.abs().max()) < 1e-4
+    return rel <= 1e-2 or (tiny and float((got - ref).abs().max()) <= 1e-4), rel
+
+
+def phase_small_video_train_reference():
+    """One train-step loss and every gradient of small f32 TransVOD++ (one
+    padded clip) and TransVOD+TDAM (5 reference frames) models on the card
+    against the same weights, batch and dropout 0 on the CPU, TF32 off.
+    Loss and components atol 1e-5 / rtol 1e-4. Gradients per tensor in
+    relative L2 norm within 1e-2 (structurally zero ones atol 1e-4;
+    measured worst 3.1e-3 TransVOD++, 4.9e-3 TransVOD+TDAM on an H100):
+    the trunk trains, and at these weights its ReLUs and the QRF head's
+    make the gradients ill-conditioned, so summation order alone moves them
+    beyond the single-frame step's elementwise tolerance
+    (``tests/test_torch_temporal_train.py``)."""
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    small = dict(fusion_type="LateFusion", num_queries=100, hidden_dim=64,
+                 nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128,
+                 dropout=0.0)
+    variants = (("transvod_pp", dict(temporal_mode="transvod_pp",
+                                     num_ref_frames=2),
+                 {"msda_fwd": 8, "hat_sample_fwd": 1, "msda_bwd": 8,
+                  "hat_sample_bwd": 1}),
+                ("transvod_tdam", dict(temporal_mode="transvod",
+                                       use_tdam=True, num_ref_frames=5),
+                 {"msda_fwd": 7, "hat_sample_fwd": 0, "msda_bwd": 7,
+                  "hat_sample_bwd": 0}))
+    for name, kw, want in variants:
+        batch = clip_train_batch(7, F=1 + kw["num_ref_frames"], h=96, w=128,
+                                 max_boxes=8)
+        (ref_parts, ref_grads), (parts, grads), launches = (
+            step_on_cpu_and_card(Config(model=ModelConfig(**small, **kw)),
+                                 batch))
+        check(launches == want, f"small {name} train step on the card "
+                                f"launched {launches}, not {want}")
+        worst = check_parts(ref_parts, parts, f"small {name} train step")
+        check(grads.keys() == ref_grads.keys(),
+              f"small {name}: gradients on different sets")
+        gworst = 0.0
+        for n, r in ref_grads.items():
+            ok, rel = grads_close(grads[n].cpu(), r)
+            gworst = max(gworst, rel if float(r.abs().max()) >= 1e-4 else 0)
+            check(ok, f"small {name} train step: gradient of {n} differs, "
+                      f"relative L2 {rel:.3e}")
+        print(f"[small-train-clips] {name} card vs cpu: loss "
+              f"{float(parts['loss']):.6f} vs {float(ref_parts['loss']):.6f},"
+              f" max component err {worst:.3e} (atol 1e-5 rtol 1e-4); "
+              f"{len(grads)} gradients, worst relative L2 {gworst:.3e} "
+              f"(1e-2); launches {launches} ok", flush=True)
+
+
+def build_kernels():
+    """Build and load every kernel of the paths, one ``nvcc`` per source,
+    all started together; print each build's time and register use."""
     from dfvod_tpu_torch.ops import build
-
-    card = card_line()
-    print(f"[card] {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[card] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32}"
-          f" cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-
-    names = ("msda_fwd", "msda_bwd", "hat_sample_fwd")
-    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+    names = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build.build, names))
     for name, (path, seconds, log) in zip(names, built):
         build.load(name)
@@ -1043,15 +1437,34 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}", flush=True)
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    card = card_line()
+    print(f"[card] {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[card] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32}"
+          f" cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    build_kernels()
     kern = phase_msda_kernel()
     kern_bwd = phase_msda_bwd_kernel()
     kern_hat = phase_hat_kernel()
+    kern_hat_bwd = phase_hat_bwd_kernel()
     serve = phase_serve()
     phase_small_cpu_reference()
     clip = phase_clip_serve()
     phase_small_temporal_reference()
     train = phase_train()
     phase_small_train_reference()
+    train_clips = phase_train_clips()
+    phase_small_video_train_reference()
 
     enc = kern["enc"]
     record = {
@@ -1070,6 +1483,7 @@ def main() -> int:
         "decoder": kern["dec"],
         "train_launches": train["launches_fwd"],
         "clip_launches": clip["launches_msda_fwd"],
+        "train_clips_launches": train_clips["launches"]["msda_fwd"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -1086,6 +1500,7 @@ def main() -> int:
         "shape": f"encoder B={TRAIN_BATCH} Lq=S=1900 M=8 D=32 L=1 P=4, "
                  f"{kern_bwd['training_mix']} value/loc/attw (training mix)",
         "decoder": kern_bwd["dec"],
+        "train_clips_launches": train_clips["launches"]["msda_bwd"],
     }
     record_hat = {
         "name": "hat_sample_fwd", "route": "cuda",
@@ -1101,9 +1516,30 @@ def main() -> int:
         "yardstick_ms": kern_hat["yardstick_ms"],
         "shape": f"QRF BM={QRF_FRAMES} 38x50 D=256 bf16 value, "
                  f"Lq={QRF_ROIS}x49 PL=4 f32 points",
+        "train_clips_launches": train_clips["launches"]["hat_sample_fwd"],
+    }
+    main_bwd = kern_hat_bwd["qrf_float32_gv"]
+    record_hat_bwd = {
+        "name": "hat_sample_bwd", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/hat_sample_bwd.cu",
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:554",
+        "launches": train_clips["launches"]["hat_sample_bwd"],
+        **{k: main_bwd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+        # torchvision.ops.roi_align's backward would be the one library
+        # call, and the card machine has no torchvision; the backward of
+        # F.grid_sample over the points is timed as a labelled yardstick
+        "library_ms": None,
+        "yardstick_ms": main_bwd["yardstick_ms"],
+        "shape": f"QRF training BM={CLIP_TRAIN_FRAMES} 38x50 D=256 f32 "
+                 f"value and go, Lq={QRF_ROIS}x49 PL=4 real QRF points, gv "
+                 f"only (the model path)",
+        "other": {k: v for k, v in kern_hat_bwd.items()
+                  if k != "qrf_float32_gv"},
     }
     for r in (record, record["decoder"], record_bwd, record_bwd["decoder"],
-              record_hat, train, clip):
+              record_hat, record_hat_bwd, *record_hat_bwd["other"].values(),
+              train, clip, train_clips):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -1111,10 +1547,14 @@ def main() -> int:
     print(json.dumps({"train": {k: train[k] for k in (
         "ms_per_step", "frames_per_s", "first_step_ms", "peak_memory_gib",
         "steps")}}))
+    print(json.dumps({"train_clips": {k: train_clips[k] for k in (
+        "ms_per_step", "clips_per_s", "frames_per_s", "first_step_ms",
+        "peak_memory_gib", "bf16_step_ms", "steps")}}))
     print(json.dumps({"clip_serve": {k: clip[k] for k in (
         "ms_per_request", "frames_per_s", "clips_per_s", "first_request_ms",
         "peak_memory_gib", "requests")}}))
-    print(json.dumps({"kernels": [record, record_bwd, record_hat],
+    print(json.dumps({"kernels": [record, record_bwd, record_hat,
+                                  record_hat_bwd],
                       "serve": {k: serve[k] for k in ("ms_per_batch",
                                                       "frames_per_s")}}))
     print(json.dumps({"ok": True, "device": {

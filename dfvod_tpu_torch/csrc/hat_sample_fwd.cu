@@ -42,31 +42,15 @@
 
 #include <cstdint>
 
-#include "msda_common.cuh"  // dtype codes, kWarpsPerBlock, f32 conversions
+// dtype codes, kWarpsPerBlock, f32 conversions, kVec channels per lane on
+// the vector path and their 16-byte loads (load8)
+#include "msda_common.cuh"
 
 using namespace msda;
 
 namespace {
 
-constexpr int kVec = 8;  // channels per lane on the vector path
-
-// 8 contiguous channels, 16-byte aligned: load as f32, store from f32
-__device__ __forceinline__ void load8(const float* p, float f[kVec]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[kVec]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
+// 8 contiguous channels, 16-byte aligned, stored from f32
 __device__ __forceinline__ void store8(float* p, const float f[kVec]) {
   *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);

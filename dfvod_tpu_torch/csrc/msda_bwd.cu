@@ -51,8 +51,6 @@
 //
 // Plain C interface, loaded with ctypes; see dfvod_tpu_torch/ops/msda.py.
 
-#include <algorithm>
-
 #include "msda_common.cuh"
 
 using namespace msda;
@@ -157,14 +155,6 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
-__global__ void cast_to_bf16(const float* __restrict__ in,
-                             __nv_bfloat16* __restrict__ out, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = __float2bfloat16_rn(in[i]);
-}
-
 template <typename V, typename C, typename A>
 int launch(const void* value, const void* loc, const void* attw,
            const void* go, float* grad_value_f32, void* grad_value,
@@ -184,13 +174,10 @@ int launch(const void* value, const void* loc, const void* attw,
     if (err != cudaSuccess) return (int)err;
   }
   // a bf16 value takes its gradient from the f32 accumulator in one pass
-  if (grad_value_f32 != nullptr && (void*)grad_value_f32 != grad_value) {
-    const long long n = (long long)B * S * M * D;
-    const long long cast_blocks = std::min((n + 255) / 256, 132LL * 32);
-    if (n > 0)
-      cast_to_bf16<<<(unsigned)cast_blocks, 256, 0, stream>>>(
-          grad_value_f32, static_cast<__nv_bfloat16*>(grad_value), n);
-  }
+  if (grad_value_f32 != nullptr && (void*)grad_value_f32 != grad_value)
+    return launch_cast_to_bf16(grad_value_f32,
+                               static_cast<__nv_bfloat16*>(grad_value),
+                               (long long)B * S * M * D, stream);
   return (int)cudaGetLastError();
 }
 

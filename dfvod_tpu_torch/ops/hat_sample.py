@@ -1,8 +1,11 @@
 """Weighted bilinear sampling over a token grid (the op under RoIAlign): the
-plain PyTorch version and the wrapper of the hand-written CUDA kernel
-``csrc/hat_sample_fwd.cu`` (K3).
+plain PyTorch version and its backward, and the wrappers of the
+hand-written CUDA kernels ``csrc/hat_sample_fwd.cu`` (K3) and
+``csrc/hat_sample_bwd.cu`` (K4, its backward), joined as a
+``torch.autograd.Function``.
 
-Counterpart of ``dfvod_tpu/ops/msda_pallas.py::hat_sample``. The contract:
+Counterpart of ``dfvod_tpu/ops/msda_pallas.py::hat_sample``,
+``hat_sample_bwd`` and ``hat_sample_vjp``. The contract:
 
 - ``value`` : ``(BM, H, W, D)``, or flat ``(BM, S = H * W, D)`` with
               ``grid=(H, W)``; token ``s`` sits at ``(s // W, s % W)``, the
@@ -20,10 +23,16 @@ no -0.5 shift. A point with a non-finite coordinate, or one far outside
 (the -1e6 padding of the Pallas wrapper), contributes 0. Coordinates and
 the sum are f32; the result is cast to the value's dtype once.
 
-``hat_sample`` takes the plain version for CPU tensors only. For CUDA
-tensors it launches K3 through ``HatSampleFunction`` or raises; the
-kernel's backward (K4) waits for the TransVOD++ training slice, so a
-backward through it raises rather than returning no gradient.
+The backward is the TPU kernel's: one-sided at integer coordinates
+(``x0 = floor(px)``), an out-of-grid corner counting 0, and a point at
+exactly -1 keeping the derivative its in-grid corner gives it, though its
+value there is 0. A point with a non-finite coordinate gets zero gradients
+(the Pallas kernel propagates the NaN).
+
+``hat_sample`` takes the plain version for CPU tensors only, and autograd
+differentiates it there. For CUDA tensors it goes through
+``HatSampleFunction``, whose forward launches K3 and whose backward
+launches K4, or raises.
 """
 from __future__ import annotations
 
@@ -62,32 +71,71 @@ def hat_sample_plain(value, px, py, aw, grid=None):
     BM, S, D = v.shape
     _, Lq, PL = px.shape
     px, py, aw = px.float(), py.float(), aw.float()
-    # every corner outside the grid, or a non-finite coordinate: 0
-    inside = (px > -1) & (px < W) & (py > -1) & (py < H)
-    x = torch.where(inside, px, torch.zeros_like(px))
-    y = torch.where(inside, py, torch.zeros_like(py))
-    x0, y0 = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0, y - y0
-    x0i, y0i = x0.long(), y0.long()
     acc = torch.zeros((BM, Lq, D), dtype=torch.float32, device=v.device)
-    for p in range(PL):
-        for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-            cx, cy = x0i[..., p] + dx, y0i[..., p] + dy
-            valid = (inside[..., p] & (cx >= 0) & (cx < W) & (cy >= 0)
-                     & (cy < H))
-            w = ((fy[..., p] if dy else 1 - fy[..., p])
-                 * (fx[..., p] if dx else 1 - fx[..., p]) * aw[..., p])
-            w = torch.where(valid, w, torch.zeros_like(w))   # (BM, Lq)
-            idx = cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)
+    for p, _, _, corners in _corners(px, py, H, W):
+        for valid, wy, wx, idx in corners:
+            w = torch.where(valid, wy * wx * aw[..., p], 0.0)  # (BM, Lq)
             g = torch.gather(v, 1, idx[..., None].expand(-1, -1, D))
             acc += w[..., None] * g.float()
     return acc.to(v.dtype)
 
 
+def _corners(px, py, H: int, W: int):
+    """For each point p: (p, fx, fy, [(valid, wy, wx, token index) of the
+    corners 00, 01, 10, 11]), each (BM, Lq). A point outside [-1, W) x [-1, H), or
+    with a non-finite coordinate, has no valid corner. At exactly -1 the
+    corner at 0 is valid with weight 0, so autograd gives it the one-sided
+    derivative; ``wx`` and ``wy`` are differentiable in px and py."""
+    inside = (px >= -1) & (px < W) & (py >= -1) & (py < H)
+    x = torch.where(inside, px, torch.zeros_like(px))
+    y = torch.where(inside, py, torch.zeros_like(py))
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    for p in range(px.shape[-1]):
+        corners = []
+        for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            cx, cy = x0i[..., p] + dx, y0i[..., p] + dy
+            valid = (inside[..., p] & (cx >= 0) & (cx < W) & (cy >= 0)
+                     & (cy < H))
+            corners.append((valid, fy[..., p] if dy else 1 - fy[..., p],
+                            fx[..., p] if dx else 1 - fx[..., p],
+                            cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)))
+        yield p, fx[..., p], fy[..., p], corners
+
+
+def hat_sample_plain_bwd(value, px, py, aw, grad_out, grid=None):
+    """The plain backward, written out (no autograd): (gv, gpx, gpy, gaw).
+    gv has the value's shape and dtype, the others are f32 like the
+    points. Per point, with ``d_c = <go, v_c>`` of the 4 corners (0 outside
+    the grid): gv scatters ``aw * w_c * go`` into the corners, ``gaw = sum
+    w_c d_c``, ``gpx = aw ((1 - fy)(d01 - d00) + fy (d11 - d10))`` and gpy
+    alike."""
+    v, (H, W) = _flat(value, grid)
+    BM, S, D = v.shape
+    px, py, aw = px.float(), py.float(), aw.float()
+    vf, go = v.float(), grad_out.float()
+    gv = torch.zeros((BM, S, D), dtype=torch.float32, device=v.device)
+    gpx, gpy, gaw = (torch.zeros_like(px) for _ in range(3))
+    for p, fx, fy, corners in _corners(px, py, H, W):
+        a = aw[..., p]
+        d = []
+        for valid, wy, wx, idx in corners:
+            w = torch.where(valid, wy * wx, 0.0)
+            rows = idx[..., None].expand(-1, -1, D)
+            d.append(torch.where(valid, (go * torch.gather(vf, 1, rows)
+                                         ).sum(-1), 0.0))
+            gaw[..., p] += w * d[-1]
+            gv.scatter_add_(1, rows, (a * w)[..., None] * go)
+        gpx[..., p] = a * ((1 - fy) * (d[1] - d[0]) + fy * (d[3] - d[2]))
+        gpy[..., p] = a * ((1 - fx) * (d[2] - d[0]) + fx * (d[3] - d[1]))
+    return gv.to(value.dtype).reshape(value.shape), gpx, gpy, gaw
+
+
 def _check_kernel_args(v, px, py, aw):
     if v.dtype not in _DTYPE_CODES:
-        raise TypeError(f"hat_sample_fwd takes f32 or bf16 values, not "
-                        f"{v.dtype}")
+        raise TypeError(f"the hat_sample kernels take f32 or bf16 values, "
+                        f"not {v.dtype}")
     BM, _, D = v.shape
     for name, t in (("px", px), ("py", py), ("aw", aw)):
         if t.dtype != torch.float32:
@@ -104,15 +152,28 @@ def _check_kernel_args(v, px, py, aw):
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    """The loaded ``csrc/hat_sample_fwd.cu`` with its argument types set."""
-    lib = build.load("hat_sample_fwd")
-    lib.hat_sample_fwd.argtypes = ([ctypes.c_void_p] * 5
-                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.hat_sample_fwd.restype = ctypes.c_int
-    lib.hat_sample_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.hat_sample_fwd_error_string.restype = ctypes.c_char_p
+def _library(name: str):
+    """The loaded ``csrc/<name>.cu`` (``hat_sample_fwd`` or
+    ``hat_sample_bwd``) with its argument types set."""
+    lib = build.load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = {
+        "hat_sample_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
+        "hat_sample_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8,
+    }[name] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(name: str, lib, rc: int):
+    if rc < 0:
+        raise ValueError(f"{name} refused its arguments (code {rc})")
+    if rc > 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, f"{name}_error_string")(rc).decode())
 
 
 def hat_sample_cuda(value, px, py, aw, grid=None):
@@ -121,44 +182,89 @@ def hat_sample_cuda(value, px, py, aw, grid=None):
     _check_kernel_args(v, px, py, aw)
     BM, S, D = v.shape
     _, Lq, PL = px.shape
-    lib = _library()
+    lib = _library("hat_sample_fwd")
     out = torch.empty((BM, Lq, D), dtype=v.dtype, device=v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hat_sample_fwd(v.data_ptr(), px.data_ptr(), py.data_ptr(),
                                 aw.data_ptr(), out.data_ptr(), BM, H, W, D,
                                 Lq, PL, _DTYPE_CODES[v.dtype], stream)
-    if rc < 0:
-        raise ValueError(f"hat_sample_fwd refused its arguments (code {rc})")
-    if rc > 0:
-        raise RuntimeError("hat_sample_fwd launch failed: "
-                           + lib.hat_sample_fwd_error_string(rc).decode())
+    _raise_on("hat_sample_fwd", lib, rc)
     hat_sample.launches += 1
     return out
 
 
+def hat_sample_bwd_cuda(value, px, py, aw, grad_out, grid=None,
+                        needs=(True, True, True, True)):
+    """Launch ``csrc/hat_sample_bwd.cu`` on CUDA tensors: (gv, gpx, gpy,
+    gaw), gv in the value's shape and dtype and the others f32, or None
+    where ``needs`` (value, px, py, aw) is False. The point gradients are
+    computed only when one of them is needed, and gv only when it is.
+    ``grad_out`` is (BM, Lq, D), f32 or bf16."""
+    v, (H, W) = _flat(value, grid)
+    _check_kernel_args(v, px, py, aw)
+    BM, S, D = v.shape
+    _, Lq, PL = px.shape
+    if grad_out.shape != (BM, Lq, D) or grad_out.dtype not in _DTYPE_CODES:
+        raise ValueError(f"grad_out must be {(BM, Lq, D)} in f32 or bf16, "
+                         f"not {tuple(grad_out.shape)} in {grad_out.dtype}")
+    if grad_out.device != v.device or not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous, on the value's device")
+    need_v, need_x, need_y, need_a = needs
+    gv32 = gv = gpx = gpy = gaw = None
+    if need_v:
+        # atomics accumulate in f32; an f32 value accumulates in place
+        gv32 = torch.zeros((BM, S, D), dtype=torch.float32, device=v.device)
+        gv = gv32 if v.dtype == torch.float32 else torch.empty_like(v)
+    if need_x or need_y or need_a:
+        gpx, gpy, gaw = (torch.empty_like(px) for _ in range(3))
+    if gv is None and gpx is None:
+        return None, None, None, None
+    lib = _library("hat_sample_bwd")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hat_sample_bwd(
+            v.data_ptr(), px.data_ptr(), py.data_ptr(), aw.data_ptr(),
+            grad_out.data_ptr(), ptr(gv32), ptr(gv), ptr(gpx), ptr(gpy),
+            ptr(gaw), BM, H, W, D, Lq, PL, _DTYPE_CODES[v.dtype],
+            _DTYPE_CODES[grad_out.dtype], stream)
+    _raise_on("hat_sample_bwd", lib, rc)
+    hat_sample_bwd.launches += 1
+    return (None if gv is None else gv.reshape(value.shape),
+            gpx if need_x else None, gpy if need_y else None,
+            gaw if need_a else None)
+
+
 class HatSampleFunction(torch.autograd.Function):
-    """K3 on CUDA tensors. Its backward is K4
-    (``dfvod_tpu/ops/msda_pallas.py::_hat_bwd_kernel``), which waits for
-    the TransVOD++ training slice: it raises instead of cutting the
-    gradient."""
+    """Weighted bilinear sampling on CUDA tensors with its gradient: the
+    forward launches K3 (``csrc/hat_sample_fwd.cu``), the backward K4
+    (``csrc/hat_sample_bwd.cu``) for the inputs that need a gradient. gv
+    comes back in the value's dtype, as ``hat_sample_vjp`` casts it."""
 
     @staticmethod
     def forward(ctx, value, px, py, aw, grid):
+        ctx.grid = grid
+        ctx.save_for_backward(value, px, py, aw)
         return hat_sample_cuda(value, px, py, aw, grid)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the backward of hat_sample on the card is K4 "
-            "(_hat_bwd_kernel), which waits for the TransVOD++ training "
-            "slice")
+        value, px, py, aw = ctx.saved_tensors
+        grads = hat_sample_bwd_cuda(value, px, py, aw,
+                                    grad_out.contiguous(), ctx.grid,
+                                    ctx.needs_input_grad[:4])
+        return (*grads, None)
 
 
 def hat_sample(value, px, py, aw, grid=None):
     """Weighted bilinear sampling: the plain version for CPU tensors
-    (autograd differentiates it), ``HatSampleFunction`` (K3) for CUDA
-    tensors. ``hat_sample.launches`` counts kernel launches."""
+    (autograd differentiates it), ``HatSampleFunction`` (K3 forward, K4
+    backward) for CUDA tensors. ``hat_sample.launches`` counts forward
+    kernel launches, ``hat_sample_bwd.launches`` backward ones."""
     if value.device.type == "cpu":
         return hat_sample_plain(value, px, py, aw, grid)
     if value.device.type != "cuda":
@@ -169,3 +275,20 @@ def hat_sample(value, px, py, aw, grid=None):
 
 
 hat_sample.launches = 0
+
+
+def hat_sample_bwd(value, px, py, aw, grad_out, grid=None,
+                   needs=(True, True, True, True)):
+    """The VJP of ``hat_sample`` as a function: (gv, gpx, gpy, gaw), None
+    where ``needs`` (value, px, py, aw) is False; the plain backward for
+    CPU tensors, ``csrc/hat_sample_bwd.cu`` (K4) for CUDA tensors."""
+    if value.device.type == "cpu":
+        grads = hat_sample_plain_bwd(value, px, py, aw, grad_out, grid)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    if value.device.type != "cuda":
+        raise ValueError(f"hat_sample_bwd runs on cpu or cuda, not "
+                         f"{value.device}")
+    return hat_sample_bwd_cuda(value, px, py, aw, grad_out, grid, needs)
+
+
+hat_sample_bwd.launches = 0

@@ -8,12 +8,15 @@ One formulation on every device, that of ``_roi_align_hat``
 so the bin average happens inside the sampling. The sample coordinates are
 pre-clamped to the map, as mmcv clamps at the border, and points beyond
 ``[-1, H]`` (resp. ``W``) get weight 0. ``ops/hat_sample.py`` samples them:
-its plain version on the CPU, K3 on the card.
+its plain version on the CPU (autograd differentiates it), K3 on the card,
+where the features' gradient goes through K4, the kernel's backward.
 
 Semantics (mmcv/detectron2 ``aligned=True``): box coordinates scaled by
 ``spatial_scale`` and shifted by -0.5; each of the ``P x P`` bins sampled at
-``sampling_ratio**2`` regularly spaced points. Boxes are detached: mmcv's
-RoIAlign has no box gradient.
+``sampling_ratio**2`` regularly spaced points. Boxes are detached, as in
+``dfvod_tpu/ops/roi_align.py:122-125``: mmcv's RoIAlign has no box
+gradient, so the sample points and weights carry none and K4 computes only
+the features' gradient.
 """
 from __future__ import annotations
 

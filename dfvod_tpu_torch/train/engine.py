@@ -11,7 +11,11 @@ non-finite loss is reported in the metrics, not raised.
 
 The batch is the dict of ``dfvod_tpu/cli/main.py::to_batch``: ``images``
 uint8 (B, H, W, C) with ``sizes`` (B, 2), ``labels`` (B, T), ``boxes``
-(B, T, 4) normalized cxcywh, ``valid`` (B, T).
+(B, T, 4) normalized cxcywh, ``valid`` (B, T). For a TransVOD / TransVOD++
+model the rows are frames, B = clips * F with F = 1 + num_ref_frames, clips
+contiguous and key frame first; the model predicts for the key frames only,
+so the criterion reads the key frames' target rows, as
+``make_train_step(frames=F)`` does (``dfvod_tpu/train/engine.py:93-96``).
 """
 from __future__ import annotations
 
@@ -81,16 +85,21 @@ def _f32(out):
 
 
 def forward(state: TrainState, batch):
-    """The forward in train mode: (the outputs cast to f32, the targets),
-    ready for the criterion."""
+    """The forward in train mode: (the outputs cast to f32, the key rows'
+    targets), ready for the criterion."""
     model = state.model
     device = next(model.parameters()).device
     images = _as_tensor(batch["images"], device)
     if images.dtype != torch.uint8:
         raise TypeError(f"images must be uint8 frames, got {images.dtype}")
     images, mask = device_normalize(images, _as_tensor(batch["sizes"], device))
-    targets = {k: _as_tensor(batch[k], device)
-               for k in ("labels", "boxes", "valid")}
+    m = state.cfg.model
+    # batch rows per prediction: the clip's frames, key frame first
+    F = 1 if m.temporal_mode == "none" else 1 + m.num_ref_frames
+    targets = {}
+    for k in ("labels", "boxes", "valid"):
+        x = _as_tensor(batch[k], device)
+        targets[k] = x.reshape(x.shape[0] // F, F, *x.shape[1:])[:, 0]
     model.train()
     bf16 = state.cfg.train.train_dtype == "bfloat16"
     with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):

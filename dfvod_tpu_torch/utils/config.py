@@ -191,10 +191,6 @@ def check_supported(m: ModelConfig, training: bool = False) -> None:
     if m.fusion_type not in ("Baseline", "LateFusion"):
         waits.append(f"fusion_type={m.fusion_type!r} waits for the "
                      "other-fusion-modes slice")
-    if training and m.temporal_mode != "none":
-        waits.append(f"training temporal_mode={m.temporal_mode!r} waits for "
-                     "the TransVOD++ training slice (K4, the hat_sample "
-                     "backward)")
     if m.two_stage:
         waits.append("two_stage=True waits for the other-fusion-modes "
                      "slice (two-stage proposals)")

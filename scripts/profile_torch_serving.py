@@ -26,11 +26,19 @@ Training (``--train``): the train step of ``chip_smoke.py``'s train phase
 2. the matcher's host time per step (its one device-to-host copy waits for
    the forward) and the scipy solves' share of it;
 3. a ``torch.profiler`` window over a few steps: device busy share, the
-   ``msda_fwd`` / ``msda_bwd`` kernels' time, the top kernels and ops.
+   kernels' time, the top kernels, ops and host ops.
+
+Video training (``--train-clips``): the TransVOD++ step of ``chip_smoke.py``'s
+train_clips phase (the TransVOD++_withdepth.sh recipe, 1 clip x 5 frames at
+608x800, f32) with the same three readings; the forward is split by CUDA
+events into the trunk (all 5 frames), the QRF (RoIAlign with K3, and its
+RCNNHead) and the 3 temporal rounds (query layers, decoders, heads), and
+the backward holds K2 and K4.
 
     python3 scripts/profile_torch_serving.py [--requests 3]
     python3 scripts/profile_torch_serving.py --clips [--requests 3]
     python3 scripts/profile_torch_serving.py --train [--requests 3]
+    python3 scripts/profile_torch_serving.py --train-clips [--requests 3]
 
 Needs one CUDA device.
 """
@@ -134,7 +142,7 @@ def profiler_window(fn, n, label):
           f"{busy_ms:.3f} ms; device busy {100 * busy_ms / wall_ms:.1f}%, "
           f"idle {100 - 100 * busy_ms / wall_ms:.1f}% (profiler on)",
           flush=True)
-    for name in ("msda_fwd", "msda_bwd", "hat_sample_fwd"):
+    for name in ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd"):
         us = sum(device_time_us(e, True) for e in kernels if name in e.key)
         calls = sum(e.count for e in kernels if name in e.key)
         if calls:
@@ -151,27 +159,70 @@ def profiler_window(fn, n, label):
         print(f"[prof] kernel {e.key[:70]:70s} "
               f"{device_time_us(e, True) / 1e3 / n:8.3f} ms/{label} "
               f"(x{e.count // n})", flush=True)
+    host = sorted((e for e in avgs if not is_device_activity(e)),
+                  key=lambda e: -e.self_cpu_time_total)
+    for e in host[:10]:
+        print(f"[prof] host op {e.key[:60]:60s} "
+              f"{e.self_cpu_time_total / 1e3 / n:8.3f} ms/{label} self "
+              f"(x{e.count // n})", flush=True)
     return avgs
 
 
-def profile_train(cs, n):
-    """The training breakdown (module docstring, ``--train``)."""
+def timed_roi_align(pairs):
+    """Wrap the temporal model's RoIAlign (a function, not a module) in a
+    CUDA event pair per call; returns the function to restore."""
+    from dfvod_tpu_torch.models import temporal
+    roi_align = temporal.roi_align
+
+    def timed(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = roi_align(*args, **kwargs)
+        ev[1].record()
+        pairs["QRF RoIAlign (K3)"].append(ev)
+        return out
+    temporal.roi_align = timed
+    return roi_align
+
+
+def profile_train(cs, n, clips=False):
+    """The training breakdown (module docstring, ``--train`` and
+    ``--train-clips``)."""
     from dfvod_tpu_torch.models import build_model, criterion as crit_mod
-    from dfvod_tpu_torch.models import matcher
+    from dfvod_tpu_torch.models import matcher, temporal
     from dfvod_tpu_torch.train import create_train_state, train_step
     from dfvod_tpu_torch.train.engine import apply_gradients, forward
     from dfvod_tpu_torch.utils.config import Config
 
-    cfg = Config.from_flat(
-        fusion_type="LateFusion", dropout=0.2, lr=1e-5, weight_decay=2e-5,
-        clip_max_norm=0.1, train_dtype="bfloat16")
+    if clips:
+        cfg = cs.video_train_cfg()
+        batch = cs.clip_train_batch(0)
+    else:
+        cfg = Config.from_flat(
+            fusion_type="LateFusion", dropout=0.2, lr=1e-5,
+            weight_decay=2e-5, clip_max_norm=0.1, train_dtype="bfloat16")
+        batch = cs.train_batch(0)
     model, criterion, _ = build_model(cfg, device="cpu", seed=0)
     model = cs.randomize(model, seed=1).to("cuda")
     state = create_train_state(model, cfg)
-    batch = {k: v.to("cuda") for k, v in cs.train_batch(0).items()}
+    batch = {k: v.to("cuda") for k, v in batch.items()}
     for _ in range(2):                      # warm-up
         train_step(state, criterion, batch)
     torch.cuda.synchronize()
+    layers, handles = collections.defaultdict(list), []
+    if clips:
+        # the forward's parts, by CUDA events around the model's modules
+        groups = layer_groups(model)
+        trunk = [m for k, mods in groups.items() for m in mods
+                 if not k.startswith(("QRF", "temporal"))]
+        layers, handles = hook_events({
+            "trunk (5 frames)": trunk,
+            "QRF RCNNHead": groups["QRF RCNNHead"],
+            "temporal rounds (3)": [
+                m for k in ("temporal query layers (3)",
+                            "temporal decoders (3)", "temporal heads (3)")
+                for m in groups[k]]})
+        roi_align = timed_roi_align(layers)
 
     # host time of the matcher (its copy waits for the forward) and of the
     # scipy solves inside it
@@ -209,12 +260,26 @@ def profile_train(cs, n):
         for name, a, b in (("forward", 0, 1), ("criterion + matcher", 1, 2),
                            ("backward", 2, 3), ("clip + AdamW", 3, 4)):
             spans[name] += ev[a].elapsed_time(ev[b])
+    for h in handles:
+        h.remove()
+    if clips:
+        temporal.roi_align = roi_align
     total = sum(spans.values()) / n
     print(f"[time] host ms per step: {', '.join(f'{t:.3f}' for t in steps)}"
           f"; device span {total:.3f} ms", flush=True)
     for name, ms in spans.items():
         print(f"[phase] {name:22s} {ms / n:8.3f} ms "
               f"{100 * ms / n / total:5.1f}%", flush=True)
+        if name == "forward" and layers:
+            accounted = 0.0
+            for part, evs in layers.items():
+                part_ms = sum(a.elapsed_time(b) for a, b in evs) / n
+                accounted += part_ms
+                print(f"[phase]   {part:20s} {part_ms:8.3f} ms "
+                      f"{100 * part_ms / total:5.1f}%", flush=True)
+            print(f"[phase]   {'rest of the forward':20s} "
+                  f"{ms / n - accounted:8.3f} ms "
+                  f"{100 * (ms / n - accounted) / total:5.1f}%", flush=True)
     print(f"[matcher] host {1e3 * host['matcher'] / n:.3f} ms per step, of "
           f"which scipy solves {1e3 * host['scipy'] / n:.3f} ms (the rest "
           f"waits for the forward and copies the costs)", flush=True)
@@ -232,6 +297,9 @@ def main() -> int:
     mode.add_argument("--clips", action="store_true",
                       help="profile TransVOD++ clip serving (2 clips x 5 "
                            "frames) instead of single frames")
+    mode.add_argument("--train-clips", action="store_true",
+                      help="profile the TransVOD++ train step (1 clip x 5 "
+                           "frames, f32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
@@ -239,8 +307,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     print(f"[card] {cs.card_line()}; torch {torch.__version__}", flush=True)
-    if args.train:
-        return profile_train(cs, args.requests)
+    if args.train or args.train_clips:
+        return profile_train(cs, args.requests, clips=args.train_clips)
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.models import temporal
     from dfvod_tpu_torch.serve import Server
@@ -265,16 +333,7 @@ def main() -> int:
     # 1 + 2: host ms per request and per-layer device time; RoIAlign is a
     # function, timed by wrapping it
     pairs, handles = hook_events(layer_groups(server.model))
-    roi_align = temporal.roi_align
-
-    def timed_roi_align(*args, **kwargs):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = roi_align(*args, **kwargs)
-        ev[1].record()
-        pairs["QRF RoIAlign (K3)"].append(ev)
-        return out
-    temporal.roi_align = timed_roi_align
+    roi_align = timed_roi_align(pairs)
     totals = []
     host = []
     for _ in range(args.requests):

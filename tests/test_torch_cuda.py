@@ -1,11 +1,11 @@
 """Tests of the port that need the card: the CUDA MSDA kernels (forward
 and backward, up to TDAM's 5 levels) and the bilinear-sampling kernel under
-RoIAlign (K3) against their plain versions, gradients through the MSDA
-module on the card, the refused backward through K3, and small models
-(single-frame, TransVOD++, TransVOD+TDAM) and a small train step on the
-card against the same on the CPU. They skip without a CUDA device. This file
-imports neither JAX nor the JAX package, so it also runs where JAX is not
-installed:
+RoIAlign (K3) and its backward (K4) against their plain versions, gradients
+through the MSDA module and RoIAlign on the card, and small models
+(single-frame, TransVOD++, TransVOD+TDAM) and small single-frame and
+TransVOD++ train steps on the card against the same on the CPU. They skip
+without a CUDA device. This file imports neither JAX nor the JAX package,
+so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
@@ -273,16 +273,71 @@ def test_hat_kernel_refuses_what_it_does_not_take(cuda_device):
         hs.hat_sample(value, p[:, :, :2], p, p)
 
 
-def test_roi_align_backward_on_card_raises(cuda_device):
-    """K3's backward (K4) waits for the TransVOD++ training slice: a
-    backward through RoIAlign on the card raises rather than returning no
-    gradient for the features."""
-    feat = torch.randn(1, 9, 11, 8, device=cuda_device, requires_grad=True)
-    boxes = torch.tensor([[[1.0, 1.5, 8.0, 7.0]]], device=cuda_device)
-    out = roi_align(feat, boxes, output_size=3)
-    assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="K4"):
-        out.sum().backward()
+@pytest.mark.parametrize("needs", ["gv", "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 40, 256])
+def test_hat_bwd_kernel_matches_plain(cuda_device, D, dtype, needs):
+    """K4 against the plain backward in f32 on the same (bf16-rounded)
+    value and go, at points outside the grid, in (-1, 0) and (H-1, H), on
+    integers, at exactly -1 and exactly W, with aw = 0, the -1e6 padding
+    and NaN: atol/rtol 1e-4 (the atomics add gv in another order on every
+    run), a bf16 gv rtol 2^-8 more (rounded once). With ``needs="gv"``
+    only gv comes back, in the value's dtype and shape."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    BM, H, W, Lq, PL = 3, 7, 9, 133, 5
+    value = torch.randn((BM, H, W, D), generator=gen,
+                        device=cuda_device).to(dtype)
+    px = torch.rand((BM, Lq, PL), generator=gen, device=cuda_device) * 13 - 2
+    py = torch.rand((BM, Lq, PL), generator=gen, device=cuda_device) * 11 - 2
+    aw = torch.randn((BM, Lq, PL), generator=gen, device=cuda_device)
+    px[:, :10] = torch.floor(px[:, :10])
+    px[:, 10:15] = -0.5
+    py[:, 15:20] = H - 0.5
+    aw[:, 20:25] = 0
+    px[:, 25:30] = -1e6
+    py[:, 25:30] = -1e6
+    px[:, 30:32, 0] = float("nan")
+    px[:, 32:35] = -1.0
+    py[:, 35:38] = -1.0
+    px[:, 38:40] = float(W)
+    go = torch.randn((BM, Lq, D), generator=gen, device=cuda_device).to(dtype)
+    want = (True, False, False, False) if needs == "gv" else (True,) * 4
+    before = hs.hat_sample_bwd.launches
+    got = hs.hat_sample_bwd(value, px, py, aw, go, needs=want)
+    torch.cuda.synchronize()
+    assert hs.hat_sample_bwd.launches == before + 1
+    assert [g is not None for g in got] == list(want)
+    assert got[0].dtype == dtype and got[0].shape == value.shape
+    ref = hs.hat_sample_plain_bwd(value.float(), px, py, aw, go.float())
+    for g, r in zip(got, ref):
+        if g is not None:
+            rtol = 1e-4 + (2.0 ** -8 if g.dtype == torch.bfloat16 else 0)
+            torch.testing.assert_close(g.float(), r.reshape(g.shape),
+                                       atol=1e-4, rtol=rtol)
+
+
+def test_roi_align_feature_grad_card_matches_cpu(cuda_device):
+    """The features' gradient of RoIAlign on the card (K3 forward, K4
+    backward, one launch each) against the CPU's (autograd of the plain
+    sampling), at boxes inside, across and outside the map: atol/rtol 1e-4
+    (the order of the atomics)."""
+    gen = torch.Generator().manual_seed(0)
+    feat = torch.randn((2, 10, 13, 16), generator=gen)
+    boxes = torch.rand((2, 17, 4), generator=gen) * 56 - 8
+    boxes = torch.cat([torch.minimum(boxes[..., :2], boxes[..., 2:]),
+                       torch.maximum(boxes[..., :2], boxes[..., 2:])], -1)
+    co = torch.randn((2, 17, 7, 7, 16), generator=gen)
+    grads = []
+    fwd, bwd = hs.hat_sample.launches, hs.hat_sample_bwd.launches
+    for dev in ("cpu", cuda_device):
+        f = feat.to(dev).detach().requires_grad_()
+        (roi_align(f, boxes.to(dev), output_size=7, spatial_scale=0.25)
+         * co.to(dev)).sum().backward()
+        grads.append(f.grad.cpu())
+    assert hs.hat_sample.launches == fwd + 1
+    assert hs.hat_sample_bwd.launches == bwd + 1
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-4, rtol=1e-4)
 
 
 TEMPORAL = {
@@ -324,3 +379,51 @@ def test_small_temporal_model_card_matches_cpu(cuda_device, name):
         for k in ("pred_logits", "pred_boxes"):
             torch.testing.assert_close(g[k].cpu(), r[k], atol=1e-4,
                                        rtol=1e-3)
+
+
+def test_small_video_train_step_card_matches_cpu(cuda_device):
+    """One train-step loss and every gradient of a small TransVOD++ model on
+    one padded clip: the card (K1-K4) against the same weights and batch on
+    the CPU, f32, dropout 0, TF32 off. Loss and components atol 1e-5 /
+    rtol 1e-4; gradients per tensor within 1e-2 in relative L2 norm (a
+    structurally zero one atol 1e-4), as ``chip_smoke.py`` compares its
+    small video steps: the trunk trains, and its ReLUs make the gradients
+    too ill-conditioned for an elementwise comparison
+    (``tests/test_torch_temporal_train.py``)."""
+    cfg = Config(model=ModelConfig(**dict(SMALL, num_queries=100),
+                                   **TEMPORAL["transvod_pp"][0]))
+    cpu_model, criterion, _ = build_model(cfg, device="cpu", seed=3)
+    gpu_model, _, _ = build_model(cfg, device=cuda_device, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    F, T = 3, 8
+    sizes = torch.tensor([[96, 128], [60, 84], [96, 128]])
+    batch = {"images": torch.randint(0, 256, (F, 96, 128, 4), generator=gen,
+                                     dtype=torch.uint8),
+             "sizes": sizes,
+             "labels": torch.randint(0, 2, (F, T), generator=gen),
+             "boxes": torch.cat([torch.rand((F, T, 2), generator=gen) * 0.6
+                                 + 0.2, torch.rand((F, T, 2), generator=gen)
+                                 * 0.3 + 0.05], -1),
+             "valid": torch.arange(T)[None] < torch.tensor([[3], [5], [2]])}
+    results = []
+    k4 = hs.hat_sample_bwd.launches
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda_device)):
+        state = create_train_state(model, cfg)
+        loss, parts = criterion(*forward(
+            state, {k: v.to(dev) for k, v in batch.items()}))
+        loss.backward()
+        results.append(({"loss": loss.detach(), **parts},
+                        {n: p.grad for n, p in model.named_parameters()
+                         if p.grad is not None}))
+    assert hs.hat_sample_bwd.launches == k4 + 1
+    (ref_parts, ref_grads), (parts, grads) = results
+    for k, r in ref_parts.items():
+        torch.testing.assert_close(parts[k].detach().cpu(), r.detach(),
+                                   atol=1e-5, rtol=1e-4)
+    assert grads.keys() == ref_grads.keys()
+    for n, r in ref_grads.items():
+        g = grads[n].cpu()
+        rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+        assert rel <= 1e-2 or (float(r.abs().max()) < 1e-4 and float(
+            (g - r).abs().max()) <= 1e-4), (n, rel)

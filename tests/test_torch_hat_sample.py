@@ -105,11 +105,42 @@ def test_bf16_value_gives_bf16_output():
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
-def test_backward_on_the_card_raises():
-    """K3's backward is K4, which waits for the TransVOD++ training slice:
-    it raises, naming both, instead of returning no gradient."""
-    with pytest.raises(NotImplementedError, match="K4.*TransVOD"):
-        hs.HatSampleFunction.backward(None, torch.zeros(1))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_autograd_function_asks_k4_for_what_needs_a_gradient(monkeypatch,
+                                                              dtype):
+    """``HatSampleFunction`` (K3 forward, K4 backward on the card), driven
+    on CPU tensors with both kernel wrappers replaced by the plain
+    versions: the backward passes ``needs_input_grad`` to the K4 wrapper,
+    returns None where no gradient is needed, and gives the value's
+    gradient in the value's (grid) shape and dtype. RoIAlign's case: only
+    the value needs a gradient."""
+    asked = []
+
+    def bwd(value, px, py, aw, go, grid, needs):
+        asked.append(tuple(needs))
+        got = hs.hat_sample_plain_bwd(value, px, py, aw, go, grid)
+        return tuple(g if n else None for g, n in zip(got, needs))
+
+    monkeypatch.setattr(hs, "hat_sample_cuda", hs.hat_sample_plain)
+    monkeypatch.setattr(hs, "hat_sample_bwd_cuda", bwd)
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy(rng.standard_normal((2, 5, 7, 16)).astype(
+        np.float32)).to(dtype)
+    px, py, aw = map(torch.from_numpy, edge_points(rng, 2, 60, 4, 5, 7))
+    go = torch.from_numpy(rng.standard_normal((2, 60, 16)).astype(
+        np.float32)).to(dtype)
+    want = hs.hat_sample_plain_bwd(v, px, py, aw, go)
+    leaf = v.clone().requires_grad_()
+    hs.HatSampleFunction.apply(leaf, px, py, aw, None).backward(go)
+    assert asked == [(True, False, False, False)]
+    assert leaf.grad.shape == v.shape and leaf.grad.dtype == dtype
+    torch.testing.assert_close(leaf.grad, want[0], atol=0, rtol=0)
+    pts = [t.clone().requires_grad_() for t in (px, py, aw)]
+    hs.HatSampleFunction.apply(v, *pts, None).backward(go)
+    assert asked[1] == (False, True, True, True)
+    for p, w in zip(pts, want[1:]):
+        torch.testing.assert_close(p.grad, w, atol=0, rtol=0)
 
 
 def test_other_devices_are_refused():

@@ -127,21 +127,35 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Server(cfg)
 
 
-@pytest.mark.parametrize("kw,slice_name", [
+UNSUPPORTED = [
     (dict(fusion_type="Encoder_CrossFusion"), "fusion"),
     (dict(fusion_type="Backbone_CrossFusion"), "fusion"),
-    (dict(temporal_mode="transvod_pp"), "TransVOD"),
+    (dict(temporal_mode="transvod_pp", remat=True), "training slice"),
     (dict(two_stage=True), "two-stage"),
     (dict(masks=True), "segmentation"),
     (dict(num_feature_levels=4), "multi-level"),
     (dict(fusion_type="LateFusion", depth_backbone_type="resnet18"),
      "research"),
-])
+]
+
+
+@pytest.mark.parametrize("kw,slice_name", UNSUPPORTED)
 def test_unsupported_config_names_its_slice(kw, slice_name):
-    # the temporal modes serve; training them waits for the K4 slice
-    training = kw.get("temporal_mode", "none") != "none"
+    # refused for serving, as ``Server`` and ``build_model`` check it; remat
+    # only recomputes training activations, so serving takes it
+    if kw.get("remat"):
+        check_supported(ModelConfig(**kw))
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
-        check_supported(ModelConfig(**kw), training=training)
+        check_supported(ModelConfig(**kw))
+
+
+@pytest.mark.parametrize("kw,slice_name", UNSUPPORTED)
+def test_unsupported_config_refused_for_training(kw, slice_name):
+    # every refusal holds for training too (the temporal modes serve and
+    # train)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        check_supported(ModelConfig(**kw), training=True)
 
 
 def test_port_imports_no_jax():

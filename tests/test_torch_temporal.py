@@ -25,6 +25,7 @@ from dfvod_tpu_torch.data.device_pipeline import device_normalize
 from dfvod_tpu_torch.models import build_model
 from dfvod_tpu_torch.models import temporal as tm
 from dfvod_tpu_torch.serve import Server
+from dfvod_tpu_torch.train import create_train_state
 from dfvod_tpu_torch.utils.config import Config, ModelConfig, check_supported
 from dfvod_tpu_torch.utils.convert import load_jax_variables
 from torch_port_helpers import assert_close, random_variables
@@ -295,9 +296,15 @@ def test_clip_server(flax_run):
 
 
 @pytest.mark.parametrize("mode", ["transvod", "transvod_pp"])
-def test_temporal_modes_serve_but_refuse_to_train(mode):
-    m = ModelConfig(**dict(DIMS, temporal_mode=mode))
-    check_supported(m)
-    with pytest.raises(NotImplementedError, match="TransVOD\\+\\+ training"
-                                                  ".*K4"):
-        check_supported(m, training=True)
+def test_temporal_modes_serve_and_train(mode):
+    """Both temporal modes are accepted for training, and a train state
+    over such a model holds the flat two-group optimizer of
+    ``dfvod_tpu/train/optim.py`` (``tests/test_torch_temporal_train.py``
+    drives the steps)."""
+    cfg = Config(model=ModelConfig(**dict(DIMS, temporal_mode=mode)))
+    check_supported(cfg.model)
+    check_supported(cfg.model, training=True)
+    state = create_train_state(build_model(cfg, device="cpu")[0], cfg)
+    assert {g["label"] for g in state.optimizer.param_groups} == {
+        "base", "linear_proj"}
+    assert all(p.requires_grad for p in state.model.parameters())

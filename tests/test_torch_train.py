@@ -55,7 +55,11 @@ from dfvod_tpu_torch.utils.config import (
     check_supported,
 )
 from dfvod_tpu_torch.utils.convert import load_jax_variables, port_key
-from torch_port_helpers import assert_close, random_variables
+from torch_port_helpers import (
+    assert_close,
+    flat_params,
+    random_variables,
+)
 
 DIMS = dict(num_classes=3, num_queries=12, hidden_dim=64, nheads=4,
             enc_layers=2, dec_layers=2, dim_feedforward=128, dropout=0.0,
@@ -258,17 +262,6 @@ def flax_variables(fusion, seed=11):
 def port_model(fusion, variables):
     model = build_model(port_cfg(fusion), device="cpu")[0]
     return load_jax_variables(model, variables)
-
-
-def flat_params(tree):
-    """{port state-dict key: numpy array in the port's layout} of a flax
-    ``params`` tree."""
-    out = {}
-    for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        path = tuple(k.key for k in kp)
-        key, val = port_key("params", path, np.asarray(v))
-        out[key] = val
-    return out
 
 
 # --------------------------------------------------------------- optimizer

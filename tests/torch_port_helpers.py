@@ -1,9 +1,11 @@
 """Shared helpers of the ``tests/test_torch_*.py`` parity tests: random flax
-variables made with numpy from a seed, and the comparison of a port tensor
-with a JAX array."""
+variables made with numpy from a seed, a flax ``params`` tree under the
+port's names, and the comparison of a port tensor with a JAX array."""
 import jax
 import numpy as np
 import torch
+
+from dfvod_tpu_torch.utils.convert import port_key
 
 
 def random_variables(init_fn, seed=0):
@@ -43,3 +45,13 @@ def assert_close(port, ref, atol, rtol, err_msg=""):
     np.testing.assert_allclose(t2n(port) if torch.is_tensor(port) else port,
                                np.asarray(ref, np.float32), atol=atol,
                                rtol=rtol, err_msg=err_msg)
+
+
+def flat_params(tree):
+    """{port state-dict key: numpy array in the port's layout} of a flax
+    ``params`` tree."""
+    out = {}
+    for kp, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key, val = port_key("params", tuple(k.key for k in kp), np.asarray(v))
+        out[key] = val
+    return out
