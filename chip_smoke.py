@@ -19,14 +19,25 @@ Phases, each on lines of its own:
    bilinear sampling under RoIAlign) at the QRF shape and edge cases, then
    K4 (``hat_sample_bwd``, its backward) at the QRF training shape with
    real and uniform points, in the bf16 mix and at the edge cases, with
-   and without the point gradients;
+   and without the point gradients; then the opt-in forms: K5b/c
+   (``corner_gather_fwd``, the folded-corner gather of MSDA's ``flat``,
+   ``pallas`` and ``pallas_onehot`` forms) at the B=8 encoder shape and 4
+   levels, with indices out of range, timed beside one
+   ``F.embedding_bag``; K5a (``hat_sample_fwd`` with its level table,
+   ``ms_deform_attn_hat(sparse=True)``) at the encoder shape and 4 levels
+   with NaN queries; K5d/e, the tiled and separable entries, launching K1;
+   K6 (``fused_bottleneck``, ResNet-50's layer1 in bf16, a launch per
+   block) on the serve model's real layer1 input and at borders, timed
+   beside the unfused bf16 layer1;
 4. the serving path at full width: LateFusion RGB-D DeformableDETR (ResNet-50
    DC5 + DFormer, hidden 256, 8 heads, 6+6 layers, 300 queries, box
    refinement) at B=8 608x800 from uint8 frames in bf16, random weights from
    a seed. The kernel launch counts are set to 0 just before and read just
    after; the detections must be finite and agree with the port's own f32
-   forward; a small model on the card must agree with the same model on
-   the CPU;
+   forward; then the same served model with ``fused_stages`` on (K6, 3
+   launches per request) under each ``DFVOD_MSDA_IMPL`` (13 K1 or 13 K5b/c
+   launches per request), each within the same gate of the f32 forward;
+   a small model on the card must agree with the same model on the CPU;
 5. the clip serving path at full width: the TransVOD++ LateFusion model of
    ``configs/training/TransVOD++_withdepth.sh`` (the model above, 4
    reference frames, QRF + 3 temporal rounds) on 2 clips x 5 frames at
@@ -41,7 +52,9 @@ Phases, each on lines of its own:
    set to 0 just before, read just after), finite losses, the frozen
    ResNet-50 bitwise unchanged, every trainable group and the DFormer BN
    statistics moved; then a small f32 train step on the card against the
-   same step on the CPU (loss, components and every gradient);
+   same step on the CPU (loss, components and every gradient), and one of
+   a 6+6-layer model under ``DFVOD_MSDA_IMPL=pallas_onehot`` (13 K5b/c and
+   13 K2 launches);
 7. the video training path at full width: the TransVOD++ recipe on 1 clip
    x 5 frames at 608x800 in f32, one warm-up and five timed ``train_step``s
    with 16 K1, 1 K3, 16 K2 and 1 K4 launches each (counts set to 0 just
@@ -50,9 +63,9 @@ Phases, each on lines of its own:
    bf16 mix and one with ``fixed_pretrained_model`` (16 / 1 / 3 / 0
    launches, the trunk bitwise unchanged); then small f32 TransVOD++ and
    TransVOD+TDAM train steps on the card against the same on the CPU;
-8. the card line, JSON lines of the train, video-train and clip-serve
-   phases, a JSON line of the kernels and the serving path, and the final
-   line ``{"ok": true, "device": {...}}``.
+8. the card line, JSON lines of the train, video-train, clip-serve and
+   serve-variant phases, a JSON line of the kernels and the serving path,
+   and the final line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -74,6 +87,7 @@ H, W, BATCH = 608, 800, 8
 TRAIN_BATCH = 6                    # configs/training/LateFusion_bf16.sh
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 # bf16 serve vs the port's own f32 forward, normalized cxcywh box
 # coordinates (see PERF.md): bf16 keeps 8 bits of mantissa, so every
 # Linear/conv output carries ~0.4% relative error through ResNet-50 and
@@ -88,6 +102,18 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """(least ms, 'bytes' | 'operations') of work that moves ``nbytes``
+    and does ``ops`` operations at ``ops_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -164,13 +190,9 @@ def msda_bound(value, loc, attw, out):
     """(least ms, 'bytes' | 'operations'): each input read once, the output
     written once; per sample point ~20 coordinate ops and 10 per channel
     (4 corner multiply-adds + the attention weight)."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (value, loc, attw, out))
     B, Lq, M, L, P = attw.shape
-    ops = B * Lq * M * L * P * (10 * value.shape[-1] + 20)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes(value, loc, attw, out),
+                 B * Lq * M * L * P * (10 * value.shape[-1] + 20))
 
 
 def phase_msda_kernel():
@@ -250,14 +272,10 @@ def msda_bwd_bound(tensors):
     point ~30 coordinate and reduction ops and ~30 per channel (the sample,
     both location derivatives, 4 weighted gradient adds)."""
     value, loc, attw = tensors[:3]
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*tensors, value, loc, attw))
     B, Lq, M, L, P = attw.shape
-    ops = B * Lq * M * L * P * (BWD_OPS_PER_CHANNEL * value.shape[-1]
-                                + BWD_OPS_PER_POINT)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes(*tensors, value, loc, attw),
+                 B * Lq * M * L * P * (BWD_OPS_PER_CHANNEL * value.shape[-1]
+                                       + BWD_OPS_PER_POINT))
 
 
 def backward_ms(fwd, inputs, go, iters):
@@ -276,9 +294,9 @@ def training_mix():
     seen = []
     kernel = layers.ms_deform_attn
 
-    def spy(value, shapes, loc, attw):
+    def spy(value, shapes, loc, attw, **kw):
         seen.append((value.dtype, loc.dtype, attw.dtype))
-        return kernel(value, shapes, loc, attw)
+        return kernel(value, shapes, loc, attw, **kw)
 
     attn = layers.MSDeformAttn(64, 1, 4, 4).cuda()
     query = torch.randn(2, 30, 64, device="cuda")
@@ -421,14 +439,9 @@ def hat_bound(value, px, py, aw, out):
     """(least ms, 'bytes' | 'operations') of K3: each input read once, the
     output written once; per sample point ~25 coordinate and corner-weight
     ops and 8 per channel (4 corner multiply-adds)."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (value, px, py, aw, out))
-    BM, Lq, PL = px.shape
-    ops = BM * Lq * PL * (HAT_OPS_PER_CHANNEL * value.shape[-1]
-                          + HAT_OPS_PER_POINT)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes(value, px, py, aw, out),
+                 px.numel() * (HAT_OPS_PER_CHANNEL * value.shape[-1]
+                               + HAT_OPS_PER_POINT))
 
 
 def qrf_points(gen, frames=QRF_FRAMES):
@@ -550,17 +563,13 @@ def hat_bwd_bound(value, px, py, aw, go, point_grads):
     """(least ms, 'bytes' | 'operations') of K4: go, px, py, aw read once
     and gv written once in the value's dtype; with the point gradients the
     value read once more and gpx, gpy, gaw (f32) written once."""
-    pts = px.numel() * px.element_size()
-    nbytes = (go.numel() * go.element_size() + 3 * pts
-              + value.numel() * value.element_size())
+    moved = nbytes(go, px, py, aw, value)
     per_channel = HAT_BWD_OPS_PER_CHANNEL
     if point_grads:
-        nbytes += value.numel() * value.element_size() + 3 * pts
+        moved += nbytes(value, px, py, aw)
         per_channel *= 2
-    ops = px.numel() * (per_channel * value.shape[-1] + HAT_BWD_OPS_PER_POINT)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(moved, px.numel() * (per_channel * value.shape[-1]
+                                      + HAT_BWD_OPS_PER_POINT))
 
 
 def hat_bwd_agrees(got, ref):
@@ -661,6 +670,369 @@ def phase_hat_bwd_kernel():
               f"plain backward {r['plain_ms']:.4f} ms, grid_sample backward "
               f"yardstick {r['yardstick_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return result
+
+
+# ------------------------------------------- K5b/c: the folded-corner gather
+def embedding_bag_gather(table, gidx, gw):
+    """Yardstick only, never called by the port: the same weighted row
+    gather as one ``F.embedding_bag(mode="sum")`` over the flat table."""
+    import torch.nn.functional as F
+    return F.embedding_bag(gidx, table, per_sample_weights=gw, mode="sum")
+
+
+def phase_corner_gather_kernel():
+    """K5b/c (``csrc/corner_gather_fwd.cu``) against its plain version: the
+    MSDA dispatch's folded corners at the B=8 encoder shape and at 4
+    levels, f32 and the serving mix, and direct calls with indices outside
+    [0, S); times at the encoder shape in bf16, with one
+    ``F.embedding_bag`` over the same rows as the library yardstick."""
+    from dfvod_tpu_torch.ops import corner_gather as cg
+    from dfvod_tpu_torch.ops import msda
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32 = (torch.float32,) * 3
+    serve = (torch.bfloat16, torch.float32, torch.bfloat16)
+    enc = (((38, 50),), BATCH, 1900, 8, 32, 4)
+    multi = (((76, 100), (38, 50), (19, 25), (10, 13)), 2, 300, 8, 32, 4)
+    result = {}
+    for name, (shapes, *dims), dtypes in [("enc", enc, f32),
+                                          ("enc", enc, serve),
+                                          ("multi_l4", multi, f32),
+                                          ("multi_l4", multi, serve)]:
+        value, loc, attw = msda_inputs(gen, shapes, *dims, dtypes)
+        B, S, M, D = value.shape
+        idx, w = cg.corner_indices_weights(shapes, loc, attw)
+        got = cg.corner_gather(value, idx, w)
+        torch.cuda.synchronize()
+        ref = cg.corner_gather_plain(value.float(), idx, w)
+        ok, tol = hat_agrees(got, ref)
+        via = msda.ms_deform_attn(value, shapes, loc, attw, impl="flat")
+        torch.cuda.synchronize()
+        ok &= torch.equal(via, got.reshape(via.shape))
+        max_err = float((got.float() - ref).abs().max())
+        tag = "f32" if dtypes == f32 else "bf16 value/f32 loc/bf16 attw"
+        print(f"[gather] {name:8s} {tag:28s} value={tuple(value.shape)} "
+              f"Lq={loc.shape[1]} K={idx.shape[-1]} max_abs_err={max_err:.3e}"
+              f" ({tol}; the dispatch's output bit-equal) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"corner_gather_fwd disagrees with its plain version: "
+                  f"{name} {tag} max_abs_err {max_err}")
+        if name == "enc" and dtypes == serve:
+            table = value.permute(0, 2, 1, 3).reshape(B * M * S, D)
+            off = (torch.arange(B * M, device="cuda").reshape(B, 1, M, 1)
+                   * S).int()
+            gidx = (idx + off).reshape(-1, idx.shape[-1])
+            lib_dtype = table.dtype
+            try:
+                embedding_bag_gather(table, gidx, w.reshape(gidx.shape).to(
+                    table.dtype))
+            except RuntimeError:
+                lib_dtype = torch.float32      # refused bf16: time f32
+            lt, lw = table.to(lib_dtype), w.reshape(gidx.shape).to(lib_dtype)
+            r = {"max_abs_err": max_err,
+                 "ms": cuda_ms(lambda: cg.corner_gather(value, idx, w), 50),
+                 "dispatch_ms": cuda_ms(lambda: msda.ms_deform_attn(
+                     value, shapes, loc, attw, impl="flat"), 20),
+                 "plain_ms": cuda_ms(lambda: cg.corner_gather_plain(
+                     value, idx, w), 10),
+                 "library_ms": cuda_ms(lambda: embedding_bag_gather(
+                     lt, gidx, lw), 50),
+                 "library_dtype": str(lib_dtype).replace("torch.", "")}
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes(value, idx, w, got), idx.numel() * 2 * D)
+            result = r
+            print(f"[gather] time enc bf16: kernel {r['ms']:.4f} ms (with "
+                  f"the corner folding, tensor code: {r['dispatch_ms']:.4f} "
+                  f"ms), plain {r['plain_ms']:.4f} ms, F.embedding_bag "
+                  f"({r['library_dtype']}) {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                  f"{nbytes(value, idx, w, got) / 1e6:.1f} MB)", flush=True)
+    # indices outside [0, S) contribute 0; the JAX layout (BM, S, D)
+    for dt in (torch.float32, torch.bfloat16):
+        v = torch.randn((6, 50, 40), generator=gen, device="cuda").to(dt)
+        idx = torch.randint(-5, 55, (6, 133, 12), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        w = torch.randn((6, 133, 12), generator=gen, device="cuda")
+        got = cg.onehot_sample(v, idx, w)
+        torch.cuda.synchronize()
+        ref = cg.onehot_sample(v.float().cpu(), idx.cpu(), w.cpu()).cuda()
+        ok, tol = hat_agrees(got, ref)
+        max_err = float((got.float() - ref).abs().max())
+        print(f"[gather] oob_d40  {str(dt).replace('torch.', ''):28s} "
+              f"v=(6, 50, 40) Lq=133 K=12 idx in [-5, 55) max_abs_err="
+              f"{max_err:.3e} ({tol}) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"corner_gather_fwd disagrees out of range: {dt}")
+    return result
+
+
+# ------------------------------------------ K5a: the level-stacked sampling
+def sparse_points(gen, shapes, B, Lq, M, P, nan_rows=0):
+    """The pixel coordinates ``ms_deform_attn_hat(sparse=True)`` builds
+    (level-stacked, ``py`` offset per level) from U(-0.1, 1.1) locations,
+    (BM, Lq, L * P); the first ``nan_rows`` queries all NaN."""
+    L = len(shapes)
+    loc = torch.rand((B, Lq, M, L, P, 2), generator=gen, device="cuda")
+    loc = loc * 1.2 - 0.1
+    loc[:, :nan_rows] = float("nan")
+    pxs, pys, y_off = [], [], 0.0
+    for lvl, (h, w) in enumerate(shapes):
+        pxs.append(loc[:, :, :, lvl, :, 0] * w - 0.5)
+        pys.append(loc[:, :, :, lvl, :, 1] * h - 0.5 + y_off)
+        y_off += h + 2.0
+    aw = torch.randn((B, Lq, M, L * P), generator=gen, device="cuda"
+                     ).softmax(-1)
+
+    def bm(t):
+        return t.transpose(1, 2).reshape(B * M, Lq, L * P).contiguous()
+
+    return bm(torch.cat(pxs, -1)), bm(torch.cat(pys, -1)), bm(aw)
+
+
+def phase_hat_sparse_kernel():
+    """K5a (``csrc/hat_sample_fwd.cu`` with its level table) against the
+    plain version at the B=8 encoder shape and at 4 levels, f32 and bf16;
+    a query whose every point is NaN gives 0. The encoder shape through
+    ``ms_deform_attn_hat(sparse=True)`` with the count set to 0 just
+    before; times there in bf16."""
+    from dfvod_tpu_torch.ops import hat_sample as hs
+    from dfvod_tpu_torch.ops import msda_forms as mf
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(name, shapes, B, Lq, dt)
+             for name, shapes, B, Lq in (
+                 ("enc", ((38, 50),), BATCH, 1900),
+                 ("multi_l4", ((76, 100), (38, 50), (19, 25), (10, 13)), 2,
+                  300))
+             for dt in (torch.float32, torch.bfloat16)]
+    result = {}
+    for name, shapes, B, Lq, dt in cases:
+        S = sum(h * w for h, w in shapes)
+        v = torch.randn((B * 8, S, 32), generator=gen, device="cuda").to(dt)
+        px, py, aw = sparse_points(gen, shapes, B, Lq, 8, 4, nan_rows=3)
+        got = hs.hat_sample_sparse(v, shapes, px, py, aw)
+        torch.cuda.synchronize()
+        ref = hs.hat_sample_sparse_plain(v.float(), shapes, px, py, aw)
+        ok, tol = hat_agrees(got, ref)
+        ok &= bool((got[:, :3] == 0).all()) and bool(
+            torch.isfinite(got.float()).all())
+        max_err = float((got.float() - ref).abs().max())
+        tag = str(dt).replace("torch.", "")
+        print(f"[hat_sparse] {name:8s} {tag:8s} v={tuple(v.shape)} Lq={Lq} "
+              f"PL={px.shape[-1]} max_abs_err={max_err:.3e} ({tol}; 3 NaN "
+              f"queries exactly 0) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"hat_sample_fwd (levels) disagrees with its plain "
+                  f"version: {name} {tag} max_abs_err {max_err}")
+        if name == "enc" and dt == torch.bfloat16:
+            value, loc, attw = msda_inputs(
+                gen, shapes, BATCH, 1900, 8, 32, 4,
+                (torch.bfloat16, torch.float32, torch.bfloat16))
+            out, counts = counted(lambda: mf.ms_deform_attn_hat(
+                value, shapes, loc, attw, sparse=True))
+            k1 = msda_plain_f32(value, shapes, loc, attw)
+            entry_err = float((out.float() - k1).abs().max())
+            check(counts == want_launches(hat_sample_sparse=1)
+                  and entry_err <= 3e-2,
+                  f"ms_deform_attn_hat(sparse=True) launched {counts}, "
+                  f"max_abs_err {entry_err} against the per-level form")
+            r = {"max_abs_err": max_err, "launches": counts[
+                     "hat_sample_sparse"],
+                 "ms": cuda_ms(lambda: hs.hat_sample_sparse(
+                     v, shapes, px, py, aw), 50),
+                 "plain_ms": cuda_ms(lambda: hs.hat_sample_sparse_plain(
+                     v, shapes, px, py, aw), 10)}
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes(v, px, py, aw, got),
+                px.numel() * (HAT_OPS_PER_CHANNEL * 32 + HAT_OPS_PER_POINT))
+            result = r
+            print(f"[hat_sparse] encoder entry ms_deform_attn_hat(sparse=True"
+                  f") bf16: launches {counts}, max_abs_err {entry_err:.3e} "
+                  f"against the per-level plain form (atol 3e-2); time: "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+    return result
+
+
+def msda_plain_f32(value, shapes, loc, attw):
+    from dfvod_tpu_torch.ops import msda
+    return msda.ms_deform_attn_plain(value.float(), shapes, loc.float(),
+                                     attw.float())
+
+
+def phase_single_level_hat_entries():
+    """K5d/e: ``ms_deform_attn_hat_tiled`` and ``_sep`` launch K1 at the
+    B=8 encoder shape (one launch each, counts set to 0 just before), held
+    against the plain version, f32 and the serving mix; in the serving mix
+    timed through the entry, beside the plain version and K1's bound on
+    these inputs."""
+    from dfvod_tpu_torch.ops import msda
+    from dfvod_tpu_torch.ops import msda_forms as mf
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = ((38, 50),)
+    result = {}
+    for form, fn in (("tiled", mf.ms_deform_attn_hat_tiled),
+                     ("sep", mf.ms_deform_attn_hat_sep)):
+        for dtypes in ((torch.float32,) * 3,
+                       (torch.bfloat16, torch.float32, torch.bfloat16)):
+            value, loc, attw = msda_inputs(gen, shapes, BATCH, 1900, 8, 32,
+                                           4, dtypes)
+            got, counts = counted(lambda: fn(value, shapes, loc, attw))
+            ref = msda_plain_f32(value, shapes, loc, attw)
+            err = float((got.float() - ref).abs().max())
+            f32 = value.dtype == torch.float32
+            ok = (bool(((got.float() - ref).abs()
+                        <= 1e-5 + 1e-5 * ref.abs()).all()) if f32
+                  else err <= 3e-2)
+            ok &= counts == want_launches(msda_fwd=1)
+            tag = "f32" if f32 else "bf16 value/f32 loc/bf16 attw"
+            print(f"[hat_{form}] enc {tag:28s} launches {counts['msda_fwd']} "
+                  f"msda_fwd max_abs_err={err:.3e} "
+                  f"({'atol 1e-5 rtol 1e-5' if f32 else 'atol 3e-2'}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"ms_deform_attn_hat_{form}: launches {counts}, "
+                      f"max_abs_err {err}")
+            if not f32:
+                r = {"max_abs_err": err, "launches": counts["msda_fwd"],
+                     "ms": cuda_ms(lambda: fn(value, shapes, loc, attw), 50),
+                     "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain(
+                         value, shapes, loc, attw), 10)}
+                r["bound_ms"], r["bound_by"] = msda_bound(value, loc, attw,
+                                                          got)
+                result[form] = r
+                print(f"[hat_{form}] time enc {tag}: through the entry "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return result
+
+
+# ----------------------------------------- K6: the fused ResNet layer1
+def layer1_input(backbone, img):
+    """The (B, H/4, W/4, 64) NHWC view of layer1's input: the stem on the
+    normalized frames, in the backbone's dtype and channels-last memory."""
+    import torch.nn.functional as F
+    x = img.to(next(backbone.parameters()).dtype).permute(0, 3, 1, 2)
+    x = F.max_pool2d(torch.relu(backbone.bn1(backbone.conv1(x))), 3, 2, 1)
+    return x.permute(0, 2, 3, 1)
+
+
+def k6_agrees(got, ref):
+    """(ok, tolerance, max abs err, relative L2): K6 sums each product on
+    the tensor cores, the plain version with f32 FMAs, so a bf16 rounding
+    of t, u or a block's output may fall one step (2^-8 relative) the
+    other way and carry into the next block. The phase prints both sides'
+    relative L2 from the f64-summed form, which shows how much of the
+    difference each side's rounding makes (PERF.md has the readings; the
+    largest, K6 against the plain version, was 1.1e-3). Gate: relative L2
+    within 2e-3 and every entry within 2^-5 of the largest output."""
+    d = (got.float() - ref.float()).abs()
+    rel = relative_l2(got, ref)
+    max_err = float(d.max())
+    ok = rel <= 2e-3 and max_err <= 2.0 ** -5 * float(ref.float().abs().max())
+    return ok, "relative L2 2e-3, max 2^-5 of max|ref|", max_err, rel
+
+
+def relative_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def k6_bound(x, weights):
+    """((least ms, 'bytes' | 'operations') of the stage, the same of the
+    stage as K6 runs it) from the multiply-adds at the bf16 tensor-core
+    peak and the bytes over HBM. The stage reads x and the weights once and
+    writes its output once; K6's launch per block also writes each block's
+    output and reads it back in the next block."""
+    B, H, W, _ = x.shape
+    params = nbytes(*[t for blk in weights for t in blk if t is not None])
+    cin = x.shape[-1]
+    acts, macs = 0, 0
+    for w1, _, _, _, w3, _, wd, _ in weights:
+        cm, cout = w1.shape[1], w3.shape[1]
+        acts += B * H * W * (cin + cout) * x.element_size()
+        macs += B * H * W * (cin * cm + 9 * cm * cm + cm * cout
+                             + (cin * cout if wd is not None else 0))
+        cin = cout
+    stage_bytes = (x.numel() + B * H * W * cin) * x.element_size() + params
+    return (bound(stage_bytes, 2 * macs, BF16_OPS_PER_S),
+            bound(acts + params, 2 * macs, BF16_OPS_PER_S))
+
+
+def phase_fused_bottleneck_kernel():
+    """K6 (``csrc/fused_bottleneck.cu``, one launch per block) against the
+    plain fused form on the card: the serve model's layer1 (folded from its
+    bf16-cast FrozenBN constants, as ``Server`` holds them) on its real
+    input, the stem of eight 608x800 frames; then borders and a height that
+    is no multiple of the tile. Times at the serving shape; the yardstick
+    is the port's unfused bf16 layer1 (cuDNN convolutions and elementwise
+    passes, not one call)."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.ops import fused_bottleneck as fb
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    model, _, _ = build_model(Config(model=ModelConfig(
+        fusion_type="LateFusion")), device="cpu", seed=0)
+    randomize(model, seed=1)
+    backbone = model.backbone.to(device="cuda", dtype=torch.bfloat16,
+                                 memory_format=torch.channels_last)
+    del model
+    weights = [getattr(backbone.layer1, f"block_{i}").folded_weights(
+        torch.bfloat16) for i in range(3)]
+    img, _ = device_normalize(*(t.cuda() for t in frames(0)))
+    with torch.no_grad():
+        x = layer1_input(backbone, img[..., :3])
+    check(tuple(x.shape) == (BATCH, H // 4, W // 4, 64)
+          and x.is_contiguous(), f"layer1 input {tuple(x.shape)} is not a "
+                                 f"contiguous NHWC view")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [("serve", x)] + [
+        (f"rand_{tuple(shape)}", torch.relu(torch.randn(
+            shape, generator=gen, device="cuda")).bfloat16())
+        for shape in ((2, 149, 37, 64), (1, 8, 16, 64), (3, 5, 3, 64))]
+    result = {}
+    for name, xx in cases:
+        with torch.no_grad():
+            got = fb.fused_bottleneck_stage(xx, weights)
+            torch.cuda.synchronize()
+            ref = fb.fused_stage_plain(xx, weights)
+            ref64 = fb.fused_stage_plain(xx, weights, torch.float64)
+        ok, tol, max_err, rel = k6_agrees(got, ref)
+        ok &= bool(torch.isfinite(got.float()).all())
+        rel64, plain_rel64 = relative_l2(got, ref64), relative_l2(ref, ref64)
+        print(f"[fused] {name:22s} x={tuple(xx.shape)} max_abs_err="
+              f"{max_err:.3e} relative L2 {rel:.3e} max|ref| "
+              f"{float(ref.float().abs().max()):.3f} ({tol}) "
+              f"{'ok' if ok else 'FAIL'}; relative L2 from the f64-summed "
+              f"form: kernel {rel64:.3e}, plain {plain_rel64:.3e}",
+              flush=True)
+        check(ok, f"fused_bottleneck disagrees with its plain version: "
+                  f"{name} max_abs_err {max_err} relative L2 {rel}")
+        del ref64
+        if name == "serve":
+            layer1 = backbone.layer1
+            layer1.allow_fused = False
+            xn = xx.permute(0, 3, 1, 2)          # NCHW, channels-last memory
+            with torch.no_grad():
+                unfused = layer1(xn).permute(0, 2, 3, 1)
+                r = {"max_abs_err": max_err, "relative_l2": rel,
+                     "relative_l2_f64": rel64,
+                     "plain_relative_l2_f64": plain_rel64,
+                     "unfused_relative_l2": relative_l2(unfused, ref),
+                     "ms": cuda_ms(lambda: fb.fused_stage_cuda(
+                         xx, weights), 20),
+                     "plain_ms": cuda_ms(lambda: fb.fused_stage_plain(
+                         xx, weights), 5),
+                     "yardstick_ms": cuda_ms(lambda: layer1(xn), 20)}
+            ((r["bound_ms"], r["bound_by"]),
+             (r["design_bound_ms"], r["design_bound_by"])) = k6_bound(
+                xx, weights)
+            result = r
+            print(f"[fused] time serve (8, 152, 200, 64) bf16: kernel "
+                  f"{r['ms']:.4f} ms (3 launches), plain {r['plain_ms']:.4f}"
+                  f" ms, unfused bf16 layer1 yardstick (cuDNN, not one call;"
+                  f" relative L2 {r['unfused_relative_l2']:.3e} from the "
+                  f"plain fused form) {r['yardstick_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}; with the "
+                  f"traffic of a launch per block "
+                  f"{r['design_bound_ms']:.4f} ms, {r['design_bound_by']})",
+                  flush=True)
     return result
 
 
@@ -771,8 +1143,74 @@ def phase_serve(requests=6):
     check(float(diff.max()) <= BOX_MAX_TOL
           and float(diff.mean()) <= BOX_MEAN_TOL,
           "bf16 serve disagrees with the f32 forward")
-    return {"ms_per_batch": ms, "frames_per_s": BATCH / (ms / 1e3),
-            "launches": launches, "requests": requests}
+    return ({"ms_per_batch": ms, "frames_per_s": BATCH / (ms / 1e3),
+             "launches": launches, "requests": requests},
+            server, ref_model, reqs[0], out32)
+
+
+def phase_serve_variants(server, ref_model, req, out32, requests=3):
+    """The serving path at full width with ``fused_stages=True`` on the
+    served model's ResNet-50 (layer1 through K6), under each
+    ``DFVOD_MSDA_IMPL`` (unset first; the variable is read on every call):
+    one warm-up and ``requests`` timed requests each, counts set to 0 just
+    before the timed requests and read just after; 13 K1 or 13 K5b/c and 3
+    K6 launches per request; the boxes against the port's own f32 forward
+    on the same weights and frames under the serve gate."""
+    from dfvod_tpu_torch.ops import corner_gather, fused_bottleneck, msda
+    x, s = req
+    backbone = server.model.backbone
+    backbone.fused_stages = True
+    results = {}
+    try:
+        for impl in (None, *msda.IMPLS):
+            if impl is None:
+                os.environ.pop("DFVOD_MSDA_IMPL", None)
+            else:
+                os.environ["DFVOD_MSDA_IMPL"] = impl
+            server(x, s)
+            torch.cuda.synchronize()
+            times = []
+
+            def run():
+                for _ in range(requests):
+                    t0 = time.perf_counter()
+                    server(x, s)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            _, counts = counted(run)
+            gather = impl in msda.GATHER_IMPLS
+            want = want_launches(
+                msda_fwd=0 if gather else 13 * requests,
+                corner_gather_fwd=13 * requests if gather else 0,
+                fused_bottleneck=3 * requests)
+            with torch.no_grad():
+                out16 = server.forward(x, s)
+            diff = (out16["pred_boxes"].float() - out32["pred_boxes"]).abs()
+            ms = 1e3 * sum(times) / len(times)
+            name = impl or "unset"
+            ok = (counts == want and float(diff.max()) <= BOX_MAX_TOL
+                  and float(diff.mean()) <= BOX_MEAN_TOL)
+            print(f"[serve-var] fused_stages DFVOD_MSDA_IMPL={name:13s} "
+                  f"launches per request: msda_fwd "
+                  f"{counts['msda_fwd'] / requests:g}, corner_gather_fwd "
+                  f"{counts['corner_gather_fwd'] / requests:g}, "
+                  f"fused_bottleneck {counts['fused_bottleneck'] / requests:g};"
+                  f" ms per batch of {BATCH} {ms:.3f} "
+                  f"({', '.join(f'{1e3 * t:.3f}' for t in times)}); bf16 vs "
+                  f"f32 boxes max {float(diff.max()):.3e} mean "
+                  f"{float(diff.mean()):.3e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"serve with fused_stages under DFVOD_MSDA_IMPL={name}"
+                      f": launches {counts} (want {want}), boxes max "
+                      f"{float(diff.max())} mean {float(diff.mean())}")
+            results[name] = {"ms_per_batch": ms, "launches": counts,
+                             "box_max": float(diff.max()),
+                             "box_mean": float(diff.mean())}
+    finally:
+        os.environ.pop("DFVOD_MSDA_IMPL", None)
+        backbone.fused_stages = False
+    results["requests"] = requests
+    return results
 
 
 def phase_small_cpu_reference():
@@ -1114,14 +1552,30 @@ def phase_train(steps=5):
             "launches_bwd": bwd, "steps": steps}
 
 
+KERNELS = ("msda_fwd", "hat_sample_fwd", "msda_bwd", "hat_sample_bwd",
+           "corner_gather_fwd", "hat_sample_sparse", "fused_bottleneck")
+
+
+def kernel_counters():
+    """{kernel: the wrapper whose ``launches`` counts its launches}."""
+    from dfvod_tpu_torch.ops import (corner_gather, fused_bottleneck,
+                                     hat_sample, msda)
+    return dict(zip(KERNELS, (
+        msda.ms_deform_attn, hat_sample.hat_sample, msda.ms_deform_attn_bwd,
+        hat_sample.hat_sample_bwd, corner_gather.corner_gather,
+        hat_sample.hat_sample_sparse,
+        fused_bottleneck.fused_bottleneck_stage)))
+
+
+def want_launches(**nonzero):
+    """Expected launch counts: 0 for every kernel but those named."""
+    return {k: nonzero.get(k, 0) for k in KERNELS}
+
+
 def counted(fn):
     """(fn(), {kernel: launches}): every kernel's count set to 0 just before
     ``fn`` and read just after."""
-    from dfvod_tpu_torch.ops import hat_sample, msda
-    counters = {"msda_fwd": msda.ms_deform_attn,
-                "hat_sample_fwd": hat_sample.hat_sample,
-                "msda_bwd": msda.ms_deform_attn_bwd,
-                "hat_sample_bwd": hat_sample.hat_sample_bwd}
+    counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
     out = fn()
@@ -1167,47 +1621,65 @@ def check_parts(ref_parts, parts, tag):
     return worst
 
 
-def phase_small_train_reference():
+def phase_small_train_reference(impl=None):
     """One train-step loss and every gradient, a small model on the card
     (CUDA kernels) against the same model on the CPU (plain MSDA): f32, TF32
     off, the same weights, batch and generator seed, dropout 0. Loss and
     components atol 1e-5 / rtol 1e-4, gradients atol 1e-4 / rtol 1e-3:
-    summation order and the backward's atomics are the only differences."""
+    summation order and the backward's atomics are the only differences.
+    With ``impl`` (a ``DFVOD_MSDA_IMPL`` of the gather forms) the model has
+    6+6 layers, so all 13 MSDA layers take K5b/c forward and K2 backward
+    on the card, the flat form's plain version and autograd on the CPU."""
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
+    layers = 6 if impl else 2
     cfg = Config(model=ModelConfig(
         fusion_type="LateFusion", num_queries=12, hidden_dim=64, nheads=4,
-        enc_layers=2, dec_layers=2, dim_feedforward=128, dropout=0.0))
+        enc_layers=layers, dec_layers=layers, dim_feedforward=128,
+        dropout=0.0))
+    n_msda = 1 + 2 * layers
+    want = (want_launches(corner_gather_fwd=n_msda, msda_bwd=n_msda) if impl
+            else want_launches(msda_fwd=n_msda, msda_bwd=n_msda))
     batch = train_batch(5, B=2, max_boxes=8)
     batch["images"] = batch["images"][:, :96, :128].contiguous()
     batch["sizes"] = torch.tensor([[96, 128], [60, 84]])
-    (ref_parts, ref_grads), (parts, grads), launches = step_on_cpu_and_card(
-        cfg, batch)
-    check(launches == {"msda_fwd": 5, "hat_sample_fwd": 0, "msda_bwd": 5,
-                       "hat_sample_bwd": 0},
-          f"the small card step launched {launches}, not msda_fwd and "
-          f"msda_bwd 5 times each")
-    worst = check_parts(ref_parts, parts, "small train step")
-    check(grads.keys() == ref_grads.keys(), "gradients on different sets")
+    if impl:
+        os.environ["DFVOD_MSDA_IMPL"] = impl
+    try:
+        (ref_parts, ref_grads), (parts, grads), launches = (
+            step_on_cpu_and_card(cfg, batch))
+    finally:
+        os.environ.pop("DFVOD_MSDA_IMPL", None)
+    tag = f"small train step under DFVOD_MSDA_IMPL={impl}" if impl else (
+        "small train step")
+    check(launches == want, f"the {tag} on the card launched {launches}, "
+                            f"not {want}")
+    worst = check_parts(ref_parts, parts, tag)
+    check(grads.keys() == ref_grads.keys(), f"{tag}: gradients on different "
+                                            f"sets")
+    check(sum(n.endswith("value_proj.weight") for n in grads) == n_msda,
+          f"{tag}: not every MSDA layer's value_proj has a gradient")
     gworst = 0.0
     for n, r in ref_grads.items():
         err = (grads[n].cpu() - r).abs()
         gworst = max(gworst, float(err.max()))
         check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
-              f"small train step: gradient of {n} differs, max "
-              f"{float(err.max()):.3e}")
-    print(f"[small-train] card vs cpu: loss {float(parts['loss']):.6f} vs "
+              f"{tag}: gradient of {n} differs, max {float(err.max()):.3e}")
+    print(f"[small-train] {'impl=' + impl if impl else 'default'} card vs "
+          f"cpu: loss {float(parts['loss']):.6f} vs "
           f"{float(ref_parts['loss']):.6f}, max component err {worst:.3e} "
           f"(atol 1e-5 rtol 1e-4); {len(grads)} gradients, max abs err "
-          f"{gworst:.3e} (atol 1e-4 rtol 1e-3) ok", flush=True)
+          f"{gworst:.3e} (atol 1e-4 rtol 1e-3); launches "
+          f"{ {k: v for k, v in launches.items() if v} } ok", flush=True)
+    return launches
 
 
 # ------------------------------------------------------ video training path
 # launches per TransVOD++ step: 13 trunk + 3 temporal decoder layers (K1,
 # K2), the QRF RoIAlign (K3, K4); with fixed_pretrained_model the trunk
 # gets no gradient, so K2 runs for the temporal decoders only and K4 not
-VIDEO_LAUNCHES = {"msda_fwd": 16, "hat_sample_fwd": 1, "msda_bwd": 16,
-                  "hat_sample_bwd": 1}
+VIDEO_LAUNCHES = want_launches(msda_fwd=16, hat_sample_fwd=1, msda_bwd=16,
+                               hat_sample_bwd=1)
 FIXED_LAUNCHES = dict(VIDEO_LAUNCHES, msda_bwd=3, hat_sample_bwd=0)
 
 
@@ -1392,12 +1864,11 @@ def phase_small_video_train_reference():
                  dropout=0.0)
     variants = (("transvod_pp", dict(temporal_mode="transvod_pp",
                                      num_ref_frames=2),
-                 {"msda_fwd": 8, "hat_sample_fwd": 1, "msda_bwd": 8,
-                  "hat_sample_bwd": 1}),
+                 want_launches(msda_fwd=8, hat_sample_fwd=1, msda_bwd=8,
+                               hat_sample_bwd=1)),
                 ("transvod_tdam", dict(temporal_mode="transvod",
                                        use_tdam=True, num_ref_frames=5),
-                 {"msda_fwd": 7, "hat_sample_fwd": 0, "msda_bwd": 7,
-                  "hat_sample_bwd": 0}))
+                 want_launches(msda_fwd=7, msda_bwd=7)))
     for name, kw, want in variants:
         batch = clip_train_batch(7, F=1 + kw["num_ref_frames"], h=96, w=128,
                                  max_boxes=8)
@@ -1426,7 +1897,8 @@ def build_kernels():
     """Build and load every kernel of the paths, one ``nvcc`` per source,
     all started together; print each build's time and register use."""
     from dfvod_tpu_torch.ops import build
-    names = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd")
+    names = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
+             "corner_gather_fwd", "fused_bottleneck")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build.build, names))
     for name, (path, seconds, log) in zip(names, built):
@@ -1457,12 +1929,19 @@ def main() -> int:
     kern_bwd = phase_msda_bwd_kernel()
     kern_hat = phase_hat_kernel()
     kern_hat_bwd = phase_hat_bwd_kernel()
-    serve = phase_serve()
+    kern_gather = phase_corner_gather_kernel()
+    kern_sparse = phase_hat_sparse_kernel()
+    kern_entries = phase_single_level_hat_entries()
+    kern_fused = phase_fused_bottleneck_kernel()
+    serve, server, ref_model, req, out32 = phase_serve()
+    variants = phase_serve_variants(server, ref_model, req, out32)
+    del server, ref_model, req, out32
     phase_small_cpu_reference()
     clip = phase_clip_serve()
     phase_small_temporal_reference()
     train = phase_train()
     phase_small_train_reference()
+    onehot_train = phase_small_train_reference("pallas_onehot")
     train_clips = phase_train_clips()
     phase_small_video_train_reference()
 
@@ -1537,9 +2016,86 @@ def main() -> int:
         "other": {k: v for k, v in kern_hat_bwd.items()
                   if k != "qrf_float32_gv"},
     }
+    per_request = variants["requests"]
+
+    def variant_launches(impl, kernel):
+        return variants[impl]["launches"][kernel]
+
+    gather_common = {
+        "route": "cuda", "source": "dfvod_tpu_torch/csrc/corner_gather_fwd.cu",
+        **{k: kern_gather[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_dtype", "dispatch_ms")},
+        "shape": "encoder B=8 Lq=S=1900 M=8 D=32 L=1 P=4 K=16, bf16 value, "
+                 "int32 idx, f32 w (the folded corners of the serving mix)",
+        "train_launches_small": onehot_train["corner_gather_fwd"],
+    }
+    record_onehot = {
+        "name": "corner_gather_fwd/onehot", **gather_common,
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:49",
+        "launches": variant_launches("pallas_onehot", "corner_gather_fwd"),
+        "serve_requests": per_request,
+    }
+    record_gather = {
+        "name": "corner_gather_fwd/gather", **gather_common,
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:1447",
+        "launches": variant_launches("pallas", "corner_gather_fwd"),
+        "flat_launches": variant_launches("flat", "corner_gather_fwd"),
+        "serve_requests": per_request,
+    }
+    record_sparse = {
+        "name": "hat_sample_fwd/levels", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/hat_sample_fwd.cu",
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:379",
+        **{k: kern_sparse[k] for k in ("launches", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms", "bound_by")},
+        # no single PyTorch call samples level-stacked grids
+        "library_ms": None,
+        "shape": "encoder BM=64 S=Lq=1900 D=32 PL=4, bf16 value, f32 points;"
+                 " launches through ms_deform_attn_hat(sparse=True), which "
+                 "no DFVOD_MSDA_IMPL reaches",
+    }
+    # the tiled and separable entries launch K1; their numbers are measured
+    # through each entry, launches counted in the entry's own call
+    k1_entries = {
+        "route": "cuda", "source": "dfvod_tpu_torch/csrc/msda_fwd.cu",
+        "kernel": "msda_fwd", "library_ms": None,
+        "shape": "encoder B=8 Lq=S=1900 M=8 D=32 L=1 P=4, serving mix, one "
+                 "call of the entry",
+    }
+    record_tiled = {
+        "name": "msda_fwd/hat_tiled", **k1_entries,
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:150",
+        **kern_entries["tiled"],
+    }
+    record_sep = {
+        "name": "msda_fwd/hat_sep", **k1_entries,
+        "replaces": "dfvod_tpu/ops/msda_pallas.py:243",
+        **kern_entries["sep"],
+    }
+    record_fused = {
+        "name": "fused_bottleneck", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/fused_bottleneck.cu",
+        "replaces": "dfvod_tpu/ops/fused_bottleneck.py:114",
+        "launches": variant_launches("unset", "fused_bottleneck"),
+        **{k: kern_fused[k] for k in ("max_abs_err", "relative_l2",
+                                      "relative_l2_f64",
+                                      "plain_relative_l2_f64", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "design_bound_ms", "design_bound_by",
+                                      "yardstick_ms")},
+        # no single PyTorch call runs a bottleneck stage; the port's
+        # unfused bf16 layer1 (several cuDNN and elementwise calls) is the
+        # labelled yardstick
+        "library_ms": None,
+        "shape": "serve layer1 (8, 152, 200, 64) bf16 -> (8, 152, 200, 256),"
+                 " 3 blocks, one launch each",
+    }
+    new_records = [record_onehot, record_gather, record_sparse, record_tiled,
+                   record_sep, record_fused]
     for r in (record, record["decoder"], record_bwd, record_bwd["decoder"],
               record_hat, record_hat_bwd, *record_hat_bwd["other"].values(),
-              train, clip, train_clips):
+              *new_records, train, clip, train_clips):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -1553,8 +2109,12 @@ def main() -> int:
     print(json.dumps({"clip_serve": {k: clip[k] for k in (
         "ms_per_request", "frames_per_s", "clips_per_s", "first_request_ms",
         "peak_memory_gib", "requests")}}))
+    print(json.dumps({"serve_variants": {
+        k: v if k == "requests" else {n: v[n] for n in (
+            "ms_per_batch", "box_max", "box_mean")}
+        for k, v in variants.items()}}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
-                                  record_hat_bwd],
+                                  record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",
                                                       "frames_per_s")}}))
     print(json.dumps({"ok": True, "device": {

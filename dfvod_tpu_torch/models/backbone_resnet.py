@@ -10,7 +10,11 @@ Submodules carry the flax module names (``layer1.block_0.conv1``, ...) so
 that ``utils/convert.py`` maps weights mechanically. The JAX package's
 ``StemConvS2D`` is an exact reparameterization of the 7x7/s2/p3 stem that
 keeps the ``(7, 7, 3, 64)`` parameter; the port runs that conv as it is.
-The fused layer1 kernel (``fused_stages``) waits for a later slice.
+
+``ResNet50.fused_stages`` (False by default, as in the JAX package) runs
+layer1 in bf16 eval through the fused bottleneck stage
+(``ops/fused_bottleneck.py``, K6 on the card), with FrozenBN folded into
+the weights (``Bottleneck.folded_weights``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dfvod_tpu_torch.ops.fused_bottleneck import fused_bottleneck_stage
 
 
 class FrozenBatchNorm(nn.Module):
@@ -79,11 +85,41 @@ class Bottleneck(nn.Module):
             identity = self.downsample_bn(self.downsample_conv(x))
         return F.relu(out + identity)
 
+    def folded_weights(self, dtype):
+        """(w1, b1, w2, b2, w3, b3, wd, bd) with FrozenBN folded in, as
+        ``dfvod_tpu/models/backbone_resnet.py::Bottleneck.folded_weights``:
+        ``weight.float() * scale`` in matmul layouts ((Cin, Cout) and
+        HWIO), cast to ``dtype``; biases f32. The scale and bias come from
+        ``FrozenBatchNorm.fold`` in the stored dtype (bf16 after the
+        serving cast, as the JAX package folds its bf16-cast constants)."""
+        def fold(cv, bn, squeeze):
+            s, b = bn.fold()
+            w = (cv.weight.float() * s.float()[:, None, None, None]
+                 ).permute(2, 3, 1, 0)                    # HWIO
+            if squeeze:
+                w = w[0, 0]
+            return w.to(dtype).contiguous(), b.float()
+
+        w1, b1 = fold(self.conv1, self.bn1, True)
+        w2, b2 = fold(self.conv2, self.bn2, False)
+        w3, b3 = fold(self.conv3, self.bn3, True)
+        wd = bd = None
+        if self.downsample:
+            wd, bd = fold(self.downsample_conv, self.downsample_bn, True)
+        return (w1, b1, w2, b2, w3, b3, wd, bd)
+
 
 class ResNetStage(nn.Module):
+    """A stage of bottlenecks. With ``allow_fused``, in eval mode, at
+    stride 1 without dilation, on a bf16 input, the whole stage runs
+    through ``fused_bottleneck_stage`` (the JAX package's conditions,
+    ``ResNetStage.__call__``)."""
+
     def __init__(self, planes: int, blocks: int, stride: int = 1,
-                 dilate: bool = False):
+                 dilate: bool = False, allow_fused: bool = True):
         super().__init__()
+        self.stride, self.dilate, self.allow_fused = stride, dilate, allow_fused
+        self._fold_key = self._fold = self._fold_src = None
         # torchvision wiring: layer1 reads the 64-ch stem, layerN the
         # previous stage's planes * 2
         in_features = 64 if planes == 64 else planes * 2
@@ -101,10 +137,35 @@ class ResNetStage(nn.Module):
                 blk = Bottleneck(planes * 4, planes, 1, dil)
             self.add_module(f"block_{i}", blk)
 
-    def forward(self, x):
-        for i in range(self.blocks):
-            x = getattr(self, f"block_{i}")(x)
+    def forward(self, x):                       # NCHW
+        blocks = [getattr(self, f"block_{i}") for i in range(self.blocks)]
+        if (self.allow_fused and not self.training and self.stride == 1
+                and not self.dilate and x.dtype == torch.bfloat16):
+            # channels-last memory: the NHWC view is contiguous, no copy
+            y = fused_bottleneck_stage(x.permute(0, 2, 3, 1),
+                                       self.folded_weights(x.dtype))
+            return y.permute(0, 3, 1, 2)
+        for b in blocks:
+            x = b(x)
         return x
+
+    def folded_weights(self, dtype):
+        """Every block's ``folded_weights(dtype)``. Where autograd records
+        nothing (serving), the fold is kept and reused until a weight or
+        FrozenBN constant of the stage changes: replaced (``.to()``), or
+        written in place (``load_state_dict`` copies in place). The tensors
+        it was folded from are held, so their memory cannot be reused by
+        another tensor at the same address. A write through ``.data`` goes
+        unseen, as it does for autograd."""
+        blocks = [getattr(self, f"block_{i}") for i in range(self.blocks)]
+        if torch.is_grad_enabled():
+            return [b.folded_weights(dtype) for b in blocks]
+        src = [*self.parameters(), *self.buffers()]
+        key = (dtype, [(t.data_ptr(), t._version) for t in src])
+        if key != self._fold_key:
+            self._fold = [b.folded_weights(dtype) for b in blocks]
+            self._fold_key, self._fold_src = key, [t.detach() for t in src]
+        return self._fold
 
 
 def max_pool_torch(x, window: int, stride: int, pad: int):
@@ -120,15 +181,25 @@ class ResNet50(nn.Module):
     """
 
     def __init__(self, dilation: bool = False,
-                 return_stages: Sequence[int] = (4,)):
+                 return_stages: Sequence[int] = (4,),
+                 fused_stages: bool = False):
         super().__init__()
         self.return_stages = tuple(return_stages)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
-        self.layer1 = ResNetStage(64, 3, 1)
+        self.layer1 = ResNetStage(64, 3, 1, allow_fused=fused_stages)
         self.layer2 = ResNetStage(128, 4, 2)
         self.layer3 = ResNetStage(256, 6, 2)
         self.layer4 = ResNetStage(512, 3, 2, dilate=dilation)
+
+    @property
+    def fused_stages(self) -> bool:
+        """layer1 through the fused bottleneck stage (K6) in bf16 eval."""
+        return self.layer1.allow_fused
+
+    @fused_stages.setter
+    def fused_stages(self, value: bool):
+        self.layer1.allow_fused = bool(value)
 
     def forward(self, x):
         """x: (B, H, W, 3). Returns {stage: (B, h, w, C)}."""

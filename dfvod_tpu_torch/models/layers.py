@@ -95,11 +95,14 @@ def sampling_offset_bias(n_heads: int, n_levels: int, n_points: int):
 
 
 class MSDeformAttn(nn.Module):
-    """Multi-scale deformable attention module around the MSDA kernel."""
+    """Multi-scale deformable attention module around the MSDA kernel;
+    ``impl`` picks the MSDA form as the flax module's field does
+    (``ops/msda.py::ms_deform_attn``)."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4, impl: str = "auto"):
         super().__init__()
+        self.impl = impl
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by "
                              f"n_heads {n_heads}")
@@ -151,7 +154,8 @@ class MSDeformAttn(nn.Module):
             raise ValueError("reference_points last dim must be 2 or 4")
 
         out = ms_deform_attn(value.contiguous(), tuple(spatial_shapes),
-                             loc.contiguous(), attw.contiguous())
+                             loc.contiguous(), attw.contiguous(),
+                             impl=self.impl)
         return self.output_proj(out)
 
 

@@ -2,10 +2,13 @@
 plain PyTorch version and its backward, and the wrappers of the
 hand-written CUDA kernels ``csrc/hat_sample_fwd.cu`` (K3) and
 ``csrc/hat_sample_bwd.cu`` (K4, its backward), joined as a
-``torch.autograd.Function``.
+``torch.autograd.Function``. Also the same sampling over MSDA's levels
+stacked along y, ``hat_sample_sparse`` (K5a, the same source: K3's kernel
+at one level, a level loop of its scalar path at more).
 
 Counterpart of ``dfvod_tpu/ops/msda_pallas.py::hat_sample``,
-``hat_sample_bwd`` and ``hat_sample_vjp``. The contract:
+``hat_sample_bwd``, ``hat_sample_vjp`` and ``hat_sample_sparse``. The
+contract:
 
 - ``value`` : ``(BM, H, W, D)``, or flat ``(BM, S = H * W, D)`` with
               ``grid=(H, W)``; token ``s`` sits at ``(s // W, s % W)``, the
@@ -33,6 +36,18 @@ value there is 0. A point with a non-finite coordinate gets zero gradients
 differentiates it there. For CUDA tensors it goes through
 ``HatSampleFunction``, whose forward launches K3 and whose backward
 launches K4, or raises.
+
+``hat_sample_sparse(v_bm, spatial_shapes, px, py, aw)`` takes the level
+table in place of the JAX function's token coordinates ``sx/sy``, which its
+only caller builds from ``_hat_coords(spatial_shapes)``: level ``l``'s rows
+sit at ``y`` offset ``yo_l = sum_{j<l} (H_j + 2)`` and its point columns
+are ``l * P .. (l + 1) * P - 1``. Each point samples only its own level
+(``py - yo_l`` on that level's grid), as ``ms_deform_attn_xla`` does; the
+JAX kernel's stacked tent matrix also reads a neighbouring level for a
+point more than about one row outside its own, and gives NaN, not 0, for a
+non-finite point whose query block touches any chunk (ROADMAP, known
+differences). It has no backward kernel, as the JAX function has none: on
+the card it refuses inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -68,16 +83,52 @@ def hat_sample_plain(value, px, py, aw, grid=None):
     """Loop over the PL points and the 4 corners of each, like
     ``ms_deform_attn_plain``: one gather of (BM, Lq, D) rows per corner."""
     v, (H, W) = _flat(value, grid)
+    return _sample_f32(v, H, W, px.float(), py.float(), aw.float()
+                       ).to(v.dtype)
+
+
+def _sample_f32(v, H: int, W: int, px, py, aw):
+    """The f32 sum of ``hat_sample_plain`` over a flat (BM, H*W, D) value."""
     BM, S, D = v.shape
-    _, Lq, PL = px.shape
-    px, py, aw = px.float(), py.float(), aw.float()
-    acc = torch.zeros((BM, Lq, D), dtype=torch.float32, device=v.device)
+    acc = torch.zeros((BM, px.shape[1], D), dtype=torch.float32,
+                      device=v.device)
     for p, _, _, corners in _corners(px, py, H, W):
         for valid, wy, wx, idx in corners:
             w = torch.where(valid, wy * wx * aw[..., p], 0.0)  # (BM, Lq)
             g = torch.gather(v, 1, idx[..., None].expand(-1, -1, D))
             acc += w[..., None] * g.float()
-    return acc.to(v.dtype)
+    return acc
+
+
+def _level_stack(v_bm, spatial_shapes, px):
+    """(spatial_shapes as ints, P points per level) of a level-stacked
+    sampling; raises on shapes that do not match."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    S = sum(h * w for h, w in shapes)
+    if v_bm.dim() != 3 or v_bm.shape[1] != S:
+        raise ValueError(f"v_bm must be (BM, S={S}, D) for levels {shapes}, "
+                         f"not {tuple(v_bm.shape)}")
+    if px.dim() != 3 or not shapes or px.shape[-1] % len(shapes):
+        raise ValueError(f"px {tuple(px.shape)} is not (BM, Lq, L * P) for "
+                         f"{len(shapes)} levels")
+    return shapes, px.shape[-1] // len(shapes)
+
+
+def hat_sample_sparse_plain(v_bm, spatial_shapes, px, py, aw):
+    """Each level's points sampled on that level's grid, ``py`` taken back
+    by the level's offset; the f32 sums added, then cast once."""
+    shapes, P = _level_stack(v_bm, spatial_shapes, px)
+    px, py, aw = px.float(), py.float(), aw.float()
+    acc = 0.0
+    start, yo = 0, 0.0
+    for lvl, (H, W) in enumerate(shapes):
+        cols = slice(lvl * P, (lvl + 1) * P)
+        acc = acc + _sample_f32(v_bm[:, start:start + H * W], H, W,
+                                px[..., cols], py[..., cols] - yo,
+                                aw[..., cols])
+        start += H * W
+        yo += H + 2.0
+    return acc.to(v_bm.dtype)
 
 
 def _corners(px, py, H: int, W: int):
@@ -158,7 +209,8 @@ def _library(name: str):
     lib = build.load(name)
     fn = getattr(lib, name)
     fn.argtypes = {
-        "hat_sample_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
+        "hat_sample_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int],
         "hat_sample_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8,
     }[name] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -176,21 +228,46 @@ def _raise_on(name: str, lib, rc: int):
                            + getattr(lib, f"{name}_error_string")(rc).decode())
 
 
-def hat_sample_cuda(value, px, py, aw, grid=None):
-    """Launch ``csrc/hat_sample_fwd.cu`` on CUDA tensors."""
-    v, (H, W) = _flat(value, grid)
+def _launch_fwd(v, px, py, aw, shapes, P):
+    """Launch ``csrc/hat_sample_fwd.cu`` on a flat (BM, S, D) value over
+    the stacked levels ``shapes``, P point columns each."""
     _check_kernel_args(v, px, py, aw)
     BM, S, D = v.shape
     _, Lq, PL = px.shape
     lib = _library("hat_sample_fwd")
     out = torch.empty((BM, Lq, D), dtype=v.dtype, device=v.device)
+    table = (ctypes.c_int * (2 * len(shapes)))(
+        *[n for hw in shapes for n in hw])
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hat_sample_fwd(v.data_ptr(), px.data_ptr(), py.data_ptr(),
-                                aw.data_ptr(), out.data_ptr(), BM, H, W, D,
-                                Lq, PL, _DTYPE_CODES[v.dtype], stream)
+                                aw.data_ptr(), out.data_ptr(), BM, S, D, Lq,
+                                len(shapes), P, table,
+                                _DTYPE_CODES[v.dtype], stream)
     _raise_on("hat_sample_fwd", lib, rc)
+    return out
+
+
+def hat_sample_cuda(value, px, py, aw, grid=None):
+    """Launch ``csrc/hat_sample_fwd.cu`` (K3) on CUDA tensors: one level."""
+    v, (H, W) = _flat(value, grid)
+    out = _launch_fwd(v, px, py, aw, ((H, W),), px.shape[-1])
     hat_sample.launches += 1
+    return out
+
+
+def hat_sample_sparse_cuda(v_bm, spatial_shapes, px, py, aw):
+    """Launch ``csrc/hat_sample_fwd.cu`` (K5a) on CUDA tensors over the
+    stacked levels. Refuses inputs that need a gradient: there is no
+    backward kernel."""
+    shapes, P = _level_stack(v_bm, spatial_shapes, px)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (v_bm, px, py, aw)):
+        raise RuntimeError("hat_sample_sparse has no backward kernel (nor "
+                           "has the JAX function); MSDA's gradient goes "
+                           "through ops.msda.ms_deform_attn")
+    out = _launch_fwd(v_bm, px, py, aw, shapes, P)
+    hat_sample_sparse.launches += 1
     return out
 
 
@@ -275,6 +352,23 @@ def hat_sample(value, px, py, aw, grid=None):
 
 
 hat_sample.launches = 0
+
+
+def hat_sample_sparse(v_bm, spatial_shapes, px, py, aw):
+    """Weighted bilinear sampling over MSDA's levels stacked along y:
+    v_bm ``(BM, S, D)``, px/py/aw ``(BM, Lq, L * P)`` f32 with py carrying
+    the level offsets; returns ``(BM, Lq, D)``. The plain version for CPU
+    tensors, K5a (``csrc/hat_sample_fwd.cu`` with the level table) for CUDA
+    tensors; ``hat_sample_sparse.launches`` counts the launches."""
+    if v_bm.device.type == "cpu":
+        return hat_sample_sparse_plain(v_bm, spatial_shapes, px, py, aw)
+    if v_bm.device.type != "cuda":
+        raise ValueError(f"hat_sample_sparse runs on cpu or cuda, not "
+                         f"{v_bm.device}")
+    return hat_sample_sparse_cuda(v_bm, spatial_shapes, px, py, aw)
+
+
+hat_sample_sparse.launches = 0
 
 
 def hat_sample_bwd(value, px, py, aw, grad_out, grid=None,

@@ -17,23 +17,44 @@ Bilinear sampling follows ``F.grid_sample`` with ``align_corners=False`` and
 ``padding_mode='zeros'``: pixel coordinates are ``loc * size - 0.5`` and any
 corner outside the map contributes 0.
 
-``ms_deform_attn`` takes the plain version for CPU tensors only, and
-autograd differentiates it there. For CUDA tensors it goes through
-``MSDeformAttnFunction``, whose forward and backward launch their kernels
-or raise.
+``ms_deform_attn(..., impl)`` picks the form as
+``dfvod_tpu/ops/msda.py::ms_deform_attn`` does, ``"auto"`` from
+``DFVOD_MSDA_IMPL`` (read on every call; an unknown value counts as unset),
+and reaches the kernel that computes that form on the card:
+
+- ``xla``, ``pallas_hat`` and unset: the per-level gather, K1
+  (``MSDeformAttnFunction``); on CPU tensors ``ms_deform_attn_plain``;
+- ``flat``, ``pallas``, ``pallas_onehot``: the folded corners of
+  ``corner_indices_weights`` through the weighted row gather K5b/c
+  (``MSDeformAttnGatherFunction``); on CPU tensors
+  ``ms_deform_attn_flat_plain``.
+
+Autograd differentiates the plain versions on the CPU. On the card both
+forms take K2 as their backward, the VJP the JAX package takes from
+``ms_deform_attn_flat`` (``_pallas_with_xla_grad``); every launch is a
+kernel's or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Sequence, Tuple
 
 import torch
 
 from dfvod_tpu_torch.ops import build
+from dfvod_tpu_torch.ops.corner_gather import (
+    corner_gather_cuda,
+    corner_gather_plain,
+    corner_indices_weights,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEVELS = 16
+IMPLS = ("xla", "flat", "pallas", "pallas_onehot", "pallas_hat")
+# the forms whose forward is the folded-corner row gather (K5b/c)
+GATHER_IMPLS = ("flat", "pallas", "pallas_onehot")
 
 
 def total_tokens(spatial_shapes: Sequence[Tuple[int, int]]) -> int:
@@ -80,6 +101,21 @@ def ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                     ).sum(3)
         start += H * W
     return acc.permute(0, 2, 1, 3).reshape(B, Lq, M * D).to(value.dtype)
+
+
+def ms_deform_attn_flat_plain(value, spatial_shapes, sampling_locations,
+                              attention_weights):
+    """The counterpart of ``ms_deform_attn_flat``: the folded corners of
+    ``corner_indices_weights`` through ``corner_gather_plain``; autograd
+    gives the flat form's VJP."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    B, S, M, D = value.shape
+    if S != total_tokens(spatial_shapes):
+        raise ValueError(f"value tokens {S} do not match spatial_shapes "
+                         f"{spatial_shapes}")
+    idx, w = corner_indices_weights(spatial_shapes, sampling_locations,
+                                    attention_weights)
+    return corner_gather_plain(value, idx, w).reshape(B, -1, M * D)
 
 
 def _check_kernel_args(value, spatial_shapes, loc, attw):
@@ -242,21 +278,58 @@ class MSDeformAttnFunction(torch.autograd.Function):
         return grad_value, None, grad_loc, grad_attw
 
 
+class MSDeformAttnGatherFunction(MSDeformAttnFunction):
+    """MSDA's flat form on CUDA tensors with its gradient: the forward
+    folds the corners (``corner_indices_weights``, tensor code) and
+    launches the row gather K5b/c (``csrc/corner_gather_fwd.cu``); the
+    backward is ``MSDeformAttnFunction``'s, K2."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        _check_kernel_args(value, spatial_shapes, sampling_locations,
+                           attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        B, _, M, D = value.shape
+        idx, w = corner_indices_weights(spatial_shapes, sampling_locations,
+                                        attention_weights)
+        return corner_gather_cuda(value, idx, w).reshape(B, -1, M * D)
+
+
+def resolve_impl(impl: str = "auto") -> str:
+    """The MSDA form ``impl`` names; ``"auto"`` reads ``DFVOD_MSDA_IMPL``
+    and takes ``"xla"`` when it is unset or unknown, as the JAX package
+    does off the TPU. Any other unknown ``impl`` raises ``ValueError``."""
+    if impl == "auto":
+        env = os.environ.get("DFVOD_MSDA_IMPL", "")
+        return env if env in IMPLS else "xla"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
 def ms_deform_attn(value, spatial_shapes, sampling_locations,
-                   attention_weights):
-    """MSDA: the plain version for CPU tensors (autograd differentiates
-    it), ``MSDeformAttnFunction`` for CUDA tensors.
-    ``ms_deform_attn.launches`` counts forward kernel launches,
-    ``ms_deform_attn_bwd.launches`` backward ones."""
+                   attention_weights, impl: str = "auto"):
+    """MSDA in the form ``impl`` picks (``resolve_impl``): the plain
+    versions for CPU tensors (autograd differentiates them),
+    ``MSDeformAttnFunction`` (K1) or ``MSDeformAttnGatherFunction`` (K5b/c)
+    for CUDA tensors, both with K2 as their backward.
+    ``ms_deform_attn.launches`` counts K1 launches,
+    ``corner_gather.launches`` K5b/c ones, ``ms_deform_attn_bwd.launches``
+    K2 ones."""
+    gather = resolve_impl(impl) in GATHER_IMPLS
     if value.device.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes,
-                                    sampling_locations, attention_weights)
+        plain = ms_deform_attn_flat_plain if gather else ms_deform_attn_plain
+        return plain(value, spatial_shapes, sampling_locations,
+                     attention_weights)
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn runs on cpu or cuda, not "
                          f"{value.device}")
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    return MSDeformAttnFunction.apply(value, spatial_shapes,
-                                      sampling_locations, attention_weights)
+    fn = MSDeformAttnGatherFunction if gather else MSDeformAttnFunction
+    return fn.apply(value, spatial_shapes, sampling_locations,
+                    attention_weights)
 
 
 ms_deform_attn.launches = 0

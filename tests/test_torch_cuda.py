@@ -3,9 +3,12 @@ and backward, up to TDAM's 5 levels) and the bilinear-sampling kernel under
 RoIAlign (K3) and its backward (K4) against their plain versions, gradients
 through the MSDA module and RoIAlign on the card, and small models
 (single-frame, TransVOD++, TransVOD+TDAM) and small single-frame and
-TransVOD++ train steps on the card against the same on the CPU. They skip
-without a CUDA device. This file imports neither JAX nor the JAX package,
-so it also runs where JAX is not installed:
+TransVOD++ train steps on the card against the same on the CPU. Then the
+opt-in forms: the folded-corner gather (K5b/c), the level-stacked sampling
+(K5a) and the fused ResNet layer1 (K6) against their plain versions, the
+``impl`` dispatch's launches per form, and the K5b/c + K2 gradient against
+the CPU's. They skip without a CUDA device. This file imports neither JAX
+nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
@@ -14,9 +17,13 @@ import torch
 
 from dfvod_tpu_torch.data.device_pipeline import device_normalize
 from dfvod_tpu_torch.models import build_model
+from dfvod_tpu_torch.models import backbone_resnet as br
 from dfvod_tpu_torch.models.layers import MSDeformAttn
+from dfvod_tpu_torch.ops import corner_gather as cg
+from dfvod_tpu_torch.ops import fused_bottleneck as fb
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops import msda
+from dfvod_tpu_torch.ops import msda_forms as mf
 from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.train.engine import create_train_state, forward
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
@@ -427,3 +434,250 @@ def test_small_video_train_step_card_matches_cpu(cuda_device):
         rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
         assert rel <= 1e-2 or (float(r.abs().max()) < 1e-4 and float(
             (g - r).abs().max()) <= 1e-4), (n, rel)
+
+
+# ------------------------------------------------- the opt-in forms (K5, K6)
+def rounded_close(got, ref):
+    """f32 atol/rtol 1e-5; a bf16 output against the f32 plain version on
+    the same bf16 value, atol 1e-5 / rtol 2^-8 (rounded once)."""
+    rtol = 1e-5 if got.dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), ref, atol=1e-5, rtol=rtol)
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_corner_gather_kernel_matches_plain(cuda_device, case, vdt):
+    """K5b/c on the folded corners of MSDA's flat form, one launch."""
+    shapes, value, loc, attw, _ = msda_inputs(
+        cuda_device, case, (vdt, torch.float32, torch.float32))
+    idx, w = cg.corner_indices_weights(shapes, loc, attw)
+    before = cg.corner_gather.launches
+    got = cg.corner_gather(value, idx, w)
+    torch.cuda.synchronize()
+    assert cg.corner_gather.launches == before + 1
+    assert got.dtype == vdt and got.shape == value.shape[:1] + idx.shape[1:3] \
+        + value.shape[-1:]
+    rounded_close(got, cg.corner_gather_plain(value.float(), idx, w))
+
+
+@pytest.mark.parametrize("D", [8, 32, 40])
+def test_onehot_sample_kernel_out_of_range_indices(cuda_device, D):
+    """The JAX layout (BM, S, D) with indices in [-5, S + 5): an index
+    outside [0, S) contributes 0, as the one-hot matrix's row with no
+    match and the row gather's ``fill_value=0``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    for dt in (torch.float32, torch.bfloat16):
+        v = torch.randn((3, 50, D), generator=gen, device=cuda_device).to(dt)
+        idx = torch.randint(-5, 55, (3, 133, 12), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+        w = torch.randn((3, 133, 12), generator=gen, device=cuda_device)
+        got = cg.onehot_sample(v, idx, w)
+        inside = (idx >= 0) & (idx < 50)
+        ref = cg.onehot_sample(v.float().cpu(), idx.clamp(0, 49).cpu(),
+                               torch.where(inside, w, 0.0).cpu())
+        rounded_close(got.cpu(), ref)
+
+
+# (spatial_shapes, B, Lq, P)
+SPARSE = {"one_level": (((9, 11),), 2, 131, 4),
+          "four_levels": (((12, 16), (6, 8), (3, 4), (2, 2)), 1, 70, 2)}
+
+
+@pytest.mark.parametrize("D", [8, 40, 256])
+@pytest.mark.parametrize("case", list(SPARSE))
+def test_hat_sparse_kernel_matches_plain(cuda_device, case, D):
+    """K5a (K3's kernel at one level, the level loop at four) against its
+    plain version: each point on its own level, points outside it, a query
+    whose every point is NaN (exactly 0), f32 and bf16."""
+    shapes, B, Lq, P = SPARSE[case]
+    L, S, M = len(shapes), sum(h * w for h, w in shapes), 2
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    loc = torch.rand((B, Lq, M, L, P, 2), generator=gen,
+                     device=cuda_device) * 1.6 - 0.3
+    loc[:, :2] = float("nan")
+    attw = torch.rand((B, Lq, M, L, P), generator=gen, device=cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        value = torch.randn((B, S, M, D), generator=gen,
+                            device=cuda_device).to(dt)
+        before = hs.hat_sample_sparse.launches
+        got = mf.ms_deform_attn_hat(value, shapes, loc, attw, sparse=True)
+        torch.cuda.synchronize()
+        assert hs.hat_sample_sparse.launches == before + 1
+        assert got.dtype == dt and got.shape == (B, Lq, M * D)
+        assert bool((got[:, :2] == 0).all())
+        ref = mf.ms_deform_attn_hat(value.float().cpu(), shapes, loc.cpu(),
+                                    attw.cpu(), sparse=True)
+        rounded_close(got.cpu(), ref)
+        # the same function as K1 wherever the points are finite; py
+        # carries the level offset, rounded once in f32 (atol 5e-5)
+        k1 = msda.ms_deform_attn_plain(value.float(), shapes, loc, attw)
+        torch.testing.assert_close(
+            got[:, 2:].float(), k1[:, 2:], atol=5e-5,
+            rtol=1e-5 if dt == torch.float32 else 2.0 ** -8)
+
+
+@pytest.mark.parametrize("impl", [None, *msda.IMPLS])
+def test_dispatch_launches_per_impl(cuda_device, monkeypatch, impl):
+    """``DFVOD_MSDA_IMPL`` on the card: unset, ``xla`` and ``pallas_hat``
+    launch K1, the flat family K5b/c, once; each output equals its plain
+    version. The tiled and separable entries launch K1 whatever the
+    variable says."""
+    if impl is None:
+        monkeypatch.delenv("DFVOD_MSDA_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("DFVOD_MSDA_IMPL", impl)
+    shapes, value, loc, attw, _ = msda_inputs(cuda_device, "multi_odd_d",
+                                              DTYPES["f32"])
+    gather = impl in msda.GATHER_IMPLS
+    counts = (msda.ms_deform_attn.launches, cg.corner_gather.launches)
+    got = msda.ms_deform_attn(value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    assert (msda.ms_deform_attn.launches - counts[0],
+            cg.corner_gather.launches - counts[1]) == (
+        (0, 1) if gather else (1, 0))
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown impl"):
+        msda.ms_deform_attn(value, shapes, loc, attw, impl="cuda")
+    shapes, value, loc, attw, _ = msda_inputs(cuda_device, "enc",
+                                              DTYPES["f32"])
+    for entry in (mf.ms_deform_attn_hat_tiled, mf.ms_deform_attn_hat_sep):
+        before = msda.ms_deform_attn.launches
+        got = entry(value, shapes, loc, attw)
+        torch.cuda.synchronize()
+        assert msda.ms_deform_attn.launches == before + 1
+        torch.testing.assert_close(
+            got, msda.ms_deform_attn_plain(value, shapes, loc, attw),
+            atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["flat", "pallas", "pallas_onehot"])
+def test_gather_form_grads_card_match_cpu(cuda_device, impl):
+    """The flat family on the card is K5b/c forward and K2 backward, one
+    launch each and none of K1; the module's projections get the CPU's
+    gradients (the flat form's autograd) within atol 1e-4 / rtol 1e-3."""
+    torch.manual_seed(0)
+    cpu = MSDeformAttn(64, 2, 4, 4, impl=impl)
+    with torch.no_grad():
+        cpu.sampling_offsets.weight.normal_(0, 0.02)
+        cpu.attention_weights.weight.normal_(0, 0.2)
+    gpu = MSDeformAttn(64, 2, 4, 4, impl=impl).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    shapes = ((6, 8), (3, 4))
+    query, src = torch.randn(2, 20, 64), torch.randn(2, 60, 64)
+    ref = torch.rand(2, 20, 2, 2)
+    counts = (msda.ms_deform_attn.launches, cg.corner_gather.launches,
+              msda.ms_deform_attn_bwd.launches)
+    outs = []
+    for mod, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        out = mod(query.to(dev), ref.to(dev), src.to(dev), shapes)
+        out.square().sum().backward()
+        outs.append(out.detach().cpu())
+    assert (msda.ms_deform_attn.launches, cg.corner_gather.launches,
+            msda.ms_deform_attn_bwd.launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1)
+    torch.testing.assert_close(outs[1], outs[0], atol=1e-4, rtol=1e-3)
+    for name in ("value_proj", "sampling_offsets", "attention_weights"):
+        g = getattr(gpu, name).weight.grad
+        assert g is not None and bool(g.abs().sum() > 0), name
+        torch.testing.assert_close(g.cpu(), getattr(cpu, name).weight.grad,
+                                   atol=1e-4, rtol=1e-3)
+
+
+def random_blocks(gen, cin, cm, nblocks, device):
+    """Per block (w1, b1, w2, b2, w3, b3, wd, bd): bf16 weights in matmul
+    layouts, f32 biases; a projection on the first block."""
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * shape[-2] ** -0.5).bfloat16()
+
+    def b(n):
+        return torch.randn((n,), generator=gen, device=device) * 0.5
+
+    blks = []
+    for i in range(nblocks):
+        c = cin if i == 0 else 4 * cm
+        proj = i == 0 and c != 4 * cm
+        blks.append((w(c, cm), b(cm), w(3, 3, cm, cm), b(cm), w(cm, 4 * cm),
+                     b(4 * cm), w(c, 4 * cm) if proj else None,
+                     b(4 * cm) if proj else None))
+    return blks
+
+
+def k6_close(got, ref):
+    """K6 sums each product on the tensor cores, the plain version with
+    f32 FMAs, so a bf16 rounding of t, u or a block's output may fall one
+    step the other way and carry into the next block: relative L2 within
+    2e-3 (``chip_smoke.py::k6_agrees`` has the readings), every entry
+    within 2^-5 of the largest output."""
+    d = (got.float() - ref.float()).abs()
+    assert float(d.norm() / ref.float().norm()) <= 2e-3
+    assert float(d.max()) <= 2.0 ** -5 * float(ref.float().abs().max())
+
+
+# (x shape, Cin, Cm): whole tiles, H and W no multiple of the 8 x 16 tile,
+# a grid smaller than one tile, layer1's channels and others
+FUSED = {"tile": ((1, 8, 16, 64), 64, 64), "odd": ((2, 149, 37, 64), 64, 64),
+         "tiny": ((3, 5, 3, 64), 64, 64), "narrow": ((2, 19, 21, 32), 32, 16),
+         "identity_first": ((1, 9, 30, 64), 64, 16)}
+
+
+@pytest.mark.parametrize("case", list(FUSED))
+def test_fused_bottleneck_kernel_matches_plain(cuda_device, case):
+    """K6, one launch per block, against the plain fused stage on the same
+    card: borders included (the 3x3's padding is 0, not relu(b1))."""
+    shape, cin, cm = FUSED[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case))
+    x = torch.relu(torch.randn(shape, generator=gen,
+                               device=cuda_device)).bfloat16()
+    blks = random_blocks(gen, cin, cm, 3, cuda_device)
+    before = fb.fused_bottleneck_stage.launches
+    got = fb.fused_bottleneck_stage(x, blks)
+    torch.cuda.synchronize()
+    assert fb.fused_bottleneck_stage.launches == before + 3
+    assert got.dtype == torch.bfloat16 and got.shape == shape[:3] + (4 * cm,)
+    assert bool(torch.isfinite(got.float()).all())
+    k6_close(got, fb.fused_stage_plain(x, blks))
+
+
+def test_fused_bottleneck_refuses_a_strided_view(cuda_device):
+    """K6 reads no strides: a non-contiguous NHWC view raises, as do f32
+    activations; nothing falls back to the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    blks = random_blocks(gen, 64, 64, 1, cuda_device)
+    x = torch.randn((1, 8, 16, 64), device=cuda_device).bfloat16()
+    before = fb.fused_bottleneck_stage.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.fused_bottleneck_stage(x.transpose(1, 2), blks)
+    with pytest.raises(TypeError, match="bf16"):
+        fb.fused_bottleneck_stage(x.float(), blks)
+    assert fb.fused_bottleneck_stage.launches == before
+
+
+def test_resnet50_fused_layer1_on_the_card(cuda_device):
+    """A ``ResNet50(fused_stages=True)`` in bf16 eval, channels-last, on the
+    card: layer1 launches K6 three times with no copy of its input, and the
+    stages agree with the f32 unfused ResNet on the CPU within bf16's reach
+    (relative L2 3e-2, as on the CPU)."""
+    torch.manual_seed(0)
+    ref = br.ResNet50(return_stages=(1, 2)).eval()
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, br.FrozenBatchNorm):
+                m.running_mean.normal_(0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    model = br.ResNet50(return_stages=(1, 2), fused_stages=True).eval()
+    model.load_state_dict(ref.state_dict())
+    model = model.to(device=cuda_device, dtype=torch.bfloat16,
+                     memory_format=torch.channels_last)
+    x = torch.randn(2, 64, 96, 3)
+    before = fb.fused_bottleneck_stage.launches
+    with torch.no_grad():
+        want = ref(x)
+        got = model(x.to(cuda_device).bfloat16())
+    torch.cuda.synchronize()
+    assert fb.fused_bottleneck_stage.launches == before + 3
+    for s in (1, 2):
+        err = float((got[s].float().cpu() - want[s]).norm() / want[s].norm())
+        assert err < 3e-2, (s, err)

@@ -203,9 +203,9 @@ def test_msda_loc_promotes_to_f32(monkeypatch):
     seen = {}
     real = pl.ms_deform_attn
 
-    def spy(value, shapes, loc, attw):
+    def spy(value, shapes, loc, attw, **kw):
         seen.update(value=value.dtype, loc=loc.dtype, attw=attw.dtype)
-        return real(value, shapes, loc, attw)
+        return real(value, shapes, loc, attw, **kw)
 
     monkeypatch.setattr(pl, "ms_deform_attn", spy)
     query, ref, src, pad = msda_inputs(2)
