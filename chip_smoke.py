@@ -9,13 +9,18 @@ Phases, each on lines of its own:
 1. the card: name and power limit (``nvidia-smi``), TF32 off for every
    comparison;
 2. build every CUDA kernel of the serving and training paths from
-   ``dfvod_tpu_torch/csrc``, one ``nvcc`` per source, all at once;
+   ``dfvod_tpu_torch/csrc``, one ``nvcc`` per source, all at once, with
+   each kernel's registers and spills;
 3. each kernel against its plain PyTorch version on the card, in f32 and
    the bf16 mixes the paths feed, at their shapes and edge cases, with
    times: kernel, plain version, a PyTorch yardstick, and the least time
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
-   f32). K1 (``msda_fwd``, also at 5 levels, TDAM with 5 reference
-   frames), then K2 (``msda_bwd``), then K3 (``hat_sample_fwd``, the
+   f32), each timing beside the card line. K1 (``msda_fwd``, timed at the
+   encoder, decoder and 5-level TDAM shapes and with every point outside
+   the map), then K2 (``msda_bwd``, timed at the encoder, decoder and
+   TDAM shapes, in f32 at the video-training shape, and by the gradients
+   asked for: grad_value alone, the point gradients alone, all), then K3
+   (``hat_sample_fwd``, the
    bilinear sampling under RoIAlign) at the QRF shape and edge cases, then
    K4 (``hat_sample_bwd``, its backward) at the QRF training shape with
    real and uniform points, in the bf16 mix and at the edge cases, with
@@ -75,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -186,11 +192,14 @@ def msda_inputs(gen, shapes, B, Lq, M, D, P, dtypes, oob=False):
     return value.to(value_dt), loc.to(loc_dt), attw.to(attw_dt)
 
 
-def msda_bound(value, loc, attw, out):
+def msda_bound(value, loc, attw, out, outside=False):
     """(least ms, 'bytes' | 'operations'): each input read once, the output
     written once; per sample point ~20 coordinate ops and 10 per channel
-    (4 corner multiply-adds + the attention weight)."""
+    (4 corner multiply-adds + the attention weight). With every point
+    ``outside`` the map, the value is not read and no channel is summed."""
     B, Lq, M, L, P = attw.shape
+    if outside:
+        return bound(nbytes(loc, attw, out), B * Lq * M * L * P * 20)
     return bound(nbytes(value, loc, attw, out),
                  B * Lq * M * L * P * (10 * value.shape[-1] + 20))
 
@@ -214,7 +223,10 @@ def phase_msda_kernel():
              ("multi_d24", multi,
               (torch.bfloat16, torch.bfloat16, torch.float32), False),
              ("oob", (((38, 50),), 2, 64, 8, 32, 4), f32, True),
-             ("oob", (((38, 50),), 2, 64, 8, 32, 4), serve, True)]
+             ("oob", (((38, 50),), 2, 64, 8, 32, 4), serve, True),
+             # every point outside the map: the cost of the coordinates
+             # and of the loc / attw traffic alone
+             ("enc_oob", enc, serve, True)]
     results = {}
     for name, (shapes, *dims), dtypes, oob in cases:
         value, loc, attw = msda_inputs(gen, shapes, *dims, dtypes, oob)
@@ -241,24 +253,28 @@ def phase_msda_kernel():
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"msda_fwd disagrees with its plain version: {name} "
                   f"{tag} max_abs_err {max_err}")
-        if name in ("enc", "dec") and dtypes == serve:
-            out = got
-            results[name] = {
+        if name in ("enc", "dec", "tdam_l5", "enc_oob") and dtypes == serve:
+            r = results[name] = {
                 "max_abs_err": max_err,
                 "ms": cuda_ms(lambda: msda.ms_deform_attn(
                     value, shapes, loc, attw), 50),
                 "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain(
                     value, shapes, loc, attw), 10),
-                "yardstick_ms": cuda_ms(lambda: grid_sample_msda(
-                    value, shapes, loc, attw), 20),
+                "shape": f"B={value.shape[0]} Lq={loc.shape[1]} "
+                         f"S={value.shape[1]} L={len(shapes)}",
             }
-            results[name]["bound_ms"], results[name]["bound_by"] = (
-                msda_bound(value, loc, attw, out))
-            r = results[name]
-            print(f"[msda] time {name} bf16 value/f32 loc/bf16 attw: "
-                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
-                  f" grid_sample yardstick {r['yardstick_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+            r["bound_ms"], r["bound_by"] = msda_bound(value, loc, attw, got,
+                                                      outside=oob)
+            yardstick = ""
+            if name in ("enc", "dec"):
+                r["yardstick_ms"] = cuda_ms(lambda: grid_sample_msda(
+                    value, shapes, loc, attw), 20)
+                yardstick = (f" grid_sample yardstick "
+                             f"{r['yardstick_ms']:.4f} ms,")
+            print(f"[msda] time {name} {r['shape']} bf16 value/f32 loc/bf16 "
+                  f"attw: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+                  f" ms,{yardstick} bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); card {card_line()}", flush=True)
     return results
 
 
@@ -353,10 +369,14 @@ def phase_msda_bwd_kernel():
     oob = (((38, 50),), 2, 64, 8, 32, 4)
     integer = (((32, 64), (16, 8)), 2, 128, 8, 32, 4)
     tdam = (((38, 50),) * 5, 1, 1900, 8, 32, 4)
+    # the TransVOD++ f32 training step: 1 clip x 5 frames
+    video = (((38, 50),), CLIP_TRAIN_FRAMES, 1900, 8, 32, 4)
     cases = [(name, dims, dt) for name, dims in
              (("enc", enc), ("dec", dec), ("multi_d24", multi), ("oob", oob),
               ("integer_px", integer), ("tdam_l5", tdam))
-             for dt in (f32, train, serve)]
+             for dt in (f32, train, serve)] + [("video_f32", video, f32)]
+    timed = {("enc", train), ("dec", train), ("tdam_l5", train),
+             ("video_f32", f32)}
     results = {}
     for name, (shapes, B, Lq, M, D, P), dtypes in cases:
         value, loc, attw = msda_inputs(gen, shapes, B, Lq, M, D, P, dtypes,
@@ -391,29 +411,65 @@ def phase_msda_bwd_kernel():
                   f"max_abs_err={ferr:.3e} (atol 3e-2) "
                   f"{'ok' if ferr <= 3e-2 else 'FAIL'}", flush=True)
             check(ferr <= 3e-2, "msda_fwd disagrees in the training mix")
-        if name in ("enc", "dec") and dtypes == train:
+        if (name, dtypes) in timed:
             inputs = (value, loc, attw)
-            results[name] = {
+            r = results[name] = {
                 "max_abs_err": max_err,
                 "ms": cuda_ms(lambda: msda.ms_deform_attn_bwd(
                     value, shapes, loc, attw, go), 50),
                 "plain_ms": backward_ms(
                     lambda v, l, a: msda.ms_deform_attn_plain(
                         v, shapes, l, a), inputs, go, 10),
-                "yardstick_ms": backward_ms(
-                    lambda v, l, a: grid_sample_msda(v, shapes, l, a),
-                    inputs, go, 10),
+                "shape": f"B={B} Lq={Lq} S={value.shape[1]} "
+                         f"L={len(shapes)} {tag}",
             }
-            results[name]["bound_ms"], results[name]["bound_by"] = (
-                msda_bwd_bound((value, loc, attw, go)))
-            r = results[name]
-            print(f"[msda_bwd] time {name} {tag}: kernel {r['ms']:.4f} ms, "
-                  f"plain backward {r['plain_ms']:.4f} ms, grid_sample "
-                  f"backward yardstick {r['yardstick_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+            r["bound_ms"], r["bound_by"] = msda_bwd_bound(
+                (value, loc, attw, go))
+            yardstick = ""
+            if name in ("enc", "dec"):
+                r["yardstick_ms"] = backward_ms(
+                    lambda v, l, a: grid_sample_msda(v, shapes, l, a),
+                    inputs, go, 10)
+                yardstick = (f" grid_sample backward yardstick "
+                             f"{r['yardstick_ms']:.4f} ms,")
+            print(f"[msda_bwd] time {name} {r['shape']}: kernel "
+                  f"{r['ms']:.4f} ms, plain backward {r['plain_ms']:.4f} ms,"
+                  f"{yardstick} bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}); card {card_line()}", flush=True)
+        if (name, dtypes) == ("enc", train):
+            results[name]["needs"] = needs_split(msda, shapes, value, loc,
+                                                 attw, go, ref, tag)
     results["training_mix"] = "/".join(str(d).replace("torch.", "")
                                        for d in train)
     return results
+
+
+# K2's gradients by ``needs`` (value, loc, attw): whether the atomics into
+# grad_value or the corner gathers of the point gradients set its pace
+NEEDS_SPLIT = {"value": (True, False, False), "points": (False, True, True),
+               "all": (True, True, True)}
+
+
+def needs_split(msda, shapes, value, loc, attw, go, ref, tag):
+    """{needs: ms} of K2 asked for grad_value alone, the point gradients
+    alone and all three, each checked against the plain backward ``ref``
+    (bf16 atol 3e-2 / rtol 2e-2, f32 1e-4)."""
+    times = {}
+    for key, needs in NEEDS_SPLIT.items():
+        got = msda.ms_deform_attn_bwd_cuda(value, shapes, loc, attw, go,
+                                           needs)
+        torch.cuda.synchronize()
+        ok, tol, err = grads_agree([g for g in got if g is not None],
+                                   [r for r, n in zip(ref, needs) if n],
+                                   False, value.dtype == torch.bfloat16)
+        check(ok and [g is not None for g in got] == list(needs),
+              f"msda_bwd with needs {needs} disagrees: max_abs_err {err}")
+        times[key] = cuda_ms(lambda: msda.ms_deform_attn_bwd_cuda(
+            value, shapes, loc, attw, go, needs), 50)
+        print(f"[msda_bwd] time enc {tag} needs {key:6s}: kernel "
+              f"{times[key]:.4f} ms, max_abs_err={err:.3e} ({tol}); card "
+              f"{card_line()}", flush=True)
+    return times
 
 
 # ------------------------------------------------- K3: RoIAlign's sampling
@@ -1893,21 +1949,46 @@ def phase_small_video_train_reference():
               f"(1e-2); launches {launches} ok", flush=True)
 
 
-def build_kernels():
-    """Build and load every kernel of the paths, one ``nvcc`` per source,
-    all started together; print each build's time and register use."""
+SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
+           "corner_gather_fwd", "fused_bottleneck")
+
+
+def ptxas_lines(log):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
+    (demangled where ``c++filt`` is found, without its parameters), then
+    what ptxas says of its stack, spills and registers."""
+    names, info, cur = [], {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            cur = line.split("Function properties for ", 1)[1].strip()
+            names.append(cur)
+            info[cur] = []
+        elif cur and ("spill" in line or "registers" in line):
+            info[cur].append(line.split(" : ", 1)[-1].strip())
+    shown = names
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            shown = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     .removeprefix("void ")
+                     for n in out.stdout.splitlines()]
+    return [f"{s}: {'; '.join(info[n])}" for s, n in zip(shown, names)]
+
+
+def build_kernels(names=SOURCES):
+    """Build and load the kernels of ``names`` (every source of the paths),
+    one ``nvcc`` per source, all started together; print each build's time
+    and each kernel's registers and spills."""
     from dfvod_tpu_torch.ops import build
-    names = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
-             "corner_gather_fwd", "fused_bottleneck")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(build.build, names))
     for name, (path, seconds, log) in zip(names, built):
         build.load(name)
         print(f"[build] {name}.cu -> {os.path.relpath(path, REPO)}: "
               f"{seconds:.1f} s nvcc", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}", flush=True)
+        for line in ptxas_lines(log):
+            print(f"[build]   {line}", flush=True)
 
 
 def main() -> int:
@@ -1960,6 +2041,8 @@ def main() -> int:
         "shape": "encoder B=8 Lq=S=1900 M=8 D=32 L=1 P=4, bf16 value, "
                  "f32 loc, bf16 attw",
         "decoder": kern["dec"],
+        "tdam_l5": kern["tdam_l5"],
+        "enc_oob": kern["enc_oob"],
         "train_launches": train["launches_fwd"],
         "clip_launches": clip["launches_msda_fwd"],
         "train_clips_launches": train_clips["launches"]["msda_fwd"],
@@ -1979,6 +2062,9 @@ def main() -> int:
         "shape": f"encoder B={TRAIN_BATCH} Lq=S=1900 M=8 D=32 L=1 P=4, "
                  f"{kern_bwd['training_mix']} value/loc/attw (training mix)",
         "decoder": kern_bwd["dec"],
+        "tdam_l5": kern_bwd["tdam_l5"],
+        "video_f32": kern_bwd["video_f32"],
+        "needs_ms": enc["needs"],
         "train_clips_launches": train_clips["launches"]["msda_bwd"],
     }
     record_hat = {
@@ -2093,8 +2179,10 @@ def main() -> int:
     }
     new_records = [record_onehot, record_gather, record_sparse, record_tiled,
                    record_sep, record_fused]
-    for r in (record, record["decoder"], record_bwd, record_bwd["decoder"],
-              record_hat, record_hat_bwd, *record_hat_bwd["other"].values(),
+    for r in (record, record["decoder"], record["tdam_l5"], record["enc_oob"],
+              record_bwd, record_bwd["decoder"], record_bwd["tdam_l5"],
+              record_bwd["video_f32"], record_bwd["needs_ms"], record_hat,
+              record_hat_bwd, *record_hat_bwd["other"].values(),
               *new_records, train, clip, train_clips):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),

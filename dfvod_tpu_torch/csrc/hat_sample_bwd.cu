@@ -63,8 +63,8 @@
 
 #include <cstdint>
 
-// dtype codes, kWarpsPerBlock, f32 conversions, kVec and load8, the bf16
-// cast pass
+// dtype codes, kWarpsPerBlock, f32 conversions, kVec and load8, the vector
+// atomics, the bf16 cast pass
 #include "msda_common.cuh"
 
 using namespace msda;
@@ -164,14 +164,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       for (int k = 0; k < 4; ++k) {
         if (c.t[k] < 0) continue;
         const long long row = base + (long long)c.t[k] * D + d;
-        if (gv != nullptr) {
-          // two 16-byte vector atomics (sm_90) instead of 8 scalar ones
-          const float s = a * c.w[k];
-          float4* dst = reinterpret_cast<float4*>(gv + row);
-          atomicAdd(dst, make_float4(s * g[0], s * g[1], s * g[2], s * g[3]));
-          atomicAdd(dst + 1,
-                    make_float4(s * g[4], s * g[5], s * g[6], s * g[7]));
-        }
+        // two 16-byte vector atomics (sm_90) instead of 8 scalar ones
+        if (gv != nullptr) atomic_add_scaled<kVec>(gv + row, g, a * c.w[k]);
         if constexpr (kPointGrads) {
           float v[kVec];
           load8(value + row, v);

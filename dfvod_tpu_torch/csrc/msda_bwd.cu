@@ -16,7 +16,8 @@
 // The derivative at an integer px is therefore the one-sided difference
 // [floor+1] - [floor], as in the TPU kernel (msda_pallas.py:754-757). A
 // corner outside the map contributes nothing to any gradient, and a sample
-// whose four corners all lie outside gets exact zero gradients.
+// whose four corners all lie outside (a NaN or infinite coordinate
+// included) gets exact zero gradients.
 //
 // The TPU kernel builds a dense (TQ, S) tent matrix and contracts it on the
 // MXU because Mosaic had no fast gather or scatter. Hopper has both, so this
@@ -27,27 +28,46 @@
 // and one write of the three gradients: about 26 MB at the B=6 training
 // encoder shape (Lq=S=1900, M=8, D=32, P=4, bf16 value and go, f32 loc and
 // attw), about 8 us at 3.35 TB/s. The kernel moves far more: every sample
-// point gathers 4 corner rows and scatters 4 rows of f32 atomics into
-// grad_value. A head's value and grad_value slabs (S x D) are shared by all
-// queries of that head and stay in L2, where the atomics resolve.
+// point gathers 4 corner rows and adds 4 rows of f32 into grad_value by
+// atomics (187 MB at that shape). A head's value and grad_value slabs
+// (S x D) are shared by all queries of that head and stay in L2, where the
+// atomics resolve, so the L2's rate of atomic sector requests sets the
+// pace: grad_value alone takes most of the kernel's time.
 //
-// Design:
-// - One warp per (b, q, m), channels across lanes, as in msda_fwd.cu: the go
-//   row, each corner row and each row of atomics is one contiguous access of
-//   D elements. Warps are numbered q-fastest, so the warps in flight
-//   together share (b, m) and hit the same slabs in cache.
-// - grad_value: f32 atomicAdd (compiled to a fire-and-forget RED) into an
-//   f32 buffer that the wrapper zeroes, then one cast pass when the value is
-//   bf16; an f32 value accumulates in its gradient directly. The order of the
-//   additions changes from run to run, so grad_value is not bitwise
-//   deterministic. A deterministic reduction (a sort by token, or a segment
-//   pass per query) costs an extra pass and is later work.
-// - grad_attw and grad_loc: per-lane partial sums over the channels, then a
-//   warp shuffle reduction; lane 0 writes them in their input's dtype.
-// - Pixel coordinates are rounded as PyTorch rounds `loc * W - 0.5` (no
-//   fused multiply-add), so floor(px), and with it the side of a one-sided
-//   difference, agrees with the plain version bit for bit.
-// - A gradient whose pointer is null is not computed.
+// Design (the vector kernel; msda_common.cuh has the layout, Slots):
+// - The warp layout of msda_fwd.cu: a slot of lanes, one 16-byte chunk of
+//   the row each (4 lanes of 8 channels for bf16 at D = 32, 8 of 4 for
+//   f32), holds one sample point; several points, and several queries of
+//   one (b, m) where L * P is small, share a warp. Each lane loads its
+//   chunk of the go row once, before the point loop; each slot computes its
+//   corners once (msda_corners, the rounding of the plain version) and
+//   gathers the 4 corner chunks together.
+// - grad_value: 16-byte float4 atomicAdds (fire-and-forget REDs) into an
+//   f32 buffer that the wrapper zeroes, then one cast pass when the value
+//   is bf16; an f32 value accumulates in its gradient directly. For bf16 a
+//   lane adds two 16-byte pieces laid so that the lanes of a slot cover
+//   whole 32-byte sectors in each instruction: half the sector requests of
+//   adding each lane's own 8 channels. The order of the additions changes
+//   from run to run, so grad_value is not bitwise deterministic. A
+//   deterministic reduction (a sort by token, or a segment pass per query)
+//   costs an extra pass and is later work. Summing a (b, m) slab of 8
+//   channels in shared memory first, then writing it once, was measured
+//   and lost to the atomics (shared-memory f32 atomics, 192 blocks at the
+//   encoder shape; PERF.md), and a TDAM or multi-level slab does not fit.
+// - grad_attw and grad_loc: each lane sums over its chunk's channels, then
+//   shuffles within its slot only (2 steps at 4 lanes); the slot's first
+//   lane writes them in their input's dtype.
+// - Which gradients are computed is a compile-time choice of the entry
+//   (value only, points only, or all), so grad_value alone reads no value
+//   row; a gradient whose pointer is null is not computed.
+// - Warps find their (b, m) and queries in a 3-D grid, without a division.
+// - The scalar kernel (one warp per (b, q, m), a channel per lane, f32
+//   scalar atomics) takes rows that are no whole number of 16-byte chunks
+//   or more than 32 of them, and base pointers that are not 16-byte
+//   aligned; the entry chooses.
+// Measured before this design: 0.1814-0.1823 ms at the B=6 encoder shape in
+// the training mix, one warp per (b, q, m) with a channel per lane and
+// scalar atomics (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Plain C interface, loaded with ctypes; see dfvod_tpu_torch/ops/msda.py.
 
@@ -59,22 +79,142 @@ namespace {
 
 // value (B, S, M, D); loc (B, Lq, M, L, P, 2) in (x, y) order;
 // attw (B, Lq, M, L, P); go (B, Lq, M, D); grad_value (B, S, M, D) f32;
-// grad_loc and grad_attw shaped as loc and attw. All contiguous.
+// grad_loc and grad_attw shaped as loc and attw. All contiguous; go, and
+// value with kPointGrads, grad_value with kValueGrad, 16-byte aligned;
+// D * sizeof(V) = 16 * sl.g.
+template <typename V, typename C, typename A, bool kValueGrad,
+          bool kPointGrads>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    msda_bwd_vec_kernel(const V* __restrict__ value, const C* __restrict__ loc,
+                        const A* __restrict__ attw, const V* __restrict__ go,
+                        float* __restrict__ grad_value,
+                        C* __restrict__ grad_loc, A* __restrict__ grad_attw,
+                        int S, int M, int D, int Lq, int P, Levels lv,
+                        Slots sl) {
+  constexpr int kN = kChunk<V>;
+  const int lane = threadIdx.x & 31;
+  // grid (q blocks / kWarpsPerBlock, M, B): a warp per block of queries
+  const int qb = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int m = blockIdx.y, b = blockIdx.z;
+  if ((qb << sl.lg_qw) >= Lq) return;
+  const int lg = lane & ((1 << sl.lg_gp) - 1);  // chunk of the row
+  const int slot = lane >> sl.lg_gp;
+  const int s = slot & ((1 << sl.lg_spq) - 1);  // slot within its query
+  const int q = (qb << sl.lg_qw) + (slot >> sl.lg_spq);
+  const bool has_q = q < Lq;
+  const bool active = has_q && lg < sl.g;
+
+  const int np = lv.n * P;
+  const long long row = (long long)M * D;  // token stride inside value
+  const long long pt0 = (((long long)b * Lq + q) * M + m) * np;
+  const long long vb = (long long)b * S * row + (long long)m * D;
+
+  // The go row, loaded once. g: this lane's chunk, channels lg * kN.., for
+  // the point gradients and, in f32, for the atomics. ga (bf16): the 4 + 4
+  // channels this lane adds into the f32 grad_value row, its 16-byte chunks
+  // lg and sl.g + lg, so the lanes of a slot cover whole 32-byte sectors in
+  // each atomic instruction; 8 channels lg * 8.. would half-cover every
+  // sector twice, and the atomics run at the L2's rate of sector requests.
+  float g[kN], ga[8];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) g[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) ga[j] = 0.f;
+  if (active) {
+    const V* grow = go + (((long long)b * Lq + q) * M + m) * D;
+    widen<V>(load16(grow + lg * kN), g);
+    if constexpr (kValueGrad && kN == 8) {
+      load4(grow + 4 * lg, ga);
+      load4(grow + 4 * (sl.g + lg), ga + 4);
+    }
+  }
+
+  for (int it = 0; it < sl.iters; ++it) {
+    const int pi = s + (it << sl.lg_spq);
+    const bool has_point = has_q && pi < np;
+    const long long i = pt0 + pi;
+    SampleCorners c;
+    bool inside = false;
+    float aw = 0.f, sv = 0.f, gx = 0.f, gy = 0.f;
+    int l = 0;
+    if (has_point) {
+      l = pi / P;
+      inside = msda_corners<true>(to_float(loc[2 * i]),
+                                  to_float(loc[2 * i + 1]), lv.h[l], lv.w[l],
+                                  &c);
+    }
+    if (inside && lg < sl.g) {
+      aw = to_float(attw[i]);
+      const long long vl = vb + (long long)lv.start[l] * row;
+      if constexpr (kPointGrads) {
+        uint4 raw[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          raw[k] = c.ok[k] ? load16(value + vl + (long long)c.t[k] * row +
+                                    lg * kN)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        float v[4][kN];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) widen<V>(raw[k], v[k]);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          sv += g[j] * (c.w[0] * v[0][j] + c.w[1] * v[1][j] +
+                        c.w[2] * v[2][j] + c.w[3] * v[3][j]);
+          gx += g[j] * ((1.f - c.fy) * (v[1][j] - v[0][j]) +
+                        c.fy * (v[3][j] - v[2][j]));
+          gy += g[j] * ((1.f - c.fx) * (v[2][j] - v[0][j]) +
+                        c.fx * (v[3][j] - v[1][j]));
+        }
+      }
+      if constexpr (kValueGrad) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!c.ok[k]) continue;
+          float* dst = grad_value + vl + (long long)c.t[k] * row;
+          if constexpr (kN == 8) {
+            atomic_add_scaled<4>(dst + 4 * lg, ga, aw * c.w[k]);
+            atomic_add_scaled<4>(dst + 4 * (sl.g + lg), ga + 4, aw * c.w[k]);
+          } else {
+            atomic_add_scaled<4>(dst + 4 * lg, g, aw * c.w[k]);
+          }
+        }
+      }
+    }
+    if constexpr (kPointGrads) {
+      // sum over the slot's lanes only; every lane of the warp takes part
+      for (int o = 1; o < (1 << sl.lg_gp); o <<= 1) {
+        sv += __shfl_xor_sync(0xffffffffu, sv, o);
+        gx += __shfl_xor_sync(0xffffffffu, gx, o);
+        gy += __shfl_xor_sync(0xffffffffu, gy, o);
+      }
+      if (has_point && lg == 0) {
+        const float W = inside ? (float)lv.w[l] : 0.f;
+        const float H = inside ? (float)lv.h[l] : 0.f;
+        if (grad_attw) grad_attw[i] = from_float<A>(sv);
+        if (grad_loc) {
+          grad_loc[2 * i] = from_float<C>(aw * gx * W);
+          grad_loc[2 * i + 1] = from_float<C>(aw * gy * H);
+        }
+      }
+    }
+  }
+}
+
+// The scalar kernel: one warp per (b, q, m), a channel per lane, any D and
+// any alignment; runtime null checks pick the gradients. Same layouts as
+// the vector kernel.
 template <typename V, typename C, typename A>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     msda_bwd_kernel(const V* __restrict__ value, const C* __restrict__ loc,
                     const A* __restrict__ attw, const V* __restrict__ go,
                     float* __restrict__ grad_value, C* __restrict__ grad_loc,
-                    A* __restrict__ grad_attw, int B, int S, int M, int D,
-                    int Lq, int P, Levels lv) {
+                    A* __restrict__ grad_attw, int S, int M, int D, int Lq,
+                    int P, Levels lv) {
   const int lane = threadIdx.x & 31;
-  const long long warp =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp >= (long long)B * M * Lq) return;
-  const int q = (int)(warp % Lq);
-  const long long bm = warp / Lq;
-  const int m = (int)(bm % M);
-  const int b = (int)(bm / M);
+  // grid (Lq / kWarpsPerBlock, M, B): a warp per (b, q, m)
+  const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int m = blockIdx.y, b = blockIdx.z;
+  if (q >= Lq) return;
 
   const long long row = (long long)M * D;  // token stride inside value
   const long long pt0 = (((long long)b * Lq + q) * M + m) * lv.n * P;
@@ -87,13 +227,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     const long long vl = vb + (long long)lv.start[l] * row;
     for (int p = 0; p < P; ++p) {
       const long long i = pt0 + (long long)l * P + p;
-      const float x =
-          __fsub_rn(__fmul_rn(to_float(loc[2 * i]), (float)W), 0.5f);
-      const float y =
-          __fsub_rn(__fmul_rn(to_float(loc[2 * i + 1]), (float)H), 0.5f);
-      // every corner is outside the map (NaN lands here too); at x == -1
-      // the corner x = 0 still carries a derivative
-      if (!(x >= -1.f && y >= -1.f && x < (float)W && y < (float)H)) {
+      SampleCorners c;
+      if (!msda_corners<true>(to_float(loc[2 * i]), to_float(loc[2 * i + 1]),
+                              H, W, &c)) {
         if (lane == 0) {
           if (grad_attw) grad_attw[i] = from_float<A>(0.f);
           if (grad_loc) {
@@ -104,47 +240,38 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
         continue;
       }
       const float aw = to_float(attw[i]);
-      const float x0f = floorf(x), y0f = floorf(y);
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      const float fx = x - x0f, fy = y - y0f;
-      const bool c00 = y0 >= 0 && x0 >= 0, c01 = y0 >= 0 && x0 + 1 < W;
-      const bool c10 = y0 + 1 < H && x0 >= 0, c11 = y0 + 1 < H && x0 + 1 < W;
-      const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-      const float w10 = fy * (1.f - fx), w11 = fy * fx;
-      // row offsets of the corners; read only where the corner is valid
-      const long long r00 = vl + ((long long)y0 * W + x0) * row;
-      const long long r01 = r00 + row;
-      const long long r10 = r00 + (long long)W * row;
-      const long long r11 = r10 + row;
+      long long r[4];  // row offsets of the corners; read only where ok
+#pragma unroll
+      for (int k = 0; k < 4; ++k) r[k] = vl + (long long)c.t[k] * row;
 
-      float s = 0.f, gx = 0.f, gy = 0.f;
+      float sv = 0.f, gx = 0.f, gy = 0.f;
       for (int d = lane; d < D; d += 32) {
-        const float g = to_float(gq[d]);
+        const float gd = to_float(gq[d]);
         if (point_grads) {
-          const float v00 = c00 ? to_float(value[r00 + d]) : 0.f;
-          const float v01 = c01 ? to_float(value[r01 + d]) : 0.f;
-          const float v10 = c10 ? to_float(value[r10 + d]) : 0.f;
-          const float v11 = c11 ? to_float(value[r11 + d]) : 0.f;
-          s += g * (w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11);
-          gx += g * ((1.f - fy) * (v01 - v00) + fy * (v11 - v10));
-          gy += g * ((1.f - fx) * (v10 - v00) + fx * (v11 - v01));
+          float v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            v[k] = c.ok[k] ? to_float(value[r[k] + d]) : 0.f;
+          sv += gd * (c.w[0] * v[0] + c.w[1] * v[1] + c.w[2] * v[2] +
+                      c.w[3] * v[3]);
+          gx += gd * ((1.f - c.fy) * (v[1] - v[0]) + c.fy * (v[3] - v[2]));
+          gy += gd * ((1.f - c.fx) * (v[2] - v[0]) + c.fx * (v[3] - v[1]));
         }
         if (grad_value) {
-          const float ag = aw * g;
-          if (c00) atomicAdd(grad_value + r00 + d, ag * w00);
-          if (c01) atomicAdd(grad_value + r01 + d, ag * w01);
-          if (c10) atomicAdd(grad_value + r10 + d, ag * w10);
-          if (c11) atomicAdd(grad_value + r11 + d, ag * w11);
+          const float ag = aw * gd;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (c.ok[k]) atomicAdd(grad_value + r[k] + d, ag * c.w[k]);
         }
       }
       if (point_grads) {
         for (int o = 16; o > 0; o >>= 1) {
-          s += __shfl_xor_sync(0xffffffffu, s, o);
+          sv += __shfl_xor_sync(0xffffffffu, sv, o);
           gx += __shfl_xor_sync(0xffffffffu, gx, o);
           gy += __shfl_xor_sync(0xffffffffu, gy, o);
         }
         if (lane == 0) {
-          if (grad_attw) grad_attw[i] = from_float<A>(s);
+          if (grad_attw) grad_attw[i] = from_float<A>(sv);
           if (grad_loc) {
             grad_loc[2 * i] = from_float<C>(aw * gx * (float)W);
             grad_loc[2 * i + 1] = from_float<C>(aw * gy * (float)H);
@@ -155,21 +282,53 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+template <typename V, typename C, typename A, bool kValueGrad,
+          bool kPointGrads>
+void launch_vec(const dim3& grid, const V* value, const C* loc, const A* attw,
+                const V* go, float* gv, C* gloc, A* gattw, int S, int M,
+                int D, int Lq, int P, const Levels& lv, const Slots& sl,
+                cudaStream_t stream) {
+  msda_bwd_vec_kernel<V, C, A, kValueGrad, kPointGrads>
+      <<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+          value, loc, attw, go, gv, gloc, gattw, S, M, D, Lq, P, lv, sl);
+}
+
 template <typename V, typename C, typename A>
 int launch(const void* value, const void* loc, const void* attw,
            const void* go, float* grad_value_f32, void* grad_value,
            void* grad_loc, void* grad_attw, int B, int S, int M, int D,
            int Lq, int P, const Levels& lv, cudaStream_t stream) {
-  const long long warps = (long long)B * M * Lq;
-  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return -4;
-  if (blocks > 0) {
-    msda_bwd_kernel<V, C, A><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                               stream>>>(
-        static_cast<const V*>(value), static_cast<const C*>(loc),
-        static_cast<const A*>(attw), static_cast<const V*>(go),
-        grad_value_f32, static_cast<C*>(grad_loc), static_cast<A*>(grad_attw),
-        B, S, M, D, Lq, P, lv);
+  const bool value_grad = grad_value_f32 != nullptr;
+  const bool point_grads = grad_loc != nullptr || grad_attw != nullptr;
+  Slots sl;
+  const bool vec = (value_grad || point_grads) &&
+                   make_slots(D, (int)sizeof(V), lv.n * P, &sl) &&
+                   aligned16(go) &&
+                   (!point_grads || aligned16(value)) &&
+                   (!value_grad || aligned16(grad_value_f32));
+  dim3 grid;
+  if (!msda_grid(vec ? (Lq + (1LL << sl.lg_qw) - 1) >> sl.lg_qw : Lq, M, B,
+                 &grid))
+    return -4;
+  if (!empty_grid(grid) && (value_grad || point_grads)) {
+    const V* v = static_cast<const V*>(value);
+    const C* c = static_cast<const C*>(loc);
+    const A* a = static_cast<const A*>(attw);
+    const V* g = static_cast<const V*>(go);
+    C* gl = static_cast<C*>(grad_loc);
+    A* ga = static_cast<A*>(grad_attw);
+    if (!vec)
+      msda_bwd_kernel<V, C, A><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+          v, c, a, g, grad_value_f32, gl, ga, S, M, D, Lq, P, lv);
+    else if (!point_grads)
+      launch_vec<V, C, A, true, false>(grid, v, c, a, g, grad_value_f32, gl,
+                                       ga, S, M, D, Lq, P, lv, sl, stream);
+    else if (!value_grad)
+      launch_vec<V, C, A, false, true>(grid, v, c, a, g, grad_value_f32, gl,
+                                       ga, S, M, D, Lq, P, lv, sl, stream);
+    else
+      launch_vec<V, C, A, true, true>(grid, v, c, a, g, grad_value_f32, gl,
+                                      ga, S, M, D, Lq, P, lv, sl, stream);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

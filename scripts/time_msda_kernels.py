@@ -1,0 +1,75 @@
+"""Check and time the MSDA kernels K1 (``msda_fwd``) and K2 (``msda_bwd``)
+of the PyTorch/CUDA port under ``--root`` (default: this checkout) on one
+NVIDIA GPU, with ``chip_smoke.py``'s own K1 and K2 phases: each kernel
+against its plain version at every case, then the timings that decide
+their design (K1 at the encoder, decoder, 5-level TDAM and all-outside
+shapes; K2 at the encoder, decoder, TDAM and f32 video shapes and by the
+gradients asked for).
+
+To hold two commits against each other, unpack the other one with
+``git archive`` into a git-ignored directory and run both in one call on
+one card, in the order parent, change, change, parent:
+
+    python3 scripts/time_msda_kernels.py --root .scratch/parent
+    python3 scripts/time_msda_kernels.py
+
+Prints the build's register and spill lines, the phases' lines and, last,
+one JSON object of the times.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=REPO,
+                        help="checkout whose dfvod_tpu_torch is timed")
+    root = os.path.abspath(parser.parse_args().root)
+    if not torch.cuda.is_available():
+        print("time_msda_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, root)
+    from dfvod_tpu_torch.ops import msda
+    if not os.path.abspath(msda.__file__).startswith(root + os.sep):
+        print(f"time_msda_kernels: imported {msda.__file__}, not the "
+              f"package under {root}", file=sys.stderr)
+        return 1
+    smoke = load_chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smoke.card_line()
+    print(f"[card] {card}; package {os.path.dirname(msda.__file__)}",
+          flush=True)
+    smoke.build_kernels(("msda_fwd", "msda_bwd"))
+    fwd = smoke.phase_msda_kernel()
+    bwd = smoke.phase_msda_bwd_kernel()
+
+    def times(results):
+        return {k: {n: v for n, v in r.items()
+                    if n in ("ms", "plain_ms", "bound_ms", "needs")}
+                for k, r in results.items() if isinstance(r, dict)}
+
+    print(json.dumps({"root": root, "card": card, "msda_fwd": times(fwd),
+                      "msda_bwd": times(bwd)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,7 @@
 """Tests of the port that need the card: the CUDA MSDA kernels (forward
-and backward, up to TDAM's 5 levels) and the bilinear-sampling kernel under
+and backward, up to TDAM's 5 levels; their vector kernels at D = 8 to 256
+and their scalar kernels at D = 5 and on unaligned views, NaN / inf and
+integer-pixel locations) and the bilinear-sampling kernel under
 RoIAlign (K3) and its backward (K4) against their plain versions, gradients
 through the MSDA module and RoIAlign on the card, and small models
 (single-frame, TransVOD++, TransVOD+TDAM) and small single-frame and
@@ -38,6 +40,33 @@ CASES = {
     # TDAM with 5 reference frames: 5 levels of one frame's shape
     "five_level_tdam": (((6, 7),) * 5, 2, 42, 2, 16, 4),
 }
+# the warp layouts of K1's and K2's vector kernels: D = 8 (8 queries per
+# warp in bf16, 4 in f32) at L * P = 6, which no slot count divides, and
+# 37 queries, which no query count per warp divides; D = 64; D = 256 (one
+# point per warp in bf16, the scalar kernels in f32); power-of-two maps
+# for exact integer pixels; a 60 x 75 map with few queries (sparse
+# atomics)
+LAYOUT_CASES = {
+    "d8_l2_p3": (((6, 7), (3, 4)), 2, 37, 3, 8, 3),
+    "d64": (((9, 11),), 2, 53, 2, 64, 4),
+    "d256": (((5, 7),), 1, 19, 2, 256, 4),
+    "pow2_l2": (((8, 16), (4, 4)), 2, 37, 2, 32, 4),
+    "wide_map": (((60, 75),), 1, 67, 2, 32, 4),
+}
+# "case/variant" inputs of the K1 and K2 tests beyond the plain ones:
+# "offset", contiguous views one element into their buffers, which are not
+# 16-byte aligned (the scalar kernels); "nonfinite", NaN and +-inf
+# locations, which add nothing and get exact zero point gradients;
+# "integer_px", locations on exact integer pixels (K2's one-sided
+# difference); "needs_value" / "needs_points", K2 asked for grad_value
+# alone or the point gradients alone
+K1_VARIANTS = ["enc/offset", "d64/offset", "d8_l2_p3/nonfinite",
+               "d256/nonfinite", "pow2_l2/integer_px"]
+K2_VARIANTS = K1_VARIANTS + ["enc/needs_value", "enc/needs_points",
+                             "d64/needs_points", "d8_l2_p3/needs_value",
+                             "wide_map/needs_value", "wide_map/offset"]
+NEEDS = {"needs_value": (True, False, False),
+         "needs_points": (False, True, True)}
 DTYPES = {"f32": (torch.float32,) * 3,
           "bf16_serving": (torch.bfloat16, torch.float32, torch.bfloat16),
           "bf16_training": (torch.bfloat16, torch.float32, torch.float32),
@@ -57,27 +86,22 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtypes", list(DTYPES))
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [*CASES, *LAYOUT_CASES, *K1_VARIANTS])
 def test_kernel_matches_plain(cuda_device, case, dtypes):
     """f32: atol/rtol 1e-5. bf16: against the f32 plain version on the same
-    bf16-rounded inputs, atol 3e-2 (the output is rounded to bf16)."""
-    shapes, B, Lq, M, D, P = CASES[case]
-    vdt, ldt, adt = DTYPES[dtypes]
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    L, S = len(shapes), sum(h * w for h, w in shapes)
-    value = torch.randn((B, S, M, D), generator=gen, device=cuda_device)
-    loc = torch.rand((B, Lq, M, L, P, 2), generator=gen,
-                     device=cuda_device) * 1.2 - 0.1
-    attw = torch.randn((B, Lq, M, L * P), generator=gen,
-                       device=cuda_device).softmax(-1).reshape(
-        B, Lq, M, L, P)
-    value, loc, attw = value.to(vdt), loc.to(ldt), attw.to(adt)
+    bf16-rounded inputs, atol 3e-2 (the output is rounded to bf16). A
+    non-finite location adds nothing: the plain version takes it at 2.0,
+    outside the map."""
+    vdt = DTYPES[dtypes][0]
+    shapes, value, loc, attw, _ = msda_inputs(cuda_device, case,
+                                              DTYPES[dtypes])
+    B, Lq, M = loc.shape[:3]
     before = msda.ms_deform_attn.launches
     got = msda.ms_deform_attn(value, shapes, loc, attw)
     torch.cuda.synchronize()
     assert msda.ms_deform_attn.launches == before + 1
-    assert got.dtype == vdt and got.shape == (B, Lq, M * D)
-    ref = msda.ms_deform_attn_plain(value.float(), shapes, loc.float(),
+    assert got.dtype == vdt and got.shape == (B, Lq, M * value.shape[-1])
+    ref = msda.ms_deform_attn_plain(value.float(), shapes, finite_loc(loc),
                                     attw.float())
     if vdt == torch.float32:
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
@@ -120,8 +144,39 @@ def test_small_model_card_matches_cpu(cuda_device):
                                    rtol=1e-3)
 
 
+def offset_view(t):
+    """``t``'s values in a contiguous view one element into its buffer, so
+    its address is not 16-byte aligned."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    view = view.view(t.shape).copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def integer_pixel_loc(gen, shapes, B, Lq, M, P, device):
+    """Locations on exact integer pixels (loc * W - 0.5 an integer in
+    [-1, W], exactly, for power-of-two W and H)."""
+    loc = torch.empty((B, Lq, M, len(shapes), P, 2), device=device)
+    for lvl, (h, w) in enumerate(shapes):
+        for c, n in ((0, w), (1, h)):
+            k = torch.randint(-1, n + 1, (B, Lq, M, P), generator=gen,
+                              device=device)
+            loc[:, :, :, lvl, :, c] = (k + 0.5) / n
+    return loc
+
+
+def finite_loc(loc):
+    """``loc`` in f32 with every NaN or infinite coordinate at 2.0, outside
+    the map: what the kernels make of such a point."""
+    loc = loc.float()
+    return torch.where(torch.isfinite(loc), loc, 2.0)
+
+
 def msda_inputs(device, case, dtypes, seed=0):
-    shapes, B, Lq, M, D, P = CASES[case]
+    """value, loc, attw and go of ``case`` ("name" or "name/variant") in
+    ``dtypes`` (value, loc, attw; go in the value's)."""
+    name, _, variant = case.partition("/")
+    shapes, B, Lq, M, D, P = {**CASES, **LAYOUT_CASES}[name]
     gen = torch.Generator(device=device).manual_seed(seed)
     L, S = len(shapes), sum(h * w for h, w in shapes)
     value = torch.randn((B, S, M, D), generator=gen, device=device)
@@ -130,30 +185,53 @@ def msda_inputs(device, case, dtypes, seed=0):
     attw = torch.randn((B, Lq, M, L * P), generator=gen,
                        device=device).softmax(-1).reshape(B, Lq, M, L, P)
     go = torch.randn((B, Lq, M * D), generator=gen, device=device)
+    if variant == "integer_px":
+        loc = integer_pixel_loc(gen, shapes, B, Lq, M, P, device)
+    if variant == "nonfinite":
+        loc[:, 0::3, :, :, 0, 0] = float("nan")
+        loc[:, 1::3, :, :, -1, 1] = float("inf")
+        loc[:, 2::3, :, -1, 0, 0] = float("-inf")
     vdt, ldt, adt = dtypes
-    return shapes, value.to(vdt), loc.to(ldt), attw.to(adt), go.to(vdt)
+    tensors = (value.to(vdt), loc.to(ldt), attw.to(adt), go.to(vdt))
+    if variant == "offset":
+        tensors = tuple(offset_view(t) for t in tensors)
+    return (shapes, *tensors)
 
 
 @pytest.mark.parametrize("dtypes", list(DTYPES))
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [*CASES, *LAYOUT_CASES, *K2_VARIANTS])
 def test_bwd_kernel_matches_plain(cuda_device, case, dtypes):
     """K2 against the plain backward on the same (bf16-rounded) inputs in
     f32: f32 atol/rtol 1e-4 (the order of the atomics), bf16 rtol 2e-2 /
     atol 3e-2 (the JAX package's bf16 backward gate). Gradients come in
-    each input's dtype."""
+    each input's dtype, None where not asked for. A non-finite location
+    gets exact zero gradients and scatters nothing."""
     shapes, value, loc, attw, go = msda_inputs(cuda_device, case,
                                                DTYPES[dtypes])
+    needs = NEEDS.get(case.partition("/")[2], (True, True, True))
     before = msda.ms_deform_attn_bwd.launches
-    got = msda.ms_deform_attn_bwd(value, shapes, loc, attw, go)
+    if all(needs):
+        got = msda.ms_deform_attn_bwd(value, shapes, loc, attw, go)
+    else:
+        got = msda.ms_deform_attn_bwd_cuda(value, shapes, loc, attw, go,
+                                           needs)
     torch.cuda.synchronize()
     assert msda.ms_deform_attn_bwd.launches == before + 1
-    ref = msda.ms_deform_attn_plain_bwd(value.float(), shapes, loc.float(),
-                                        attw.float(), go.float())
+    assert [g is not None for g in got] == list(needs)
+    ref = msda.ms_deform_attn_plain_bwd(value.float(), shapes,
+                                        finite_loc(loc), attw.float(),
+                                        go.float())
     atol, rtol = ((1e-4, 1e-4) if value.dtype == torch.float32
                   else (3e-2, 2e-2))
     for g, r, x in zip(got, ref, (value, loc, attw)):
+        if g is None:
+            continue
         assert g.dtype == x.dtype and g.shape == x.shape
         torch.testing.assert_close(g.float(), r, atol=atol, rtol=rtol)
+    nonfinite = ~torch.isfinite(loc.float()).all(-1)
+    if needs[1] and bool(nonfinite.any()):
+        assert int(torch.count_nonzero(got[1][nonfinite])) == 0
+        assert int(torch.count_nonzero(got[2][nonfinite])) == 0
 
 
 def test_bwd_kernel_out_of_bounds_gives_exact_zeros(cuda_device):
