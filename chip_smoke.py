@@ -20,11 +20,14 @@ Phases, each on lines of its own:
    the map), then K2 (``msda_bwd``, timed at the encoder, decoder and
    TDAM shapes, in f32 at the video-training shape, and by the gradients
    asked for: grad_value alone, the point gradients alone, all), then K3
-   (``hat_sample_fwd``, the
-   bilinear sampling under RoIAlign) at the QRF shape and edge cases, then
-   K4 (``hat_sample_bwd``, its backward) at the QRF training shape with
-   real and uniform points, in the bf16 mix and at the edge cases, with
-   and without the point gradients; then the opt-in forms: K5b/c
+   (``hat_sample_fwd``, the bilinear sampling under RoIAlign) at the QRF
+   shape and edge cases, then K4 (``hat_sample_bwd``, its backward) at
+   the QRF training shape with real and uniform points, in the bf16 mix
+   and at the edge cases, with and without the point gradients; beside
+   each K3/K4 timing the corners of its points and the distinct tokens
+   per query and per tile of K4's merged path (counted with torch ops, off
+   the main path), and the tiles that K4's C entry launched on that path
+   in the checked call; then the opt-in forms: K5b/c
    (``corner_gather_fwd``, the folded-corner gather of MSDA's ``flat``,
    ``pallas`` and ``pallas_onehot`` forms) at the B=8 encoder shape and 4
    levels, with indices out of range, timed beside one
@@ -541,6 +544,58 @@ def edge_points(gen, BM, Lq, PL, h, w):
     return px, py, aw
 
 
+def corner_stats(value, px, py, tile_rows=None):
+    """What the merged paths of K3 and K4 find at these points, counted
+    with torch ops off the main path: the valid corners (point inside
+    [-1, W) x [-1, H), corner on the grid), the distinct tokens per query
+    (the rows K3 gathers after its merge in registers) and, given K4's rows
+    per tile, per tile of that many consecutive rows (bm, q) (the rows K4's
+    merged path adds into gv) and the number of tiles."""
+    BM, H, W, D = value.shape
+    _, Lq, PL = px.shape
+    inside = (px >= -1) & (px < W) & (py >= -1) & (py < H)
+    x0 = torch.floor(torch.where(inside, px, 0.0)).long()
+    y0 = torch.floor(torch.where(inside, py, 0.0)).long()
+    frame = torch.arange(BM, device=px.device).view(BM, 1, 1) * (H * W)
+    keys = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            cx, cy = x0 + dx, y0 + dy
+            ok = inside & (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
+            keys.append(torch.where(ok, frame + cy * W + cx, -1))
+    keys = torch.stack(keys, -1).reshape(BM * Lq, PL * 4)
+
+    def distinct(rows):
+        s = rows.sort(-1).values
+        first = s[:, :1] >= 0
+        new = (s[:, 1:] >= 0) & (s[:, 1:] != s[:, :-1])
+        return int(first.sum() + new.sum())
+
+    stats = {"corners": int((keys >= 0).sum()),
+             "distinct_per_query": distinct(keys)}
+    if tile_rows:
+        pad = keys.new_full(((-keys.shape[0]) % tile_rows, PL * 4), -1)
+        tiles = torch.cat([keys, pad]).reshape(-1, tile_rows * PL * 4)
+        stats.update(tile_rows=tile_rows, distinct_per_tile=distinct(tiles),
+                     tiles=tiles.shape[0])
+    return stats
+
+
+def stats_line(stats, merged_tiles=None):
+    """The corner counts of ``corner_stats`` as one line of text, with the
+    tiles that K4's C entry counted on its merged path in one call."""
+    n, per_query = stats["corners"], stats["distinct_per_query"]
+    line = (f"corners {n}, distinct tokens per query {per_query} "
+            f"({n / max(1, per_query):.2f}x fewer)")
+    if "tiles" not in stats:
+        return line
+    per_tile, tiles = stats["distinct_per_tile"], stats["tiles"]
+    return (line + f", per tile of {stats['tile_rows']} rows {per_tile} "
+            f"({n / max(1, per_tile):.2f}x fewer); tiles launched on the "
+            f"merged path {merged_tiles} of {tiles} "
+            f"({merged_tiles / tiles:.3f})")
+
+
 def hat_agrees(got, ref):
     """(ok, tolerance): f32 atol/rtol 1e-5; bf16 against the f32 plain
     version on the same bf16 value, where rounding the output once costs
@@ -603,8 +658,10 @@ def phase_hat_kernel():
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"grid_sample yardstick {r['yardstick_ms']:.4f} ms "
                   f"(max_abs_err {r['yardstick_max_abs_err']:.3e}: a bf16 "
-                  f"grid), bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-                  flush=True)
+                  f"grid), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                  f"card {card_line()}", flush=True)
+            print(f"[hat] corners qrf: "
+                  f"{stats_line(corner_stats(value, px, py))}", flush=True)
     return result
 
 
@@ -682,8 +739,13 @@ def phase_hat_bwd_kernel():
             px, py, aw = edge_points(gen, 3, 133, 5, 7, 9)
         go = torch.randn((value.shape[0], px.shape[1], value.shape[-1]),
                          generator=gen, device="cuda").to(dt)
+        # (rows per tile, tiles launched) of the merged path, as the C entry
+        # counts them; a source without that path counts nothing
+        tiles_of = getattr(hs, "bwd_merged_tiles", lambda: (None, 0))
+        tiles0 = tiles_of()[1]
         got = hs.hat_sample_bwd(value, px, py, aw, go, needs=needs)
         torch.cuda.synchronize()
+        tile_rows, merged = tiles_of()[0], tiles_of()[1] - tiles0
         ref = hs.hat_sample_plain_bwd(value.float(), px, py, aw, go.float())
         ok, tol, errs = hat_bwd_agrees(got, ref)
         ok &= all(g is None or bool(torch.isfinite(g.float()).all())
@@ -725,7 +787,11 @@ def phase_hat_bwd_kernel():
         print(f"[hat_bwd] time {pts} {tag} {form}: kernel {r['ms']:.4f} ms, "
               f"plain backward {r['plain_ms']:.4f} ms, grid_sample backward "
               f"yardstick {r['yardstick_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); card "
+              f"{card_line()}", flush=True)
+        stats = corner_stats(value, px, py, tile_rows)
+        print(f"[hat_bwd] corners {pts}: {stats_line(stats, merged)}",
+              flush=True)
     return result
 
 
@@ -903,8 +969,8 @@ def phase_hat_sparse_kernel():
                   f") bf16: launches {counts}, max_abs_err {entry_err:.3e} "
                   f"against the per-level plain form (atol 3e-2); time: "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-                  flush=True)
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); card "
+                  f"{card_line()}", flush=True)
     return result
 
 

@@ -1,8 +1,9 @@
 // Shared pieces of the CUDA kernels: the MSDA level table, sample corners
 // and warp layout (msda_fwd.cu, msda_bwd.cu), the dtype codes of the Python
 // wrappers, the block size and the f32 conversions (also hat_sample_fwd.cu,
-// hat_sample_bwd.cu), the 16-byte vector loads, the 16-byte vector atomics
-// (msda_bwd.cu, hat_sample_bwd.cu) and the f32 -> bf16 cast pass of the
+// hat_sample_bwd.cu), the 16-byte vector loads and stores (also
+// hat_sample_fwd.cu; the bf16 4-channel load also hat_sample_bwd.cu), the
+// 16-byte vector atomics (msda_bwd.cu) and the f32 -> bf16 cast pass of the
 // backward kernels' gradient accumulators.
 #pragma once
 
@@ -57,26 +58,6 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// 8 contiguous channels, 16-byte aligned, loaded as f32
-constexpr int kVec = 8;
-
-__device__ __forceinline__ void load8(const float* p, float f[kVec]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[kVec]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
 }
 
 // Add s * f[0..n) into the f32 row at p (16-byte aligned, n a multiple of

@@ -217,6 +217,9 @@ def _library(name: str):
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    if name == "hat_sample_bwd":
+        lib.hat_sample_bwd_tile_rows.restype = ctypes.c_int
+        lib.hat_sample_bwd_merged_tiles.restype = ctypes.c_longlong
     return lib
 
 
@@ -386,3 +389,13 @@ def hat_sample_bwd(value, px, py, aw, grad_out, grid=None,
 
 
 hat_sample_bwd.launches = 0
+
+
+def bwd_merged_tiles():
+    """(rows per tile, tiles launched so far) of K4's merged path
+    (``hat_sample_bwd_tile_kernel``), as ``csrc/hat_sample_bwd.cu`` counts
+    them where it launches that kernel: a call on CUDA tensors took the
+    merged path when the count grew by its ``BM * Lq`` rows over the rows
+    per tile, rounded up, and the scalar path when it did not grow."""
+    lib = _library("hat_sample_bwd")
+    return lib.hat_sample_bwd_tile_rows(), lib.hat_sample_bwd_merged_tiles()

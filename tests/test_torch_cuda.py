@@ -2,7 +2,8 @@
 and backward, up to TDAM's 5 levels; their vector kernels at D = 8 to 256
 and their scalar kernels at D = 5 and on unaligned views, NaN / inf and
 integer-pixel locations) and the bilinear-sampling kernel under
-RoIAlign (K3) and its backward (K4) against their plain versions, gradients
+RoIAlign (K3) and its backward (K4) against their plain versions (at edge
+points and at the point patterns of ``torch_hat_patterns.py``), gradients
 through the MSDA module and RoIAlign on the card, and small models
 (single-frame, TransVOD++, TransVOD+TDAM) and small single-frame and
 TransVOD++ train steps on the card against the same on the CPU. Then the
@@ -14,6 +15,7 @@ nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -29,6 +31,7 @@ from dfvod_tpu_torch.ops import msda_forms as mf
 from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.train.engine import create_train_state, forward
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
+from torch_hat_patterns import PATTERNS, point_pattern
 
 pytestmark = pytest.mark.cuda
 
@@ -400,6 +403,68 @@ def test_hat_bwd_kernel_matches_plain(cuda_device, D, dtype, needs):
             rtol = 1e-4 + (2.0 ** -8 if g.dtype == torch.bfloat16 else 0)
             torch.testing.assert_close(g.float(), r.reshape(g.shape),
                                        atol=1e-4, rtol=rtol)
+
+
+# (value dtype, go dtype) of the K3/K4 pattern tests: f32, bf16, and an f32
+# value under a bf16 go
+HAT_MIXES = {"f32": (torch.float32, torch.float32),
+             "bf16": (torch.bfloat16, torch.bfloat16),
+             "f32_value_bf16_go": (torch.float32, torch.bfloat16)}
+# case: (pattern of tests/torch_hat_patterns.py, PL, BM, Lq). The patterns
+# at PL = 4 on 3 frames of Lq = 133 queries (K4's merged path at D = 256;
+# its 16-row tiles straddle two frames and the last one is partial); spread
+# points at PL = 9, more than the merged path takes (K4's scalar path); and
+# 7 frames of Lq = 5, so a tile spans four frames
+HAT_CASES = {**{p: (p, 4, 3, 133) for p in PATTERNS},
+             "spread_pl9": ("spread", 9, 3, 133),
+             "one_token_lq5": ("one_token", 4, 7, 5),
+             "clustered_lq5": ("clustered", 4, 7, 5)}
+
+
+@pytest.mark.parametrize("mix", list(HAT_MIXES))
+@pytest.mark.parametrize("D", [256, 40])
+@pytest.mark.parametrize("pattern", list(HAT_CASES))
+def test_hat_kernels_on_point_patterns(cuda_device, pattern, D, mix):
+    """K3 and K4 (gv alone, then every gradient) against their plain
+    versions at the point patterns on which their merged paths hinge: every
+    corner of a tile on one token, on an integer token, cancelling weights
+    within a query, RoI-like clusters, points spread over the whole 38x50
+    map; tiles that straddle two frames or span four. D = 256 takes the
+    vector paths (K4's merged path at PL = 4, as its C entry counts it),
+    40 the scalar ones. Tolerances as in the two tests above."""
+    vdt, gdt = HAT_MIXES[mix]
+    name, PL, BM, Lq = HAT_CASES[pattern]
+    rng = np.random.default_rng(list(HAT_CASES).index(pattern) * 1000 + D)
+    H, W = 38, 50
+    px, py, aw = (torch.from_numpy(a).to(cuda_device)
+                  for a in point_pattern(name, rng, BM, Lq, PL, H, W))
+    value = torch.from_numpy(rng.standard_normal((BM, H, W, D)).astype(
+        np.float32)).to(cuda_device).to(vdt)
+    go = torch.from_numpy(rng.standard_normal((BM, Lq, D)).astype(
+        np.float32)).to(cuda_device).to(gdt)
+    got = hs.hat_sample(value, px, py, aw)
+    torch.cuda.synchronize()
+    ref = hs.hat_sample_plain(value.float(), px, py, aw)
+    assert got.dtype == vdt
+    torch.testing.assert_close(got.float(), ref, atol=1e-5,
+                               rtol=1e-5 if vdt == torch.float32
+                               else 2.0 ** -8)
+    ref = hs.hat_sample_plain_bwd(value.float(), px, py, aw, go.float())
+    for needs in ((True, False, False, False), (True,) * 4):
+        before = hs.hat_sample_bwd.launches
+        tile_rows, tiles = hs.bwd_merged_tiles()
+        got = hs.hat_sample_bwd(value, px, py, aw, go, needs=needs)
+        torch.cuda.synchronize()
+        assert hs.hat_sample_bwd.launches == before + 1
+        # every tile on K4's merged path at D = 256 and PL = 4, none else
+        merged = -(-BM * Lq // tile_rows) if D == 256 and PL == 4 else 0
+        assert hs.bwd_merged_tiles()[1] == tiles + merged
+        assert [g is not None for g in got] == list(needs)
+        for g, r in zip(got, ref):
+            if g is not None:
+                rtol = 1e-4 + (2.0 ** -8 if g.dtype == torch.bfloat16 else 0)
+                torch.testing.assert_close(g.float(), r.reshape(g.shape),
+                                           atol=1e-4, rtol=rtol)
 
 
 def test_roi_align_feature_grad_card_matches_cpu(cuda_device):

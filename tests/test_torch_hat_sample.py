@@ -1,7 +1,9 @@
 """K3's contract on the CPU: the port's plain ``hat_sample`` against the
-Pallas kernel ``msda_pallas.hat_sample`` in interpret mode, and the port's
+Pallas kernel ``msda_pallas.hat_sample`` in interpret mode (at edge points
+and at the point patterns of ``torch_hat_patterns.py``), and the port's
 ``roi_align`` against the JAX package's ``roi_align`` on both of its paths
-(``impl="xla"`` and ``impl="pallas_hat"``, interpret mode).
+(``impl="xla"`` and ``impl="pallas_hat"``, interpret mode), the QRF's
+geometry included.
 
 Inputs are made with numpy from seeds. Tolerance: atol/rtol 1e-5 in f32
 (the same products, summed in another order).
@@ -15,6 +17,7 @@ from dfvod_tpu.ops import msda_pallas
 from dfvod_tpu.ops.roi_align import roi_align as j_roi_align
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops.roi_align import roi_align
+from torch_hat_patterns import PATTERNS, point_pattern
 from torch_port_helpers import assert_close
 
 
@@ -58,6 +61,36 @@ def test_plain_matches_pallas_kernel(D):
     got = hs.hat_sample_plain(*map(torch.from_numpy, (v, px, py, aw)),
                               grid=(H, W))
     assert got.shape == (BM, Lq, D) and got.dtype == torch.float32
+    assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+# 3 frames of Lq = 37 queries: not a multiple of K4's 16-row tile, so the
+# kernels' tiles straddle frames and the last one is partial
+PATTERN_SHAPE = dict(BM=3, Lq=37, PL=4, H=6, W=9)
+
+
+def pattern_inputs(pattern, D, seed):
+    """value (BM, H*W, D), the pattern's px, py, aw, and go (BM, Lq, D)."""
+    rng = np.random.default_rng(seed)
+    BM, Lq, H, W = (PATTERN_SHAPE[k] for k in ("BM", "Lq", "H", "W"))
+    v = rng.standard_normal((BM, H * W, D)).astype(np.float32)
+    px, py, aw = point_pattern(pattern, rng, **PATTERN_SHAPE)
+    go = rng.standard_normal((BM, Lq, D)).astype(np.float32)
+    return (H, W), v, px, py, aw, go
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_plain_matches_pallas_kernel_on_merge_patterns(pattern):
+    """The point patterns on which K3's merge of equal corners hinges (all
+    on one token, on an integer token, cancelling weights within a query,
+    RoI-like clusters, spread over the map) against the Pallas kernel."""
+    (H, W), v, px, py, aw, _ = pattern_inputs(pattern, 16,
+                                              PATTERNS.index(pattern))
+    sx, sy = grid_coords(H, W)
+    ref = msda_pallas.hat_sample(*map(jnp.asarray, (v, sx, sy, px, py, aw)),
+                                 interpret=True)
+    got = hs.hat_sample_plain(*map(torch.from_numpy, (v, px, py, aw)),
+                              grid=(H, W))
     assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
@@ -167,10 +200,24 @@ def boxes_random(rng):
                            np.maximum(b[..., :2], b[..., 2:])], -1)
 
 
+def boxes_qrf(rng):
+    """20 boxes per frame as ``chip_smoke.py::qrf_points`` draws them on
+    the 608x800 image: centres U(0.05, 0.95), sizes U(0.02, 0.62) of it,
+    xyxy in pixels."""
+    cxcy = rng.uniform(0.05, 0.95, (2, 20, 2))
+    wh = rng.uniform(0.02, 0.62, (2, 20, 2))
+    whwh = np.asarray([800, 608, 800, 608])
+    return (np.concatenate([cxcy - wh / 2, cxcy + wh / 2], -1)
+            * whwh).astype(np.float32)
+
+
 ROI_CASES = {
     # name: (feature shape, boxes, output_size, spatial_scale)
     "fixed": ((2, 9, 11, 8), boxes_fixed, 3, 1.0),
     "qrf_like": ((2, 10, 13, 16), boxes_random, 7, 0.25),
+    # the QRF's geometry, cut to 2 frames, 20 RoIs and D = 16: the 38x50
+    # stride-16 memory, spatial_scale 1/32, 7x7 bins of 2x2 sub-samples
+    "qrf_geometry": ((2, 38, 50, 16), boxes_qrf, 7, 1 / 32),
 }
 
 

@@ -2,9 +2,11 @@
 bilinear sampling (``hat_sample_plain_bwd``, the counterpart of the CUDA
 kernel ``csrc/hat_sample_bwd.cu``) against the TPU kernel
 ``msda_pallas.hat_sample_bwd`` in interpret mode and against ``jax.vjp`` of
-``hat_sample_vjp``; autograd of the plain forward against it; and the
-features' gradient of RoIAlign against ``jax.grad`` of the JAX package's
-``roi_align`` on both of its paths.
+``hat_sample_vjp`` (at edge points, and against the kernel at the point
+patterns of ``torch_hat_patterns.py``); autograd of the plain forward
+against it; and the features' gradient of RoIAlign against ``jax.grad`` of
+the JAX package's ``roi_align`` on both of its paths, the QRF's geometry
+included.
 
 Inputs are made with numpy from seeds. Tolerance: atol/rtol 1e-5 in f32
 (the same products, summed in another order). The Pallas kernel propagates
@@ -21,7 +23,8 @@ from dfvod_tpu.ops import msda_pallas
 from dfvod_tpu.ops.roi_align import roi_align as j_roi_align
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops.roi_align import roi_align
-from test_torch_hat_sample import ROI_CASES, grid_coords
+from test_torch_hat_sample import (ROI_CASES, grid_coords, pattern_inputs)
+from torch_hat_patterns import PATTERNS
 from torch_port_helpers import assert_close
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -77,6 +80,23 @@ def test_plain_bwd_matches_pallas_kernel(D):
     for name, g, r, x in zip(("gv", "gpx", "gpy", "gaw"), got, ref,
                              (v, px, py, aw)):
         assert g.shape == x.shape and g.dtype == torch.float32, name
+        assert_close(g, r, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_plain_bwd_matches_pallas_kernel_on_merge_patterns(pattern):
+    """All four outputs against ``_hat_bwd_kernel`` at the point patterns
+    on which K4's merged path hinges: every corner of a tile on one token,
+    corners on an integer token (weight-0 corners, one-sided derivatives),
+    cancelling weights within a query, RoI-like clusters, spread points;
+    3 frames of 37 queries, so K4's tiles straddle frames."""
+    (H, W), v, px, py, aw, go = pattern_inputs(pattern, 16,
+                                               10 + PATTERNS.index(pattern))
+    sx, sy = grid_coords(H, W)
+    ref = msda_pallas.hat_sample_bwd(
+        *map(jnp.asarray, (v, sx, sy, px, py, aw, go)), interpret=True)
+    got = plain_bwd((H, W), v, px, py, aw, go)
+    for name, g, r in zip(("gv", "gpx", "gpy", "gaw"), got, ref):
         assert_close(g, r, **TOL, err_msg=name)
 
 
