@@ -31,12 +31,14 @@ Phases, each on lines of its own:
    (``corner_gather_fwd``, the folded-corner gather of MSDA's ``flat``,
    ``pallas`` and ``pallas_onehot`` forms) at the B=8 encoder shape and 4
    levels, with indices out of range, timed beside one
-   ``F.embedding_bag``; K5a (``hat_sample_fwd`` with its level table,
+   ``F.embedding_bag``, with the path (vector or scalar kernel) its C
+   entry counted; K5a (``hat_sample_fwd`` with its level table,
    ``ms_deform_attn_hat(sparse=True)``) at the encoder shape and 4 levels
    with NaN queries; K5d/e, the tiled and separable entries, launching K1;
    K6 (``fused_bottleneck``, ResNet-50's layer1 in bf16, a launch per
-   block) on the serve model's real layer1 input and at borders, timed
-   beside the unfused bf16 layer1;
+   block) on the serve model's real layer1 input and at borders, with the
+   path (layer1 or generic kernel) its C entry counted and each path's
+   shared memory, timed beside the unfused bf16 layer1;
 4. the serving path at full width: LateFusion RGB-D DeformableDETR (ResNet-50
    DC5 + DFormer, hidden 256, 8 heads, 6+6 layers, 300 queries, box
    refinement) at B=8 608x800 from uint8 frames in bf16, random weights from
@@ -154,6 +156,20 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def path_counts(module, fn):
+    """(fn(), {path: launches}): the launches of each kernel path that the
+    C entry behind ``module`` counted during ``fn``, or None where the
+    package under test has no such count (a tree older than the counts)."""
+    read = getattr(module, "kernel_paths", None)
+    before = read() if read else None
+    out = fn()
+    torch.cuda.synchronize()
+    if read is None:
+        return out, None
+    after = read()
+    return out, {k: after[k] - before[k] for k in after}
 
 
 # ------------------------------------------------------------------ MSDA
@@ -806,9 +822,10 @@ def embedding_bag_gather(table, gidx, gw):
 def phase_corner_gather_kernel():
     """K5b/c (``csrc/corner_gather_fwd.cu``) against its plain version: the
     MSDA dispatch's folded corners at the B=8 encoder shape and at 4
-    levels, f32 and the serving mix, and direct calls with indices outside
-    [0, S); times at the encoder shape in bf16, with one
-    ``F.embedding_bag`` over the same rows as the library yardstick."""
+    levels, f32 and the serving mix (each on the vector path by the C
+    entry's count), and direct calls with indices outside [0, S); times at
+    the encoder shape in bf16, with one ``F.embedding_bag`` over the same
+    rows as the library yardstick."""
     from dfvod_tpu_torch.ops import corner_gather as cg
     from dfvod_tpu_torch.ops import msda
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -824,8 +841,7 @@ def phase_corner_gather_kernel():
         value, loc, attw = msda_inputs(gen, shapes, *dims, dtypes)
         B, S, M, D = value.shape
         idx, w = cg.corner_indices_weights(shapes, loc, attw)
-        got = cg.corner_gather(value, idx, w)
-        torch.cuda.synchronize()
+        got, paths = path_counts(cg, lambda: cg.corner_gather(value, idx, w))
         ref = cg.corner_gather_plain(value.float(), idx, w)
         ok, tol = hat_agrees(got, ref)
         via = msda.ms_deform_attn(value, shapes, loc, attw, impl="flat")
@@ -835,10 +851,12 @@ def phase_corner_gather_kernel():
         tag = "f32" if dtypes == f32 else "bf16 value/f32 loc/bf16 attw"
         print(f"[gather] {name:8s} {tag:28s} value={tuple(value.shape)} "
               f"Lq={loc.shape[1]} K={idx.shape[-1]} max_abs_err={max_err:.3e}"
-              f" ({tol}; the dispatch's output bit-equal) "
+              f" ({tol}; the dispatch's output bit-equal) path {paths} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"corner_gather_fwd disagrees with its plain version: "
                   f"{name} {tag} max_abs_err {max_err}")
+        check(paths in (None, {"vector": 1, "scalar": 0}),
+              f"corner_gather_fwd took the paths {paths} at {name} {tag}")
         if name == "enc" and dtypes == serve:
             table = value.permute(0, 2, 1, 3).reshape(B * M * S, D)
             off = (torch.arange(B * M, device="cuda").reshape(B, 1, M, 1)
@@ -851,7 +869,7 @@ def phase_corner_gather_kernel():
             except RuntimeError:
                 lib_dtype = torch.float32      # refused bf16: time f32
             lt, lw = table.to(lib_dtype), w.reshape(gidx.shape).to(lib_dtype)
-            r = {"max_abs_err": max_err,
+            r = {"max_abs_err": max_err, "paths": paths,
                  "ms": cuda_ms(lambda: cg.corner_gather(value, idx, w), 50),
                  "dispatch_ms": cuda_ms(lambda: msda.ms_deform_attn(
                      value, shapes, loc, attw, impl="flat"), 20),
@@ -875,14 +893,14 @@ def phase_corner_gather_kernel():
         idx = torch.randint(-5, 55, (6, 133, 12), generator=gen,
                             device="cuda", dtype=torch.int32)
         w = torch.randn((6, 133, 12), generator=gen, device="cuda")
-        got = cg.onehot_sample(v, idx, w)
-        torch.cuda.synchronize()
+        got, paths = path_counts(cg, lambda: cg.onehot_sample(v, idx, w))
         ref = cg.onehot_sample(v.float().cpu(), idx.cpu(), w.cpu()).cuda()
         ok, tol = hat_agrees(got, ref)
         max_err = float((got.float() - ref).abs().max())
         print(f"[gather] oob_d40  {str(dt).replace('torch.', ''):28s} "
               f"v=(6, 50, 40) Lq=133 K=12 idx in [-5, 55) max_abs_err="
-              f"{max_err:.3e} ({tol}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"{max_err:.3e} ({tol}) path {paths} {'ok' if ok else 'FAIL'}",
+              flush=True)
         check(ok, f"corner_gather_fwd disagrees out of range: {dt}")
     return result
 
@@ -1082,7 +1100,9 @@ def phase_fused_bottleneck_kernel():
     plain fused form on the card: the serve model's layer1 (folded from its
     bf16-cast FrozenBN constants, as ``Server`` holds them) on its real
     input, the stem of eight 608x800 frames; then borders and a height that
-    is no multiple of the tile. Times at the serving shape; the yardstick
+    is no multiple of the tile. Each call's kernel paths as the C entry
+    counts them (the serve shape takes the layer1 path three times) and
+    each path's shared memory. Times at the serving shape; the yardstick
     is the port's unfused bf16 layer1 (cuDNN convolutions and elementwise
     passes, not one call)."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
@@ -1111,8 +1131,8 @@ def phase_fused_bottleneck_kernel():
     result = {}
     for name, xx in cases:
         with torch.no_grad():
-            got = fb.fused_bottleneck_stage(xx, weights)
-            torch.cuda.synchronize()
+            got, paths = path_counts(
+                fb, lambda: fb.fused_bottleneck_stage(xx, weights))
             ref = fb.fused_stage_plain(xx, weights)
             ref64 = fb.fused_stage_plain(xx, weights, torch.float64)
         ok, tol, max_err, rel = k6_agrees(got, ref)
@@ -1122,10 +1142,13 @@ def phase_fused_bottleneck_kernel():
               f"{max_err:.3e} relative L2 {rel:.3e} max|ref| "
               f"{float(ref.float().abs().max()):.3f} ({tol}) "
               f"{'ok' if ok else 'FAIL'}; relative L2 from the f64-summed "
-              f"form: kernel {rel64:.3e}, plain {plain_rel64:.3e}",
-              flush=True)
+              f"form: kernel {rel64:.3e}, plain {plain_rel64:.3e}; path "
+              f"{paths}", flush=True)
         check(ok, f"fused_bottleneck disagrees with its plain version: "
                   f"{name} max_abs_err {max_err} relative L2 {rel}")
+        check(name != "serve"
+              or paths in (None, {"layer1": 3, "generic": 0}),
+              f"layer1 at the serve shape took the paths {paths}")
         del ref64
         if name == "serve":
             layer1 = backbone.layer1
@@ -1134,6 +1157,7 @@ def phase_fused_bottleneck_kernel():
             with torch.no_grad():
                 unfused = layer1(xn).permute(0, 2, 3, 1)
                 r = {"max_abs_err": max_err, "relative_l2": rel,
+                     "paths": paths,
                      "relative_l2_f64": rel64,
                      "plain_relative_l2_f64": plain_rel64,
                      "unfused_relative_l2": relative_l2(unfused, ref),
@@ -1145,6 +1169,11 @@ def phase_fused_bottleneck_kernel():
             ((r["bound_ms"], r["bound_by"]),
              (r["design_bound_ms"], r["design_bound_by"])) = k6_bound(
                 xx, weights)
+            if hasattr(fb, "smem_bytes"):   # the C entry's paths' budgets
+                r["smem_bytes"] = {f"cin{c}": fb.smem_bytes(c, 64, 256)
+                                   for c in (64, 256)}
+                print(f"[fused] shared memory per CTA at layer1's widths "
+                      f"(Cm 64, Cout 256): {r['smem_bytes']}", flush=True)
             result = r
             print(f"[fused] time serve (8, 152, 200, 64) bf16: kernel "
                   f"{r['ms']:.4f} ms (3 launches), plain {r['plain_ms']:.4f}"
@@ -1276,8 +1305,10 @@ def phase_serve_variants(server, ref_model, req, out32, requests=3):
     ``DFVOD_MSDA_IMPL`` (unset first; the variable is read on every call):
     one warm-up and ``requests`` timed requests each, counts set to 0 just
     before the timed requests and read just after; 13 K1 or 13 K5b/c and 3
-    K6 launches per request; the boxes against the port's own f32 forward
-    on the same weights and frames under the serve gate."""
+    K6 launches per request, every K6 launch on its layer1 path and each
+    K5b/c launch's path by the C entries' counts; the boxes against the
+    port's own f32 forward on the same weights and frames under the serve
+    gate."""
     from dfvod_tpu_torch.ops import corner_gather, fused_bottleneck, msda
     x, s = req
     backbone = server.model.backbone
@@ -1299,7 +1330,11 @@ def phase_serve_variants(server, ref_model, req, out32, requests=3):
                     server(x, s)
                     torch.cuda.synchronize()
                     times.append(time.perf_counter() - t0)
-            _, counts = counted(run)
+            paths = {}
+            inner, paths["fused_bottleneck"] = path_counts(
+                fused_bottleneck, lambda: path_counts(
+                    corner_gather, lambda: counted(run)))
+            (_, counts), paths["corner_gather_fwd"] = inner
             gather = impl in msda.GATHER_IMPLS
             want = want_launches(
                 msda_fwd=0 if gather else 13 * requests,
@@ -1311,21 +1346,26 @@ def phase_serve_variants(server, ref_model, req, out32, requests=3):
             ms = 1e3 * sum(times) / len(times)
             name = impl or "unset"
             ok = (counts == want and float(diff.max()) <= BOX_MAX_TOL
-                  and float(diff.mean()) <= BOX_MEAN_TOL)
+                  and float(diff.mean()) <= BOX_MEAN_TOL
+                  and paths["fused_bottleneck"] == {
+                      "layer1": 3 * requests, "generic": 0})
             print(f"[serve-var] fused_stages DFVOD_MSDA_IMPL={name:13s} "
                   f"launches per request: msda_fwd "
                   f"{counts['msda_fwd'] / requests:g}, corner_gather_fwd "
                   f"{counts['corner_gather_fwd'] / requests:g}, "
-                  f"fused_bottleneck {counts['fused_bottleneck'] / requests:g};"
+                  f"fused_bottleneck {counts['fused_bottleneck'] / requests:g}"
+                  f" (paths over {requests}: {paths});"
                   f" ms per batch of {BATCH} {ms:.3f} "
                   f"({', '.join(f'{1e3 * t:.3f}' for t in times)}); bf16 vs "
                   f"f32 boxes max {float(diff.max()):.3e} mean "
                   f"{float(diff.mean()):.3e} {'ok' if ok else 'FAIL'}",
                   flush=True)
             check(ok, f"serve with fused_stages under DFVOD_MSDA_IMPL={name}"
-                      f": launches {counts} (want {want}), boxes max "
+                      f": launches {counts} (want {want}), K6 paths "
+                      f"{paths['fused_bottleneck']}, boxes max "
                       f"{float(diff.max())} mean {float(diff.mean())}")
             results[name] = {"ms_per_batch": ms, "launches": counts,
+                             "paths": paths,
                              "box_max": float(diff.max()),
                              "box_mean": float(diff.mean())}
     finally:
@@ -2181,18 +2221,22 @@ def main() -> int:
         "shape": "encoder B=8 Lq=S=1900 M=8 D=32 L=1 P=4 K=16, bf16 value, "
                  "int32 idx, f32 w (the folded corners of the serving mix)",
         "train_launches_small": onehot_train["corner_gather_fwd"],
+        "paths_kernel_phase": kern_gather["paths"],
     }
     record_onehot = {
         "name": "corner_gather_fwd/onehot", **gather_common,
         "replaces": "dfvod_tpu/ops/msda_pallas.py:49",
         "launches": variant_launches("pallas_onehot", "corner_gather_fwd"),
+        "paths": variants["pallas_onehot"]["paths"]["corner_gather_fwd"],
         "serve_requests": per_request,
     }
     record_gather = {
         "name": "corner_gather_fwd/gather", **gather_common,
         "replaces": "dfvod_tpu/ops/msda_pallas.py:1447",
         "launches": variant_launches("pallas", "corner_gather_fwd"),
+        "paths": variants["pallas"]["paths"]["corner_gather_fwd"],
         "flat_launches": variant_launches("flat", "corner_gather_fwd"),
+        "flat_paths": variants["flat"]["paths"]["corner_gather_fwd"],
         "serve_requests": per_request,
     }
     record_sparse = {
@@ -2230,12 +2274,14 @@ def main() -> int:
         "source": "dfvod_tpu_torch/csrc/fused_bottleneck.cu",
         "replaces": "dfvod_tpu/ops/fused_bottleneck.py:114",
         "launches": variant_launches("unset", "fused_bottleneck"),
+        "paths": variants["unset"]["paths"]["fused_bottleneck"],
+        "paths_kernel_phase": kern_fused["paths"],
         **{k: kern_fused[k] for k in ("max_abs_err", "relative_l2",
                                       "relative_l2_f64",
                                       "plain_relative_l2_f64", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "design_bound_ms", "design_bound_by",
-                                      "yardstick_ms")},
+                                      "yardstick_ms", "smem_bytes")},
         # no single PyTorch call runs a bottleneck stage; the port's
         # unfused bf16 layer1 (several cuDNN and elementwise calls) is the
         # labelled yardstick

@@ -116,7 +116,19 @@ def _library():
     lib.corner_gather_fwd.restype = ctypes.c_int
     lib.corner_gather_fwd_error_string.argtypes = [ctypes.c_int]
     lib.corner_gather_fwd_error_string.restype = ctypes.c_char_p
+    lib.corner_gather_fwd_vector_launches.restype = ctypes.c_longlong
+    lib.corner_gather_fwd_scalar_launches.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_paths():
+    """{"vector": n, "scalar": n}: the launches of each kernel of
+    ``csrc/corner_gather_fwd.cu`` since it was loaded, as its C entry counts
+    them where it chooses the path (the vector kernel for rows of whole
+    16-byte chunks, K a multiple of 4 and 16-byte aligned pointers)."""
+    lib = _library()
+    return {"vector": lib.corner_gather_fwd_vector_launches(),
+            "scalar": lib.corner_gather_fwd_scalar_launches()}
 
 
 def corner_gather_cuda(value, idx, w):

@@ -1,8 +1,9 @@
 """A stride-1 ResNet bottleneck stage with FrozenBN folded in (layer1 of
 ResNet-50): the plain PyTorch version, the unfused form its gradient comes
 from, and the wrapper of the hand-written CUDA kernel
-``csrc/fused_bottleneck.cu`` (K6, one launch per block), joined as a
-``torch.autograd.Function``.
+``csrc/fused_bottleneck.cu`` (K6, one launch per block: a persistent
+tensor-core kernel for layer1's widths, a generic one for the others),
+joined as a ``torch.autograd.Function``.
 
 Counterpart of ``dfvod_tpu/ops/fused_bottleneck.py``: ``fused_stage_plain``
 of ``reference_stage``, ``grad_stage`` of ``grad_stage``,
@@ -121,7 +122,27 @@ def _library():
     lib.fused_bottleneck_block.restype = ctypes.c_int
     lib.fused_bottleneck_block_error_string.argtypes = [ctypes.c_int]
     lib.fused_bottleneck_block_error_string.restype = ctypes.c_char_p
+    lib.fused_bottleneck_layer1_launches.restype = ctypes.c_longlong
+    lib.fused_bottleneck_generic_launches.restype = ctypes.c_longlong
+    lib.fused_bottleneck_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_bottleneck_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_paths():
+    """{"layer1": n, "generic": n}: the launches of each kernel of
+    ``csrc/fused_bottleneck.cu`` since it was loaded, as its C entry counts
+    them where it chooses the path (the layer1 kernel for Cm = 64, Cout =
+    256 and Cin = 64 with a projection or 256 with the identity)."""
+    lib = _library()
+    return {"layer1": lib.fused_bottleneck_layer1_launches(),
+            "generic": lib.fused_bottleneck_generic_launches()}
+
+
+def smem_bytes(cin, cm, cout):
+    """Dynamic shared memory per CTA of the kernel path that the C entry
+    takes for a block of these widths (-1 where no path takes them)."""
+    return _library().fused_bottleneck_smem_bytes(cin, cm, cout)
 
 
 def fused_stage_cuda(x, weights):

@@ -1,15 +1,19 @@
-"""Check and time the MSDA kernels K1 (``msda_fwd``) and K2 (``msda_bwd``)
-and the RoIAlign sampling kernels K3 (``hat_sample_fwd``), K4
-(``hat_sample_bwd``) and K5a (``hat_sample_fwd`` with its level table) of
-the PyTorch/CUDA port under ``--root`` (default: this checkout) on one
-NVIDIA GPU, with ``chip_smoke.py``'s own kernel phases: each kernel
-against its plain version at every case, then the timings that decide
-their design (K1 at the encoder, decoder, 5-level TDAM and all-outside
-shapes; K2 at the encoder, decoder, TDAM and f32 video shapes and by the
-gradients asked for; K3 at the QRF serve shape; K4 at the QRF training
-shape with real and uniform points, with and without point gradients; K5a
-at the encoder shape). ``--phases msda`` or ``--phases hat`` runs one
-group only.
+"""Check and time the MSDA kernels K1 (``msda_fwd``) and K2 (``msda_bwd``),
+the RoIAlign sampling kernels K3 (``hat_sample_fwd``), K4
+(``hat_sample_bwd``) and K5a (``hat_sample_fwd`` with its level table),
+the folded-corner gather K5b/c (``corner_gather_fwd``) and the fused
+ResNet layer1 K6 (``fused_bottleneck``) of the PyTorch/CUDA port under
+``--root`` (default: this checkout) on one NVIDIA GPU, with
+``chip_smoke.py``'s own kernel phases: each kernel against its plain
+version at every case, then the timings that decide their design (K1 at
+the encoder, decoder, 5-level TDAM and all-outside shapes; K2 at the
+encoder, decoder, TDAM and f32 video shapes and by the gradients asked
+for; K3 at the QRF serve shape; K4 at the QRF training shape with real
+and uniform points, with and without point gradients; K5a at the encoder
+shape; K5b/c at the B=8 encoder shape in bf16 beside ``F.embedding_bag``;
+K6 on the serve model's layer1 input, 8 x 152 x 200 x 64 bf16, beside the
+unfused layer1). ``--phases`` takes a comma-separated subset of the groups
+``msda``, ``hat``, ``gather`` and ``bottleneck``; all four by default.
 
 To hold two commits against each other, unpack the other one with
 ``git archive`` into a git-ignored directory and run both in one call on
@@ -34,7 +38,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the kernel sources each group of phases builds
 PHASES = {"msda": ("msda_fwd", "msda_bwd"),
-          "hat": ("hat_sample_fwd", "hat_sample_bwd")}
+          "hat": ("hat_sample_fwd", "hat_sample_bwd"),
+          "gather": ("corner_gather_fwd",),
+          "bottleneck": ("fused_bottleneck",)}
 
 
 def load_chip_smoke():
@@ -49,9 +55,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=REPO,
                         help="checkout whose dfvod_tpu_torch is timed")
-    parser.add_argument("--phases", default="msda,hat",
+    parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated groups: msda (K1, K2), hat "
-                             "(K3, K4, K5a)")
+                             "(K3, K4, K5a), gather (K5b/c), bottleneck (K6)")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     phases = set(args.phases.split(","))
@@ -77,7 +83,8 @@ def main() -> int:
 
     def times(results):
         return {k: {n: v for n, v in r.items()
-                    if n in ("ms", "plain_ms", "bound_ms", "needs")}
+                    if n in ("ms", "plain_ms", "bound_ms", "needs",
+                             "library_ms", "yardstick_ms", "paths")}
                 for k, r in results.items() if isinstance(r, dict)}
 
     out = {"root": root, "card": card}
@@ -89,6 +96,12 @@ def main() -> int:
         out["hat_sample_bwd"] = times(smoke.phase_hat_bwd_kernel())
         out["hat_sample_sparse"] = times(
             {"enc": smoke.phase_hat_sparse_kernel()})
+    if "gather" in phases:
+        out["corner_gather_fwd"] = times(
+            {"enc": smoke.phase_corner_gather_kernel()})
+    if "bottleneck" in phases:
+        out["fused_bottleneck"] = times(
+            {"serve": smoke.phase_fused_bottleneck_kernel()})
     print(json.dumps(out))
     return 0
 

@@ -622,6 +622,54 @@ def test_onehot_sample_kernel_out_of_range_indices(cuda_device, D):
         rounded_close(got.cpu(), ref)
 
 
+# (D, value dtype, K, value one element into its buffer) -> the path the
+# C entry reports: the vector kernel for rows of whole 16-byte chunks (D =
+# 40 bf16 is 5 of them, a slot of 8 lanes with 3 idle; f32 D = 256 is 64,
+# two chunks per lane), K a multiple of 4 and aligned pointers; the scalar
+# kernel for D = 5, K = 6 and a view one element into its buffer
+GATHER_PATHS = {
+    "d8_f32": (8, torch.float32, 16, False, "vector"),
+    "d8_bf16": (8, torch.bfloat16, 16, False, "vector"),
+    "d32_f32": (32, torch.float32, 16, False, "vector"),
+    "d32_bf16": (32, torch.bfloat16, 16, False, "vector"),
+    "d64_f32": (64, torch.float32, 12, False, "vector"),
+    "d64_bf16": (64, torch.bfloat16, 12, False, "vector"),
+    "d256_f32": (256, torch.float32, 8, False, "vector"),
+    "d256_bf16": (256, torch.bfloat16, 8, False, "vector"),
+    "d40_bf16": (40, torch.bfloat16, 16, False, "vector"),
+    "d5_f32": (5, torch.float32, 16, False, "scalar"),
+    "d5_bf16": (5, torch.bfloat16, 16, False, "scalar"),
+    "d32_offset": (32, torch.bfloat16, 16, True, "scalar"),
+    "k6_bf16": (32, torch.bfloat16, 6, False, "scalar"),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_PATHS))
+def test_corner_gather_kernel_paths(cuda_device, case):
+    """K5b/c on each path against its plain version, with indices in [-5,
+    S + 5) (outside [0, S) they add 0), 37 queries (no whole number of
+    queries per warp) and 3 heads; the C entry's count of the path taken
+    grows by one, the other's by none."""
+    D, dt, K, offset, path = GATHER_PATHS[case]
+    B, S, Lq, M = 2, 70, 37, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(D * K)
+    value = torch.randn((B, S, M, D), generator=gen,
+                        device=cuda_device).to(dt)
+    if offset:
+        value = offset_view(value)
+    idx = torch.randint(-5, S + 5, (B, Lq, M, K), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    w = torch.randn((B, Lq, M, K), generator=gen, device=cuda_device)
+    before = cg.kernel_paths()
+    got = cg.corner_gather(value, idx, w)
+    torch.cuda.synchronize()
+    after = cg.kernel_paths()
+    assert {k: after[k] - before[k] for k in after} == {
+        "vector": int(path == "vector"), "scalar": int(path == "scalar")}
+    assert got.dtype == dt and got.shape == (B, Lq, M, D)
+    rounded_close(got, cg.corner_gather_plain(value.float(), idx, w))
+
+
 # (spatial_shapes, B, Lq, P)
 SPARSE = {"one_level": (((9, 11),), 2, 131, 4),
           "four_levels": (((12, 16), (6, 8), (3, 4), (2, 2)), 1, 70, 2)}
@@ -766,6 +814,21 @@ FUSED = {"tile": ((1, 8, 16, 64), 64, 64), "odd": ((2, 149, 37, 64), 64, 64),
          "identity_first": ((1, 9, 30, 64), 64, 16)}
 
 
+# cases of K6's layer1 path (Cm = 64, Cout = 256): a tile count below the
+# SM count (4, and 45 with ragged borders), one above it that is no
+# multiple of the persistent grid (180 tiles), and W = 200 (the serve
+# width: the last tile column half outside) through the Cin = 256 blocks
+FUSED.update({"few_tiles": ((1, 16, 32, 64), 64, 64),
+              "ragged_45": ((3, 37, 45, 64), 64, 64),
+              "tiles_180": ((3, 75, 90, 64), 64, 64),
+              "w200": ((2, 21, 200, 64), 64, 64)})
+# the path the C entry reports for each case's three launches
+FUSED_PATHS = {"tile": "layer1", "odd": "layer1", "tiny": "layer1",
+               "narrow": "generic", "identity_first": "generic",
+               "few_tiles": "layer1", "ragged_45": "layer1",
+               "tiles_180": "layer1", "w200": "layer1"}
+
+
 @pytest.mark.parametrize("case", list(FUSED))
 def test_fused_bottleneck_kernel_matches_plain(cuda_device, case):
     """K6, one launch per block, against the plain fused stage on the same
@@ -780,6 +843,43 @@ def test_fused_bottleneck_kernel_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert fb.fused_bottleneck_stage.launches == before + 3
     assert got.dtype == torch.bfloat16 and got.shape == shape[:3] + (4 * cm,)
+    assert bool(torch.isfinite(got.float()).all())
+    k6_close(got, fb.fused_stage_plain(x, blks))
+
+
+@pytest.mark.parametrize("case", list(FUSED))
+def test_fused_bottleneck_kernel_paths(cuda_device, case):
+    """Each case's three launches take the path the C entry reports for
+    it, and agree with the plain stage."""
+    shape, cin, cm = FUSED[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.relu(torch.randn(shape, generator=gen,
+                               device=cuda_device)).bfloat16()
+    blks = random_blocks(gen, cin, cm, 3, cuda_device)
+    before = fb.kernel_paths()
+    got = fb.fused_bottleneck_stage(x, blks)
+    torch.cuda.synchronize()
+    after = fb.kernel_paths()
+    want = FUSED_PATHS[case]
+    assert {k: after[k] - before[k] for k in after} == {
+        "layer1": 3 * (want == "layer1"), "generic": 3 * (want == "generic")}
+    k6_close(got, fb.fused_stage_plain(x, blks))
+
+
+def test_fused_bottleneck_serve_shape_takes_the_layer1_path(cuda_device):
+    """Layer1 at the serve shape, (8, 152, 200, 64) bf16: three launches of
+    the layer1 path by the C entry's count, within K6's gate of the plain
+    stage."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.relu(torch.randn((8, 152, 200, 64), generator=gen,
+                               device=cuda_device)).bfloat16()
+    blks = random_blocks(gen, 64, 64, 3, cuda_device)
+    before = fb.kernel_paths()
+    got = fb.fused_bottleneck_stage(x, blks)
+    torch.cuda.synchronize()
+    after = fb.kernel_paths()
+    assert {k: after[k] - before[k] for k in after} == {"layer1": 3,
+                                                        "generic": 0}
     assert bool(torch.isfinite(got.float()).all())
     k6_close(got, fb.fused_stage_plain(x, blks))
 
