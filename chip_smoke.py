@@ -32,9 +32,11 @@ Phases, each on lines of its own:
    ``pallas`` and ``pallas_onehot`` forms) at the B=8 encoder shape and 4
    levels, with indices out of range, timed beside one
    ``F.embedding_bag``, with the path (vector or scalar kernel) its C
-   entry counted; K5a (``hat_sample_fwd`` with its level table,
-   ``ms_deform_attn_hat(sparse=True)``) at the encoder shape and 4 levels
-   with NaN queries; K5d/e, the tiled and separable entries, launching K1;
+   entry counted; K5a (``hat_sample_sparse_fwd``, the level-stacked
+   sampling of ``ms_deform_attn_hat(sparse=True)``) at the encoder shape
+   and 4 levels with NaN queries, with the path its C entry counted, timed
+   at the encoder shape beside ``F.grid_sample`` and at the 4 levels of a
+   608x800 frame; K5d/e, the tiled and separable entries, launching K1;
    K6 (``fused_bottleneck``, ResNet-50's layer1 in bf16, a launch per
    block) on the serve model's real layer1 input and at borders, with the
    path (layer1 or generic kernel) its C entry counted and each path's
@@ -928,28 +930,35 @@ def sparse_points(gen, shapes, B, Lq, M, P, nan_rows=0):
     return bm(torch.cat(pxs, -1)), bm(torch.cat(pys, -1)), bm(aw)
 
 
+# the strides 8-64 of a 608x800 frame, MSDA's 4 levels
+SPARSE_L4 = ((76, 100), (38, 50), (19, 25), (10, 13))
+
+
 def phase_hat_sparse_kernel():
-    """K5a (``csrc/hat_sample_fwd.cu`` with its level table) against the
-    plain version at the B=8 encoder shape and at 4 levels, f32 and bf16;
-    a query whose every point is NaN gives 0. The encoder shape through
-    ``ms_deform_attn_hat(sparse=True)`` with the count set to 0 just
-    before; times there in bf16."""
+    """K5a (``csrc/hat_sample_sparse_fwd.cu``) against the plain version at
+    the B=8 encoder shape (one level) and at 4 levels, f32 and bf16, each
+    on the vector path by its C entry's count; a query whose every point is
+    NaN gives 0. The encoder shape through ``ms_deform_attn_hat(sparse=
+    True)`` with the counts set to 0 just before. Times in bf16 at the
+    encoder shape, beside ``F.grid_sample`` and the weighted sum, and at
+    the 4 levels of a B=8 608x800 frame (``enc_l4``: S = Lq = 10105, PL =
+    16)."""
     from dfvod_tpu_torch.ops import hat_sample as hs
     from dfvod_tpu_torch.ops import msda_forms as mf
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = [(name, shapes, B, Lq, dt)
-             for name, shapes, B, Lq in (
-                 ("enc", ((38, 50),), BATCH, 1900),
-                 ("multi_l4", ((76, 100), (38, 50), (19, 25), (10, 13)), 2,
-                  300))
-             for dt in (torch.float32, torch.bfloat16)]
-    result = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("enc", ((38, 50),), BATCH, 1900, f32),
+             ("enc", ((38, 50),), BATCH, 1900, bf16),
+             ("multi_l4", SPARSE_L4, 2, 300, f32),
+             ("multi_l4", SPARSE_L4, 2, 300, bf16),
+             ("enc_l4", SPARSE_L4, BATCH, 10105, bf16)]
+    results = {}
     for name, shapes, B, Lq, dt in cases:
         S = sum(h * w for h, w in shapes)
         v = torch.randn((B * 8, S, 32), generator=gen, device="cuda").to(dt)
         px, py, aw = sparse_points(gen, shapes, B, Lq, 8, 4, nan_rows=3)
-        got = hs.hat_sample_sparse(v, shapes, px, py, aw)
-        torch.cuda.synchronize()
+        got, paths = path_counts(hs, lambda: hs.hat_sample_sparse(
+            v, shapes, px, py, aw))
         ref = hs.hat_sample_sparse_plain(v.float(), shapes, px, py, aw)
         ok, tol = hat_agrees(got, ref)
         ok &= bool((got[:, :3] == 0).all()) and bool(
@@ -958,38 +967,57 @@ def phase_hat_sparse_kernel():
         tag = str(dt).replace("torch.", "")
         print(f"[hat_sparse] {name:8s} {tag:8s} v={tuple(v.shape)} Lq={Lq} "
               f"PL={px.shape[-1]} max_abs_err={max_err:.3e} ({tol}; 3 NaN "
-              f"queries exactly 0) {'ok' if ok else 'FAIL'}", flush=True)
-        check(ok, f"hat_sample_fwd (levels) disagrees with its plain "
+              f"queries exactly 0) path {paths} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"hat_sample_sparse_fwd disagrees with its plain "
                   f"version: {name} {tag} max_abs_err {max_err}")
-        if name == "enc" and dt == torch.bfloat16:
+        check(paths in (None, {"vector": 1, "scalar": 0}),
+              f"hat_sample_sparse_fwd took the paths {paths} at {name} "
+              f"{tag}")
+        if dt != bf16 or name == "multi_l4":
+            continue
+        r = {"max_abs_err": max_err, "paths": paths,
+             "ms": cuda_ms(lambda: hs.hat_sample_sparse(
+                 v, shapes, px, py, aw), 50),
+             "plain_ms": cuda_ms(lambda: hs.hat_sample_sparse_plain(
+                 v, shapes, px, py, aw), 10),
+             "shape": f"BM={v.shape[0]} S={S} Lq={Lq} D=32 "
+                      f"PL={px.shape[-1]} L={len(shapes)}"}
+        r["bound_ms"], r["bound_by"] = bound(
+            nbytes(v, px, py, aw, got),
+            px.numel() * (HAT_OPS_PER_CHANNEL * 32 + HAT_OPS_PER_POINT))
+        entry = ""
+        if name == "enc":
+            # one level: F.grid_sample on the (BM, H, W, D) value
+            r["yardstick_ms"] = cuda_ms(lambda: grid_sample_hat(
+                v.view(B * 8, *shapes[0], 32), px, py, aw), 20)
             value, loc, attw = msda_inputs(
                 gen, shapes, BATCH, 1900, 8, 32, 4,
                 (torch.bfloat16, torch.float32, torch.bfloat16))
-            out, counts = counted(lambda: mf.ms_deform_attn_hat(
-                value, shapes, loc, attw, sparse=True))
+            (out, counts), entry_paths = path_counts(hs, lambda: counted(
+                lambda: mf.ms_deform_attn_hat(value, shapes, loc, attw,
+                                              sparse=True)))
             k1 = msda_plain_f32(value, shapes, loc, attw)
             entry_err = float((out.float() - k1).abs().max())
             check(counts == want_launches(hat_sample_sparse=1)
+                  and entry_paths in (None, {"vector": 1, "scalar": 0})
                   and entry_err <= 3e-2,
-                  f"ms_deform_attn_hat(sparse=True) launched {counts}, "
-                  f"max_abs_err {entry_err} against the per-level form")
-            r = {"max_abs_err": max_err, "launches": counts[
-                     "hat_sample_sparse"],
-                 "ms": cuda_ms(lambda: hs.hat_sample_sparse(
-                     v, shapes, px, py, aw), 50),
-                 "plain_ms": cuda_ms(lambda: hs.hat_sample_sparse_plain(
-                     v, shapes, px, py, aw), 10)}
-            r["bound_ms"], r["bound_by"] = bound(
-                nbytes(v, px, py, aw, got),
-                px.numel() * (HAT_OPS_PER_CHANNEL * 32 + HAT_OPS_PER_POINT))
-            result = r
-            print(f"[hat_sparse] encoder entry ms_deform_attn_hat(sparse=True"
-                  f") bf16: launches {counts}, max_abs_err {entry_err:.3e} "
-                  f"against the per-level plain form (atol 3e-2); time: "
-                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); card "
-                  f"{card_line()}", flush=True)
-    return result
+                  f"ms_deform_attn_hat(sparse=True) launched {counts} on "
+                  f"{entry_paths}, max_abs_err {entry_err} against the "
+                  f"per-level form")
+            r["launches"] = counts["hat_sample_sparse"]
+            entry = (f"entry ms_deform_attn_hat(sparse=True): launches "
+                     f"{counts}, path {entry_paths}, max_abs_err "
+                     f"{entry_err:.3e} against the per-level plain form "
+                     f"(atol 3e-2); grid_sample yardstick "
+                     f"{r['yardstick_ms']:.4f} ms, ")
+        results[name] = r
+        print(f"[hat_sparse] time {name} {r['shape']} bf16: {entry}kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{nbytes(v, px, py, aw, got) / 1e6:.1f} MB); card "
+              f"{card_line()}", flush=True)
+    return results
 
 
 def msda_plain_f32(value, shapes, loc, attw):
@@ -2056,7 +2084,7 @@ def phase_small_video_train_reference():
 
 
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
-           "corner_gather_fwd", "fused_bottleneck")
+           "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck")
 
 
 def ptxas_lines(log):
@@ -2239,17 +2267,23 @@ def main() -> int:
         "flat_paths": variants["flat"]["paths"]["corner_gather_fwd"],
         "serve_requests": per_request,
     }
+    sparse = kern_sparse["enc"]
     record_sparse = {
-        "name": "hat_sample_fwd/levels", "route": "cuda",
-        "source": "dfvod_tpu_torch/csrc/hat_sample_fwd.cu",
+        "name": "hat_sample_sparse_fwd", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/hat_sample_sparse_fwd.cu",
+        "kernel": "hat_sample_sparse_fwd_vec_kernel (scalar: "
+                  "hat_sample_levels_kernel)",
         "replaces": "dfvod_tpu/ops/msda_pallas.py:379",
-        **{k: kern_sparse[k] for k in ("launches", "max_abs_err", "ms",
-                                       "plain_ms", "bound_ms", "bound_by")},
-        # no single PyTorch call samples level-stacked grids
+        **{k: sparse[k] for k in ("launches", "paths", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "yardstick_ms")},
+        # no single PyTorch call samples level-stacked grids; at one level
+        # F.grid_sample and the weighted sum is a labelled yardstick
         "library_ms": None,
         "shape": "encoder BM=64 S=Lq=1900 D=32 PL=4, bf16 value, f32 points;"
                  " launches through ms_deform_attn_hat(sparse=True), which "
                  "no DFVOD_MSDA_IMPL reaches",
+        "enc_l4": kern_sparse["enc_l4"],
     }
     # the tiled and separable entries launch K1; their numbers are measured
     # through each entry, launches counted in the entry's own call
@@ -2295,7 +2329,8 @@ def main() -> int:
               record_bwd, record_bwd["decoder"], record_bwd["tdam_l5"],
               record_bwd["video_f32"], record_bwd["needs_ms"], record_hat,
               record_hat_bwd, *record_hat_bwd["other"].values(),
-              *new_records, train, clip, train_clips):
+              *new_records, record_sparse["enc_l4"], train, clip,
+              train_clips):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")

@@ -3,8 +3,8 @@ plain PyTorch version and its backward, and the wrappers of the
 hand-written CUDA kernels ``csrc/hat_sample_fwd.cu`` (K3) and
 ``csrc/hat_sample_bwd.cu`` (K4, its backward), joined as a
 ``torch.autograd.Function``. Also the same sampling over MSDA's levels
-stacked along y, ``hat_sample_sparse`` (K5a, the same source: K3's kernel
-at one level, a level loop of its scalar path at more).
+stacked along y, ``hat_sample_sparse``, and the wrapper of its kernel
+``csrc/hat_sample_sparse_fwd.cu`` (K5a).
 
 Counterpart of ``dfvod_tpu/ops/msda_pallas.py::hat_sample``,
 ``hat_sample_bwd``, ``hat_sample_vjp`` and ``hat_sample_sparse``. The
@@ -204,14 +204,16 @@ def _check_kernel_args(v, px, py, aw):
 
 @functools.lru_cache(maxsize=None)
 def _library(name: str):
-    """The loaded ``csrc/<name>.cu`` (``hat_sample_fwd`` or
-    ``hat_sample_bwd``) with its argument types set."""
+    """The loaded ``csrc/<name>.cu`` (``hat_sample_fwd``,
+    ``hat_sample_bwd`` or ``hat_sample_sparse_fwd``) with its argument
+    types set."""
     lib = build.load(name)
     fn = getattr(lib, name)
     fn.argtypes = {
-        "hat_sample_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int],
+        "hat_sample_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
         "hat_sample_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8,
+        "hat_sample_sparse_fwd": [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int],
     }[name] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
@@ -220,6 +222,9 @@ def _library(name: str):
     if name == "hat_sample_bwd":
         lib.hat_sample_bwd_tile_rows.restype = ctypes.c_int
         lib.hat_sample_bwd_merged_tiles.restype = ctypes.c_longlong
+    if name == "hat_sample_sparse_fwd":
+        lib.hat_sample_sparse_fwd_vector_launches.restype = ctypes.c_longlong
+        lib.hat_sample_sparse_fwd_scalar_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -231,37 +236,27 @@ def _raise_on(name: str, lib, rc: int):
                            + getattr(lib, f"{name}_error_string")(rc).decode())
 
 
-def _launch_fwd(v, px, py, aw, shapes, P):
-    """Launch ``csrc/hat_sample_fwd.cu`` on a flat (BM, S, D) value over
-    the stacked levels ``shapes``, P point columns each."""
+def hat_sample_cuda(value, px, py, aw, grid=None):
+    """Launch ``csrc/hat_sample_fwd.cu`` (K3) on CUDA tensors."""
+    v, (H, W) = _flat(value, grid)
     _check_kernel_args(v, px, py, aw)
-    BM, S, D = v.shape
+    BM, _, D = v.shape
     _, Lq, PL = px.shape
     lib = _library("hat_sample_fwd")
     out = torch.empty((BM, Lq, D), dtype=v.dtype, device=v.device)
-    table = (ctypes.c_int * (2 * len(shapes)))(
-        *[n for hw in shapes for n in hw])
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hat_sample_fwd(v.data_ptr(), px.data_ptr(), py.data_ptr(),
-                                aw.data_ptr(), out.data_ptr(), BM, S, D, Lq,
-                                len(shapes), P, table,
-                                _DTYPE_CODES[v.dtype], stream)
+                                aw.data_ptr(), out.data_ptr(), BM, H, W, D,
+                                Lq, PL, _DTYPE_CODES[v.dtype], stream)
     _raise_on("hat_sample_fwd", lib, rc)
-    return out
-
-
-def hat_sample_cuda(value, px, py, aw, grid=None):
-    """Launch ``csrc/hat_sample_fwd.cu`` (K3) on CUDA tensors: one level."""
-    v, (H, W) = _flat(value, grid)
-    out = _launch_fwd(v, px, py, aw, ((H, W),), px.shape[-1])
     hat_sample.launches += 1
     return out
 
 
 def hat_sample_sparse_cuda(v_bm, spatial_shapes, px, py, aw):
-    """Launch ``csrc/hat_sample_fwd.cu`` (K5a) on CUDA tensors over the
-    stacked levels. Refuses inputs that need a gradient: there is no
+    """Launch ``csrc/hat_sample_sparse_fwd.cu`` (K5a) on CUDA tensors over
+    the stacked levels. Refuses inputs that need a gradient: there is no
     backward kernel."""
     shapes, P = _level_stack(v_bm, spatial_shapes, px)
     if torch.is_grad_enabled() and any(
@@ -269,9 +264,33 @@ def hat_sample_sparse_cuda(v_bm, spatial_shapes, px, py, aw):
         raise RuntimeError("hat_sample_sparse has no backward kernel (nor "
                            "has the JAX function); MSDA's gradient goes "
                            "through ops.msda.ms_deform_attn")
-    out = _launch_fwd(v_bm, px, py, aw, shapes, P)
+    _check_kernel_args(v_bm, px, py, aw)
+    BM, S, D = v_bm.shape
+    _, Lq, _ = px.shape
+    lib = _library("hat_sample_sparse_fwd")
+    out = torch.empty((BM, Lq, D), dtype=v_bm.dtype, device=v_bm.device)
+    table = (ctypes.c_int * (2 * len(shapes)))(
+        *[n for hw in shapes for n in hw])
+    with torch.cuda.device(v_bm.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hat_sample_sparse_fwd(
+            v_bm.data_ptr(), px.data_ptr(), py.data_ptr(), aw.data_ptr(),
+            out.data_ptr(), BM, S, D, Lq, len(shapes), P, table,
+            _DTYPE_CODES[v_bm.dtype], stream)
+    _raise_on("hat_sample_sparse_fwd", lib, rc)
     hat_sample_sparse.launches += 1
     return out
+
+
+def kernel_paths():
+    """{"vector": n, "scalar": n}: the launches of each kernel of
+    ``csrc/hat_sample_sparse_fwd.cu`` (K5a) since it was loaded, as its C
+    entry counts them where it chooses the path (the vector kernel for rows
+    of whole 16-byte chunks, at most 32 of them, and 16-byte aligned value
+    and output)."""
+    lib = _library("hat_sample_sparse_fwd")
+    return {"vector": lib.hat_sample_sparse_fwd_vector_launches(),
+            "scalar": lib.hat_sample_sparse_fwd_scalar_launches()}
 
 
 def hat_sample_bwd_cuda(value, px, py, aw, grad_out, grid=None,
@@ -361,8 +380,8 @@ def hat_sample_sparse(v_bm, spatial_shapes, px, py, aw):
     """Weighted bilinear sampling over MSDA's levels stacked along y:
     v_bm ``(BM, S, D)``, px/py/aw ``(BM, Lq, L * P)`` f32 with py carrying
     the level offsets; returns ``(BM, Lq, D)``. The plain version for CPU
-    tensors, K5a (``csrc/hat_sample_fwd.cu`` with the level table) for CUDA
-    tensors; ``hat_sample_sparse.launches`` counts the launches."""
+    tensors, K5a (``csrc/hat_sample_sparse_fwd.cu``) for CUDA tensors;
+    ``hat_sample_sparse.launches`` counts the launches."""
     if v_bm.device.type == "cpu":
         return hat_sample_sparse_plain(v_bm, spatial_shapes, px, py, aw)
     if v_bm.device.type != "cuda":

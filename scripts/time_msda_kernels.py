@@ -1,7 +1,7 @@
 """Check and time the MSDA kernels K1 (``msda_fwd``) and K2 (``msda_bwd``),
 the RoIAlign sampling kernels K3 (``hat_sample_fwd``), K4
-(``hat_sample_bwd``) and K5a (``hat_sample_fwd`` with its level table),
-the folded-corner gather K5b/c (``corner_gather_fwd``) and the fused
+(``hat_sample_bwd``) and K5a (``hat_sample_sparse_fwd``), the
+folded-corner gather K5b/c (``corner_gather_fwd``) and the fused
 ResNet layer1 K6 (``fused_bottleneck``) of the PyTorch/CUDA port under
 ``--root`` (default: this checkout) on one NVIDIA GPU, with
 ``chip_smoke.py``'s own kernel phases: each kernel against its plain
@@ -10,10 +10,11 @@ the encoder, decoder, 5-level TDAM and all-outside shapes; K2 at the
 encoder, decoder, TDAM and f32 video shapes and by the gradients asked
 for; K3 at the QRF serve shape; K4 at the QRF training shape with real
 and uniform points, with and without point gradients; K5a at the encoder
-shape; K5b/c at the B=8 encoder shape in bf16 beside ``F.embedding_bag``;
-K6 on the serve model's layer1 input, 8 x 152 x 200 x 64 bf16, beside the
-unfused layer1). ``--phases`` takes a comma-separated subset of the groups
-``msda``, ``hat``, ``gather`` and ``bottleneck``; all four by default.
+shape and at 4 levels; K5b/c at the B=8 encoder shape in bf16 beside
+``F.embedding_bag``; K6 on the serve model's layer1 input, 8 x 152 x 200
+x 64 bf16, beside the unfused layer1). ``--phases`` takes a
+comma-separated subset of the groups ``msda``, ``hat``, ``gather`` and
+``bottleneck``; all four by default.
 
 To hold two commits against each other, unpack the other one with
 ``git archive`` into a git-ignored directory and run both in one call on
@@ -38,7 +39,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the kernel sources each group of phases builds
 PHASES = {"msda": ("msda_fwd", "msda_bwd"),
-          "hat": ("hat_sample_fwd", "hat_sample_bwd"),
+          "hat": ("hat_sample_fwd", "hat_sample_bwd",
+                  "hat_sample_sparse_fwd"),
           "gather": ("corner_gather_fwd",),
           "bottleneck": ("fused_bottleneck",)}
 
@@ -78,8 +80,12 @@ def main() -> int:
     card = smoke.card_line()
     print(f"[card] {card}; package {os.path.dirname(msda.__file__)}",
           flush=True)
+    # a tree older than a source (an older K5a was in hat_sample_fwd.cu)
+    # builds the sources it has
+    csrc = os.path.join(root, "dfvod_tpu_torch", "csrc")
     smoke.build_kernels(tuple(dict.fromkeys(
-        src for group in sorted(phases) for src in PHASES[group])))
+        src for group in sorted(phases) for src in PHASES[group]
+        if os.path.exists(os.path.join(csrc, f"{src}.cu")))))
 
     def times(results):
         return {k: {n: v for n, v in r.items()
@@ -94,8 +100,7 @@ def main() -> int:
     if "hat" in phases:
         out["hat_sample_fwd"] = times({"qrf": smoke.phase_hat_kernel()})
         out["hat_sample_bwd"] = times(smoke.phase_hat_bwd_kernel())
-        out["hat_sample_sparse"] = times(
-            {"enc": smoke.phase_hat_sparse_kernel()})
+        out["hat_sample_sparse"] = times(smoke.phase_hat_sparse_kernel())
     if "gather" in phases:
         out["corner_gather_fwd"] = times(
             {"enc": smoke.phase_corner_gather_kernel()})

@@ -670,17 +670,35 @@ def test_corner_gather_kernel_paths(cuda_device, case):
     rounded_close(got, cg.corner_gather_plain(value.float(), idx, w))
 
 
-# (spatial_shapes, B, Lq, P)
+# (spatial_shapes, B, Lq, P); one_level_p3: Lq = 37, which no number of
+# queries per warp divides, and 3 points per query, so a query's 4 slots
+# hold one idle
 SPARSE = {"one_level": (((9, 11),), 2, 131, 4),
+          "one_level_p3": (((9, 11),), 2, 37, 3),
           "four_levels": (((12, 16), (6, 8), (3, 4), (2, 2)), 1, 70, 2)}
+# D -> the path K5a's C entry takes for an (f32, bf16) value: the vector
+# kernel for rows of whole 16-byte chunks, at most 32 of them (D = 12 in
+# f32 is 3, a slot of 4 lanes with one idle; D = 40 is 10 in f32, 5 in
+# bf16; D = 256 in bf16 is 32, one point per warp, 8 or 16 rounds at four
+# levels x P = 2 or 4); the scalar kernel for D = 12 in bf16 (24 bytes)
+# and D = 256 in f32 (64 chunks)
+SPARSE_PATHS = {8: ("vector", "vector"), 12: ("vector", "scalar"),
+                32: ("vector", "vector"), 40: ("vector", "vector"),
+                256: ("scalar", "vector")}
 
 
-@pytest.mark.parametrize("D", [8, 40, 256])
+def sparse_path_delta(before, path):
+    after = hs.kernel_paths()
+    assert {k: after[k] - before[k] for k in after} == {
+        "vector": int(path == "vector"), "scalar": int(path == "scalar")}
+
+
+@pytest.mark.parametrize("D", list(SPARSE_PATHS))
 @pytest.mark.parametrize("case", list(SPARSE))
 def test_hat_sparse_kernel_matches_plain(cuda_device, case, D):
-    """K5a (K3's kernel at one level, the level loop at four) against its
-    plain version: each point on its own level, points outside it, a query
-    whose every point is NaN (exactly 0), f32 and bf16."""
+    """K5a against its plain version: each point on its own level, points
+    outside it, a query whose every point is NaN (exactly 0), f32 and bf16,
+    each on the path the table above names, as the C entry counts it."""
     shapes, B, Lq, P = SPARSE[case]
     L, S, M = len(shapes), sum(h * w for h, w in shapes), 2
     gen = torch.Generator(device=cuda_device).manual_seed(D)
@@ -688,13 +706,15 @@ def test_hat_sparse_kernel_matches_plain(cuda_device, case, D):
                      device=cuda_device) * 1.6 - 0.3
     loc[:, :2] = float("nan")
     attw = torch.rand((B, Lq, M, L, P), generator=gen, device=cuda_device)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, path in zip((torch.float32, torch.bfloat16), SPARSE_PATHS[D]):
         value = torch.randn((B, S, M, D), generator=gen,
                             device=cuda_device).to(dt)
         before = hs.hat_sample_sparse.launches
+        paths = hs.kernel_paths()
         got = mf.ms_deform_attn_hat(value, shapes, loc, attw, sparse=True)
         torch.cuda.synchronize()
         assert hs.hat_sample_sparse.launches == before + 1
+        sparse_path_delta(paths, path)
         assert got.dtype == dt and got.shape == (B, Lq, M * D)
         assert bool((got[:, :2] == 0).all())
         ref = mf.ms_deform_attn_hat(value.float().cpu(), shapes, loc.cpu(),
@@ -706,6 +726,34 @@ def test_hat_sparse_kernel_matches_plain(cuda_device, case, D):
         torch.testing.assert_close(
             got[:, 2:].float(), k1[:, 2:], atol=5e-5,
             rtol=1e-5 if dt == torch.float32 else 2.0 ** -8)
+
+
+@pytest.mark.parametrize("case", list(SPARSE))
+def test_hat_sparse_kernel_unaligned_value_takes_the_scalar_path(
+        cuda_device, case):
+    """K5a on a contiguous value one element past a 16-byte boundary, D =
+    32: the scalar kernel, in f32 and bf16, against the plain version."""
+    shapes, B, Lq, P = SPARSE[case]
+    L, S, BM, D = len(shapes), sum(h * w for h, w in shapes), 2 * B, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(L * P)
+    loc = torch.rand((BM, Lq, L, P, 2), generator=gen,
+                     device=cuda_device) * 1.6 - 0.3
+    pxs, pys, yo = [], [], 0.0
+    for lvl, (h, w) in enumerate(shapes):
+        pxs.append(loc[:, :, lvl, :, 0] * w - 0.5)
+        pys.append(loc[:, :, lvl, :, 1] * h - 0.5 + yo)
+        yo += h + 2.0
+    px, py = torch.cat(pxs, -1), torch.cat(pys, -1)
+    aw = torch.rand((BM, Lq, L * P), generator=gen, device=cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        value = offset_view(torch.randn((BM, S, D), generator=gen,
+                                        device=cuda_device).to(dt))
+        paths = hs.kernel_paths()
+        got = hs.hat_sample_sparse(value, shapes, px, py, aw)
+        torch.cuda.synchronize()
+        sparse_path_delta(paths, "scalar")
+        rounded_close(got.cpu(), hs.hat_sample_sparse_plain(
+            value.float().cpu(), shapes, px.cpu(), py.cpu(), aw.cpu()))
 
 
 @pytest.mark.parametrize("impl", [None, *msda.IMPLS])

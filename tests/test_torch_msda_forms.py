@@ -10,8 +10,9 @@ names.
 - K5a: ``hat_sample_sparse`` through ``ms_deform_attn_hat(sparse=True)``
   against ``ms_deform_attn_pallas_hat(sparse=True)``, with S not a multiple
   of the 256-token chunk, Lq not a multiple of the 128-query block, points
-  outside their level but within its support, and a query block of NaN
-  points; and the two known differences of the JAX kernel (ROADMAP Queue
+  outside their level but within its support, 3 levels of P = 3 at D = 40
+  (the shapes where the card kernel's slot layout matters), and a query
+  block of NaN points; and the two known differences of the JAX kernel (ROADMAP Queue
   3), where the port equals ``ms_deform_attn_xla``;
 - K5d/e: the tiled and separable entries against ``_hat_tiled`` and
   ``_hat_sep``;
@@ -52,6 +53,10 @@ CASES = {
     # S = 351, not a multiple of the 256-token chunk; Lq = 133, not a
     # multiple of the 128-query block
     "chunk_pad": (((13, 27),), 1, 133, 2, 8, 4),
+    # where the layout of K5a's vector kernel matters: PL = 9, no power of
+    # two (a query's slots hold idle ones), D = 40 (5 16-byte chunks in
+    # bf16, 10 in f32) and Lq = 37, which no queries per warp divide
+    "three_level_p3_d40": (((7, 9), (4, 5), (2, 3)), 1, 37, 2, 40, 3),
 }
 
 
@@ -157,6 +162,22 @@ def test_hat_sparse_at_the_edges_of_each_level():
     assert_close(got, jm.ms_deform_attn_xla(jnp.asarray(v), shapes,
                                             *jj(loc, attw)),
                  atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("edges", [False, True],
+                         ids=["inside", "own_level_edges"])
+def test_hat_sparse_matches_jax_where_the_slot_layout_matters(edges):
+    """K5a's plain version against ``ms_deform_attn_pallas_hat(sparse=
+    True)`` at 3 levels, P = 3 and D = 40, with a third of the points at
+    or past the edges of their own level or not; on the card the kernel is
+    held against this plain version (``tests/test_torch_cuda.py``)."""
+    shapes, v, loc, attw = make_inputs("three_level_p3_d40", seed=15)
+    if edges:
+        loc = own_level_edges(shapes, loc)
+    ref = jax_sparse(jnp.asarray(v), shapes, *jj(loc, attw))
+    got = mf.ms_deform_attn_hat(*tt(v), shapes, *tt(loc, attw), sparse=True)
+    assert got.shape == ref.shape
+    assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_hat_sparse_all_nan_query_block_gives_zero():
