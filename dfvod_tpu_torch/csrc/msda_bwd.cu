@@ -64,18 +64,25 @@
 // - The scalar kernel (one warp per (b, q, m), a channel per lane, f32
 //   scalar atomics) takes rows that are no whole number of 16-byte chunks
 //   or more than 32 of them, and base pointers that are not 16-byte
-//   aligned; the entry chooses.
+//   aligned; the entry chooses and counts each kernel's launches
+//   (msda_bwd_vector_launches, msda_bwd_scalar_launches).
 // Measured before this design: 0.1814-0.1823 ms at the B=6 encoder shape in
 // the training mix, one warp per (b, q, m) with a channel per lane and
 // scalar atomics (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Plain C interface, loaded with ctypes; see dfvod_tpu_torch/ops/msda.py.
 
+#include <atomic>
+
 #include "msda_common.cuh"
 
 using namespace msda;
 
 namespace {
+
+// Launches of each kernel (vector, scalar) since the library was loaded,
+// counted where the entry chooses.
+std::atomic<long long> vector_launches{0}, scalar_launches{0};
 
 // value (B, S, M, D); loc (B, Lq, M, L, P, 2) in (x, y) order;
 // attw (B, Lq, M, L, P); go (B, Lq, M, D); grad_value (B, S, M, D) f32;
@@ -317,6 +324,7 @@ int launch(const void* value, const void* loc, const void* attw,
     const V* g = static_cast<const V*>(go);
     C* gl = static_cast<C*>(grad_loc);
     A* ga = static_cast<A*>(grad_attw);
+    ++(vec ? vector_launches : scalar_launches);
     if (!vec)
       msda_bwd_kernel<V, C, A><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
           v, c, a, g, grad_value_f32, gl, ga, S, M, D, Lq, P, lv);
@@ -401,3 +409,7 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attw,
 extern "C" const char* msda_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Launches of each kernel since the library was loaded.
+extern "C" long long msda_bwd_vector_launches() { return vector_launches; }
+extern "C" long long msda_bwd_scalar_launches() { return scalar_launches; }

@@ -46,18 +46,26 @@
 //   NaN or infinite included, adds nothing.
 // - The scalar kernel (one warp per (b, q, m), a channel per lane) takes
 //   rows that are no whole number of 16-byte chunks or more than 32 of them,
-//   and base pointers that are not 16-byte aligned; the entry chooses.
+//   and base pointers that are not 16-byte aligned; the entry chooses and
+//   counts each kernel's launches (msda_fwd_vector_launches,
+//   msda_fwd_scalar_launches).
 // Measured before this design: 0.0988-0.0992 ms at the B=8 encoder shape in
 // the serving mix, one warp per (b, q, m) with a channel per lane
 // (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Plain C interface, loaded with ctypes; see dfvod_tpu_torch/ops/msda.py.
 
+#include <atomic>
+
 #include "msda_common.cuh"
 
 using namespace msda;
 
 namespace {
+
+// Launches of each kernel (vector, scalar) since the library was loaded,
+// counted where the entry chooses.
+std::atomic<long long> vector_launches{0}, scalar_launches{0};
 
 // value (B, S, M, D); loc (B, Lq, M, L, P, 2) in (x, y) order;
 // attw (B, Lq, M, L, P); out (B, Lq, M, D). All contiguous; value and out
@@ -184,12 +192,15 @@ int launch(const void* value, const void* loc, const void* attw, void* out,
     const C* c = static_cast<const C*>(loc);
     const A* a = static_cast<const A*>(attw);
     V* o = static_cast<V*>(out);
-    if (vec)
+    if (vec) {
       msda_fwd_vec_kernel<V, C, A><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
           v, c, a, o, S, M, D, Lq, P, lv, sl);
-    else
+      ++vector_launches;
+    } else {
       msda_fwd_kernel<V, C, A><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
           v, c, a, o, S, M, D, Lq, P, lv);
+      ++scalar_launches;
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -241,3 +252,7 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
 extern "C" const char* msda_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Launches of each kernel since the library was loaded.
+extern "C" long long msda_fwd_vector_launches() { return vector_launches; }
+extern "C" long long msda_fwd_scalar_launches() { return scalar_launches; }

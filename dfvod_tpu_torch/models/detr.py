@@ -1,7 +1,13 @@
 """DeformableDETR, the single-frame RGB-D detection model (counterpart of
-``dfvod_tpu/models/detr.py``), for Baseline (ResNet-50 RGB only) and
-LateFusion (ResNet-50 + DFormer depth stem, one depth cross-attention before
-the encoder).
+``dfvod_tpu/models/detr.py``), with the fusion routing of the JAX model:
+
+- Baseline             : ResNet-50 RGB only
+- LateFusion           : ResNet-50 + DFormer depth stem; one depth
+                         cross-attention before the encoder
+- Backbone_CrossFusion : ``CrossFusionBackbone`` (fusion between the conv
+                         stages); no depth input to the transformer
+- Encoder_CrossFusion  : ResNet-50 + DFormer; fusion layers after the
+                         first four encoder layers
 
 Inputs are channels-last ``(B, H, W, 4)`` RGB-D (or ``(B, H, W, 3)`` RGB)
 with a ``(B, H, W)`` padding mask, True = pad.
@@ -11,6 +17,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
+from dfvod_tpu_torch.models.backbone_crossfusion import CrossFusionBackbone
 from dfvod_tpu_torch.models.backbone_dformer import DFormerBackbone
 from dfvod_tpu_torch.models.backbone_resnet import ResNet50, downsample_mask
 from dfvod_tpu_torch.models.position_encoding import (
@@ -45,10 +52,17 @@ class DeformableDETR(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         d = cfg.hidden_dim
-        self.backbone = ResNet50(dilation=cfg.dilation,
-                                 return_stages=cfg.backbone_stages)
-        self.late_fusion = cfg.fusion_type == "LateFusion"
-        if self.late_fusion:
+        self.cross_fusion_backbone = cfg.fusion_type == "Backbone_CrossFusion"
+        # the transformer's depth input: LateFusion and Encoder_CrossFusion
+        self.depth_tokens = cfg.transformer_fusion != "none"
+        if self.cross_fusion_backbone:
+            self.backbone = CrossFusionBackbone(
+                d_model=d, dilation=cfg.dilation,
+                return_stages=cfg.backbone_stages, dropout=cfg.dropout)
+        else:
+            self.backbone = ResNet50(dilation=cfg.dilation,
+                                     return_stages=cfg.backbone_stages)
+        if self.depth_tokens:
             self.depth_backbone = DFormerBackbone()
             self.input_proj_depth_0 = InputProj(DFORMER_CHANNELS, d)
         for i, stage in enumerate(cfg.backbone_stages):
@@ -76,16 +90,21 @@ class DeformableDETR(nn.Module):
         if images.shape[-1] != channels:
             raise ValueError(f"{cfg.fusion_type} takes {channels}-channel "
                              f"images, not {images.shape[-1]}")
-        stage_outs = self.backbone(images[..., :3])
-        feats = [stage_outs[s] for s in cfg.backbone_stages]
-        masks = [downsample_mask(mask, tuple(f.shape[1:3])) for f in feats]
+        if self.cross_fusion_backbone:
+            feats, masks, _, _ = self.backbone(images[..., :3],
+                                               images[..., 3:4], mask)
+        else:
+            stage_outs = self.backbone(images[..., :3])
+            feats = [stage_outs[s] for s in cfg.backbone_stages]
+            masks = [downsample_mask(mask, tuple(f.shape[1:3]))
+                     for f in feats]
         srcs = [getattr(self, f"input_proj_{i}")(f)
                 for i, f in enumerate(feats)]
         pos = [sine_position_embedding(~m, cfg.hidden_dim // 2)
                for m in masks]
 
         depth_feats = depth_masks = depth_pos = None
-        if self.late_fusion:
+        if self.depth_tokens:
             dfeat, dmask = self.depth_backbone(images[..., 3:4], mask)
             depth_feats = [self.input_proj_depth_0(dfeat)]
             depth_masks = [dmask]

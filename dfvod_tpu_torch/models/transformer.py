@@ -1,5 +1,6 @@
-"""Deformable-DETR transformer trunk with the LateFusion adapter
-(counterpart of ``dfvod_tpu/models/transformer.py``).
+"""Deformable-DETR transformer trunk with the LateFusion and
+Encoder-CrossFusion adapters (counterpart of
+``dfvod_tpu/models/transformer.py``).
 
 - encoder: self-MSDeformAttn layers
 - decoder: MHA self-attn + cross-MSDeformAttn layers with iterative box
@@ -7,10 +8,14 @@
   weights
 - LateFusion: one depth cross-attention layer over the flattened RGB tokens
   before the encoder, residual add
+- Encoder-CrossFusion: a depth cross-attention layer ``fusion_layers_{i}``
+  after each of the first ``num_enc_fusion_layers`` encoder layers,
+  residual add (Backbone-CrossFusion fuses in the backbone,
+  ``models/backbone_crossfusion.py``, and takes ``fusion="none"`` here)
 
 Tokens are ``(B, S, C)``; ``spatial_shapes`` is a Python tuple. Single-stage
-only: the two-stage proposal path and the Encoder-CrossFusion layers wait
-for a later slice (``utils/config.check_supported``).
+only: the two-stage proposal path waits for a later slice
+(``utils/config.check_supported``).
 """
 from __future__ import annotations
 
@@ -191,20 +196,25 @@ def refine_reference(deltas, reference):
 
 
 class DeformableTransformer(nn.Module):
-    """Full single-stage trunk. ``fusion``: 'none' | 'late'."""
+    """Full single-stage trunk. ``fusion``: 'none' | 'late' |
+    'encoder_cf'."""
 
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024,
                  activation="relu", num_feature_levels=4, dec_n_points=4,
                  enc_n_points=4, num_queries=300, with_box_refine=False,
                  num_classes=3, fusion="none", dpth_n_points=4,
-                 dpth_feature_levels=1, dropout=0.1):
+                 dpth_feature_levels=1, dropout=0.1,
+                 num_enc_fusion_layers=4):
         super().__init__()
-        if fusion not in ("none", "late"):
-            raise NotImplementedError(
-                f"fusion={fusion!r} waits for the other-fusion-modes slice")
+        if fusion not in ("none", "late", "encoder_cf"):
+            raise ValueError(f"fusion={fusion!r} not in 'none', 'late', "
+                             "'encoder_cf'")
         self.fusion = fusion
         self.num_encoder_layers = num_encoder_layers
+        self.num_enc_fusion_layers = (
+            min(num_enc_fusion_layers, num_encoder_layers)
+            if fusion == "encoder_cf" else 0)
         self.num_decoder_layers = num_decoder_layers
         self.with_box_refine = with_box_refine
         self.level_embed = nn.Parameter(
@@ -222,6 +232,10 @@ class DeformableTransformer(nn.Module):
                                 d_model, dim_feedforward, activation,
                                 num_feature_levels, n_heads, enc_n_points,
                                 dropout))
+        for i in range(self.num_enc_fusion_layers):
+            self.add_module(f"fusion_layers_{i}", DepthFusionLayer(
+                d_model, dpth_feature_levels, n_heads, enc_n_points,
+                dropout=dropout))
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layers_{i}",
                             DeformableTransformerDecoderLayer(
@@ -254,20 +268,38 @@ class DeformableTransformer(nn.Module):
         ref_points_enc = encoder_reference_points(spatial_shapes,
                                                   valid_ratios)
 
-        if self.fusion == "late":
+        if self.fusion != "none":
             if depth_srcs is None:
-                raise ValueError("LateFusion needs depth features")
+                raise ValueError(f"fusion={self.fusion!r} needs depth "
+                                 "features")
             # depth has no level embedding
-            depth_flat, depth_mask_flat, depth_pos_flat, depth_shapes = (
-                flatten_levels(depth_srcs, depth_masks, depth_pos_embeds))
+            depth_flat, depth_mask_flat, _, depth_shapes = flatten_levels(
+                depth_srcs, depth_masks, depth_pos_embeds)
+        if self.fusion == "late":
             src_flat = src_flat + self.depth_encoder_layer(
                 src_flat, pos_flat, ref_points_enc, depth_flat,
                 depth_shapes, depth_mask_flat)
 
         output = src_flat
+        if self.num_enc_fusion_layers:
+            # the JAX package's rule: where the RGB and depth token grids
+            # coincide (one level at the same stride, as in the recipes),
+            # each fusion layer reads the previous fusion layer's output
+            # under the RGB mask; otherwise every one reads the depth
+            # tokens under the depth mask
+            same_tokens = mask_flat.shape[1] == depth_mask_flat.shape[1]
+            fusion_src = depth_flat
+            fusion_mask = mask_flat if same_tokens else depth_mask_flat
         for i in range(self.num_encoder_layers):
             output = getattr(self, f"encoder_layers_{i}")(
                 output, pos_flat, ref_points_enc, spatial_shapes, mask_flat)
+            if i < self.num_enc_fusion_layers:
+                fused = getattr(self, f"fusion_layers_{i}")(
+                    output, pos_flat, ref_points_enc, fusion_src,
+                    depth_shapes, fusion_mask)
+                if same_tokens:
+                    fusion_src = fused
+                output = output + fused
         memory = output
 
         # query_embed splits as (query_pos, tgt)

@@ -163,7 +163,20 @@ def _library(name: str):
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    for path in ("vector", "scalar"):
+        getattr(lib, f"{name}_{path}_launches").restype = ctypes.c_longlong
     return lib
+
+
+def kernel_paths(name: str = "msda_fwd"):
+    """{"vector": n, "scalar": n}: the launches of each kernel of
+    ``csrc/<name>.cu`` (``msda_fwd``, K1, or ``msda_bwd``, K2) since it was
+    loaded, as its C entry counts them where it chooses the kernel (the
+    vector one for rows of whole 16-byte chunks, at most 32 of them, and
+    16-byte aligned pointers)."""
+    lib = _library(name)
+    return {path: getattr(lib, f"{name}_{path}_launches")()
+            for path in ("vector", "scalar")}
 
 
 def _raise_on(name: str, lib, rc: int):

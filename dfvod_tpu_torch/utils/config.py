@@ -69,6 +69,9 @@ class ModelConfig:
                              f"{TEMPORAL_MODES}")
         if self.fusion_type != "Baseline":
             object.__setattr__(self, "use_depth", True)
+        if self.masks and self.fusion_type == "Backbone_CrossFusion":
+            raise ValueError("the mask head needs the raw backbone stage "
+                             "outputs, which Backbone_CrossFusion fuses")
 
     @property
     def transformer_fusion(self) -> str:
@@ -188,9 +191,6 @@ def check_supported(m: ModelConfig, training: bool = False) -> None:
     if training and m.remat:
         waits.append("remat=True waits for the next training slice "
                      "(activation recompute)")
-    if m.fusion_type not in ("Baseline", "LateFusion"):
-        waits.append(f"fusion_type={m.fusion_type!r} waits for the "
-                     "other-fusion-modes slice")
     if m.two_stage:
         waits.append("two_stage=True waits for the other-fusion-modes "
                      "slice (two-stage proposals)")

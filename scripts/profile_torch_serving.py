@@ -35,7 +35,15 @@ events into the trunk (all 5 frames), the QRF (RoIAlign with K3, and its
 RCNNHead) and the 3 temporal rounds (query layers, decoders, heads), and
 the backward holds K2 and K4.
 
+``--fusion Encoder_CrossFusion`` or ``--fusion Backbone_CrossFusion``
+serves (or, with ``--train``, trains in f32, as their recipes do) that
+mode's full-width model in place of LateFusion; the layer groups follow
+the mode (the encoder's fusion layers, or the fused backbone with its
+three fusion sites counted apart). Every profiler window also counts the
+device copy kernels per request or step.
+
     python3 scripts/profile_torch_serving.py [--requests 3]
+    python3 scripts/profile_torch_serving.py --fusion Backbone_CrossFusion
     python3 scripts/profile_torch_serving.py --clips [--requests 3]
     python3 scripts/profile_torch_serving.py --train [--requests 3]
     python3 scripts/profile_torch_serving.py --train-clips [--requests 3]
@@ -68,16 +76,38 @@ def layer_groups(model):
                                    for i in (0, 1, 2)]})
         return groups
     t = model.transformer
-    groups = {"backbone (ResNet-50 DC5)": [model.backbone],
-              "depth backbone (DFormer)": [model.depth_backbone],
-              "input projections": [model.input_proj_0,
-                                    model.input_proj_depth_0],
-              "LateFusion depth layer": [t.depth_encoder_layer],
-              "encoder (6 layers)": [getattr(t, f"encoder_layers_{i}")
-                                     for i in range(t.num_encoder_layers)],
-              "decoder (6 layers)": [getattr(t, f"decoder_layers_{i}")
-                                     for i in range(t.num_decoder_layers)]}
+    fused = model.cfg.fusion_type == "Backbone_CrossFusion"
+    groups = {}
+    if fused:
+        from dfvod_tpu_torch.models.backbone_crossfusion import FUSION_STAGES
+        b = model.backbone
+        groups["backbone (ResNet-50 DC5, depth path, fusion sites)"] = [b]
+        # nested in the backbone: reported, not added to the total
+        groups[f"{SUBSET}fusion sites (3)"] = [
+            getattr(b, f"{n}{s}") for s in FUSION_STAGES
+            for n in ("input_rgb_proj", "input_d_proj", "d2r_fusion",
+                      "output_rgb_proj")]
+    else:
+        groups["backbone (ResNet-50 DC5)"] = [model.backbone]
+    if hasattr(model, "depth_backbone"):
+        groups["depth backbone (DFormer)"] = [model.depth_backbone]
+    groups["input projections"] = [
+        m for n, m in model.named_children() if n.startswith("input_proj")]
+    if hasattr(t, "depth_encoder_layer"):
+        groups["LateFusion depth layer"] = [t.depth_encoder_layer]
+    if t.num_enc_fusion_layers:
+        groups[f"encoder fusion layers ({t.num_enc_fusion_layers})"] = [
+            getattr(t, f"fusion_layers_{i}")
+            for i in range(t.num_enc_fusion_layers)]
+    groups["encoder (6 layers)"] = [getattr(t, f"encoder_layers_{i}")
+                                    for i in range(t.num_encoder_layers)]
+    groups["decoder (6 layers)"] = [getattr(t, f"decoder_layers_{i}")
+                                    for i in range(t.num_decoder_layers)]
     return groups
+
+
+# the prefix of a group nested in another one
+SUBSET = "  of which "
 
 
 def hook_events(groups):
@@ -142,6 +172,10 @@ def profiler_window(fn, n, label):
           f"{busy_ms:.3f} ms; device busy {100 * busy_ms / wall_ms:.1f}%, "
           f"idle {100 - 100 * busy_ms / wall_ms:.1f}% (profiler on)",
           flush=True)
+    copies = [e for e in kernels if "copy" in e.key.lower()]
+    print(f"[prof] copy kernels "
+          f"{sum(device_time_us(e, True) for e in copies) / 1e3 / n:.3f} ms"
+          f" per {label} (x{sum(e.count for e in copies) // n})", flush=True)
     for name in ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd"):
         us = sum(device_time_us(e, True) for e in kernels if name in e.key)
         calls = sum(e.count for e in kernels if name in e.key)
@@ -185,7 +219,7 @@ def timed_roi_align(pairs):
     return roi_align
 
 
-def profile_train(cs, n, clips=False):
+def profile_train(cs, n, clips=False, fusion="LateFusion"):
     """The training breakdown (module docstring, ``--train`` and
     ``--train-clips``)."""
     from dfvod_tpu_torch.models import build_model, criterion as crit_mod
@@ -198,9 +232,11 @@ def profile_train(cs, n, clips=False):
         cfg = cs.video_train_cfg()
         batch = cs.clip_train_batch(0)
     else:
+        # LateFusion_bf16.sh; the other modes' recipes train in f32
         cfg = Config.from_flat(
-            fusion_type="LateFusion", dropout=0.2, lr=1e-5,
-            weight_decay=2e-5, clip_max_norm=0.1, train_dtype="bfloat16")
+            fusion_type=fusion, dropout=0.2, lr=1e-5,
+            weight_decay=2e-5, clip_max_norm=0.1,
+            train_dtype="bfloat16" if fusion == "LateFusion" else "float32")
         batch = cs.train_batch(0)
     model, criterion, _ = build_model(cfg, device="cpu", seed=0)
     model = cs.randomize(model, seed=1).to("cuda")
@@ -300,7 +336,14 @@ def main() -> int:
     mode.add_argument("--train-clips", action="store_true",
                       help="profile the TransVOD++ train step (1 clip x 5 "
                            "frames, f32)")
+    ap.add_argument("--fusion", default="LateFusion",
+                    choices=("LateFusion", "Encoder_CrossFusion",
+                             "Backbone_CrossFusion"),
+                    help="the single-frame model's fusion mode (serving "
+                         "and --train)")
     args = ap.parse_args()
+    if args.fusion != "LateFusion" and (args.clips or args.train_clips):
+        ap.error("--fusion applies to single-frame serving and --train")
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device", file=sys.stderr)
         return 1
@@ -308,7 +351,8 @@ def main() -> int:
     import chip_smoke as cs
     print(f"[card] {cs.card_line()}; torch {torch.__version__}", flush=True)
     if args.train or args.train_clips:
-        return profile_train(cs, args.requests, clips=args.train_clips)
+        return profile_train(cs, args.requests, clips=args.train_clips,
+                             fusion=args.fusion)
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.models import temporal
     from dfvod_tpu_torch.serve import Server
@@ -320,7 +364,7 @@ def main() -> int:
                                        num_ref_frames=cs.CLIP_FRAMES - 1))
         x, s = (t.to("cuda") for t in cs.clip_frames(0))
     else:
-        cfg = Config(model=ModelConfig(fusion_type="LateFusion"))
+        cfg = Config(model=ModelConfig(fusion_type=args.fusion))
         x, s = (t.to("cuda") for t in cs.frames(0))
     ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
     cs.randomize(ref_model, seed=1)
@@ -357,7 +401,8 @@ def main() -> int:
     accounted = 0.0
     for name, evs in pairs.items():
         ms = sum(a.elapsed_time(b) for a, b in evs) / n
-        accounted += ms
+        if not name.startswith(SUBSET):
+            accounted += ms
         print(f"[layer] {name:28s} {ms:8.3f} ms {100 * ms / total:5.1f}%",
               flush=True)
     print(f"[layer] {'other (norm, sine, heads, post)':28s} "

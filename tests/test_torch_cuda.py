@@ -10,7 +10,10 @@ TransVOD++ train steps on the card against the same on the CPU. Then the
 opt-in forms: the folded-corner gather (K5b/c), the level-stacked sampling
 (K5a) and the fused ResNet layer1 (K6) against their plain versions, the
 ``impl`` dispatch's launches per form, and the K5b/c + K2 gradient against
-the CPU's. They skip without a CUDA device. This file imports neither JAX
+the CPU's. Last, the other two fusion modes: K1 and K2 at a copy of
+Backbone_CrossFusion's stage-2 geometry on their vector kernels, and small
+Encoder_CrossFusion and Backbone_CrossFusion models and train steps on the
+card against the CPU. They skip without a CUDA device. This file imports neither JAX
 nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -972,3 +975,151 @@ def test_resnet50_fused_layer1_on_the_card(cuda_device):
     for s in (1, 2):
         err = float((got[s].float().cpu() - want[s]).norm() / want[s].norm())
         assert err < 3e-2, (s, err)
+
+
+# ------------------------------------------------ the other fusion modes
+# Backbone_CrossFusion's stage-2 fusion site at 608x800 has 76x100 RGB
+# queries onto a 152x200 depth map: a copy at a quarter of each side, the
+# query grid at half the value grid's resolution (Lq:S = 1:4)
+CF_STAGE2 = (((38, 50),), 2, 19 * 25, 8, 32, 4)
+FUSION_LAUNCHES = {"Encoder_CrossFusion": 2 + 2 + 2,
+                   "Backbone_CrossFusion": 3 + 2 + 2}
+
+
+def paths_delta(name, fn):
+    """(fn(), {"vector": n, "scalar": n}): the launches of each kernel of
+    ``csrc/<name>.cu`` during ``fn``, as its C entry counts them."""
+    before = msda.kernel_paths(name)
+    out = fn()
+    torch.cuda.synchronize()
+    after = msda.kernel_paths(name)
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def stage2_inputs(device, dtypes):
+    shapes, B, Lq, M, D, P = CF_STAGE2
+    gen = torch.Generator(device=device).manual_seed(5)
+    S = shapes[0][0] * shapes[0][1]
+    value = torch.randn((B, S, M, D), generator=gen, device=device)
+    loc = torch.rand((B, Lq, M, 1, P, 2), generator=gen,
+                     device=device) * 1.2 - 0.1
+    attw = torch.randn((B, Lq, M, P), generator=gen,
+                       device=device).softmax(-1).reshape(B, Lq, M, 1, P)
+    go = torch.randn((B, Lq, M * D), generator=gen, device=device)
+    vdt, ldt, adt = dtypes
+    return shapes, value.to(vdt), loc.to(ldt), attw.to(adt), go.to(vdt)
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16_serving"])
+def test_kernel_at_crossfusion_stage2_geometry(cuda_device, dtypes):
+    """K1 on the stage-2 geometry (CF_STAGE2) takes its vector kernel and
+    agrees with the plain version: f32 atol/rtol 1e-5, bf16 atol 3e-2."""
+    shapes, value, loc, attw, _ = stage2_inputs(cuda_device, DTYPES[dtypes])
+    got, paths = paths_delta("msda_fwd", lambda: msda.ms_deform_attn(
+        value, shapes, loc, attw))
+    assert paths == {"vector": 1, "scalar": 0}
+    ref = msda.ms_deform_attn_plain(value.float(), shapes, loc.float(),
+                                    attw.float())
+    if value.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref, atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16_training"])
+def test_bwd_kernel_at_crossfusion_stage2_geometry(cuda_device, dtypes):
+    """K2 on the stage-2 geometry (CF_STAGE2), all three gradients, takes
+    its vector kernel and agrees with the plain backward: f32 atol/rtol
+    1e-4, bf16 atol 3e-2 / rtol 2e-2."""
+    shapes, value, loc, attw, go = stage2_inputs(cuda_device,
+                                                 DTYPES[dtypes])
+    got, paths = paths_delta("msda_bwd", lambda: msda.ms_deform_attn_bwd(
+        value, shapes, loc, attw, go))
+    assert paths == {"vector": 1, "scalar": 0}
+    ref = msda.ms_deform_attn_plain_bwd(value.float(), shapes, loc.float(),
+                                        attw.float(), go.float())
+    atol, rtol = ((1e-4, 1e-4) if value.dtype == torch.float32
+                  else (3e-2, 2e-2))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r, atol=atol, rtol=rtol)
+
+
+def fusion_models(mode, device):
+    cfg = Config(model=ModelConfig(**dict(SMALL, fusion_type=mode)))
+    cpu_model, criterion, _ = build_model(cfg, device="cpu", seed=3)
+    gpu_model, _, _ = build_model(cfg, device=device, seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    return cfg, cpu_model, gpu_model, criterion
+
+
+@pytest.mark.parametrize("mode", list(FUSION_LAUNCHES))
+def test_small_fusion_model_card_matches_cpu(cuda_device, mode):
+    """A small model of each mode on the card against the same weights on
+    the CPU, f32, padded input: atol 1e-4 / rtol 1e-3, TF32 off; K1 runs
+    once per MSDA layer (2 + 2 + 2 with Encoder_CrossFusion's 2 fusion
+    layers, 3 + 2 + 2 with Backbone_CrossFusion's 3 fusion sites)."""
+    _, cpu_model, gpu_model, _ = fusion_models(mode, cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (2, 96, 128, 4), generator=gen,
+                      dtype=torch.uint8)
+    sizes = torch.tensor([[96, 128], [60, 84]])
+    before = msda.ms_deform_attn.launches
+    with torch.no_grad():
+        ref = cpu_model(*device_normalize(x, sizes))
+        got = gpu_model(*device_normalize(x.to(cuda_device),
+                                          sizes.to(cuda_device)))
+    assert msda.ms_deform_attn.launches == before + FUSION_LAUNCHES[mode]
+    for k in ("pred_logits", "pred_boxes"):
+        torch.testing.assert_close(got[k].cpu(), ref[k], atol=1e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("mode", list(FUSION_LAUNCHES))
+def test_small_fusion_train_step_card_matches_cpu(cuda_device, mode):
+    """One train-step loss and every gradient of a small model of each
+    mode, card against CPU, f32, dropout 0, padded frames. Loss and
+    components atol 1e-5 / rtol 1e-4; gradients atol 1e-4 / rtol 1e-3,
+    except Backbone_CrossFusion's backbone (the ResNet-50, depth path and
+    fusion sites, which train): within 1e-2 in relative L2 norm, as
+    ``chip_smoke.py`` holds a training trunk, since its ReLUs make the
+    gradients ill-conditioned. K1 and K2 launch once per MSDA layer."""
+    cfg, cpu_model, gpu_model, criterion = fusion_models(mode, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    B, T = 2, 8
+    valid = torch.arange(T)[None] < torch.tensor([[3], [5]])
+    batch = {"images": torch.randint(0, 256, (B, 96, 128, 4), generator=gen,
+                                     dtype=torch.uint8),
+             "sizes": torch.tensor([[96, 128], [60, 84]]),
+             "labels": torch.randint(0, 2, (B, T), generator=gen),
+             "boxes": torch.cat([torch.rand((B, T, 2), generator=gen) * 0.6
+                                 + 0.2, torch.rand((B, T, 2), generator=gen)
+                                 * 0.3 + 0.05], -1),
+             "valid": valid}
+    results = []
+    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda_device)):
+        state = create_train_state(model, cfg)
+        loss, parts = criterion(*forward(
+            state, {k: v.to(dev) for k, v in batch.items()}))
+        loss.backward()
+        results.append(({"loss": loss.detach(), **parts},
+                        {n: p.grad for n, p in model.named_parameters()
+                         if p.grad is not None}))
+    n = FUSION_LAUNCHES[mode]
+    assert msda.ms_deform_attn.launches == fwd + n
+    assert msda.ms_deform_attn_bwd.launches == bwd + n
+    (ref_parts, ref_grads), (parts, grads) = results
+    for k, r in ref_parts.items():
+        torch.testing.assert_close(parts[k].detach().cpu(), r.detach(),
+                                   atol=1e-5, rtol=1e-4)
+    assert grads.keys() == ref_grads.keys()
+    trunk = mode == "Backbone_CrossFusion"
+    assert trunk == ("backbone.conv1.weight" in grads)
+    for name, r in ref_grads.items():
+        g = grads[name].cpu()
+        if trunk and name.startswith("backbone."):
+            rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+            assert rel <= 1e-2 or float((g - r).abs().max()) <= 1e-4, (
+                name, rel)
+        else:
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-3)

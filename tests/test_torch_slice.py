@@ -128,8 +128,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 UNSUPPORTED = [
-    (dict(fusion_type="Encoder_CrossFusion"), "fusion"),
-    (dict(fusion_type="Backbone_CrossFusion"), "fusion"),
     (dict(temporal_mode="transvod_pp", remat=True), "training slice"),
     (dict(two_stage=True), "two-stage"),
     (dict(masks=True), "segmentation"),
@@ -137,6 +135,16 @@ UNSUPPORTED = [
     (dict(fusion_type="LateFusion", depth_backbone_type="resnet18"),
      "research"),
 ]
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["serve", "train"])
+@pytest.mark.parametrize("fusion", ["Encoder_CrossFusion",
+                                    "Backbone_CrossFusion"])
+def test_other_fusion_modes_are_supported(fusion, training):
+    """The paper's other two fusion modes serve and train
+    (``tests/test_torch_fusion_modes.py`` and
+    ``tests/test_torch_fusion_train.py`` hold them against flax)."""
+    check_supported(ModelConfig(fusion_type=fusion), training=training)
 
 
 @pytest.mark.parametrize("kw,slice_name", UNSUPPORTED)

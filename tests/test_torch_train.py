@@ -244,7 +244,7 @@ def port_cfg(fusion, **train):
 @functools.lru_cache(maxsize=None)
 def _flax_init(fusion, seed):
     model = j_build_model(jax_cfg(fusion))[0]
-    imgs, sizes = make_frames(4 if fusion == "LateFusion" else 3)
+    imgs, sizes = make_frames(3 if fusion == "Baseline" else 4)
     x, mask = j_normalize(jnp.asarray(imgs), jnp.asarray(sizes))
     variables = random_variables(
         lambda: model.init(jax.random.PRNGKey(0), x, mask, train=False),
@@ -266,7 +266,9 @@ def port_model(fusion, variables):
 
 # --------------------------------------------------------------- optimizer
 @pytest.mark.parametrize("sgd", [False, True], ids=["adamw", "sgd"])
-@pytest.mark.parametrize("fusion", ["LateFusion", "Baseline"])
+@pytest.mark.parametrize("fusion", ["LateFusion", "Baseline",
+                                    "Encoder_CrossFusion",
+                                    "Backbone_CrossFusion"])
 def test_optimizer_matches_optax(fusion, sgd):
     """Three steps on the same given gradients: the port's grouped
     optimizer against the optax chain of ``build_optimizer``. The labels
@@ -290,7 +292,7 @@ def test_optimizer_matches_optax(fusion, sgd):
         want_labels[key] = lab
     assert state.labels == want_labels
     frozen = {k for k, lab in want_labels.items() if lab == "frozen"}
-    assert bool(frozen) == (fusion == "LateFusion")
+    assert bool(frozen) == (fusion in ("LateFusion", "Encoder_CrossFusion"))
     assert all(not p.requires_grad
                for k, p in model.named_parameters() if k in frozen)
 

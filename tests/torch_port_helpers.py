@@ -55,3 +55,14 @@ def flat_params(tree):
         key, val = port_key("params", tuple(k.key for k in kp), np.asarray(v))
         out[key] = val
     return out
+
+
+def make_frames(channels, seed=0, B=2, H=96, W=128):
+    """uint8 frames padded bottom/right: image 1 keeps a 60 x 84 block."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (B, H, W, channels), dtype=np.uint8)
+    sizes = np.array([[H, W], [60, 84]][:B])
+    for i, (h, w) in enumerate(sizes):
+        imgs[i, h:] = 0
+        imgs[i, :, w:] = 0
+    return imgs, sizes
