@@ -90,10 +90,26 @@ Phases, each on lines of its own:
    BN statistics moved); each full-width model freed before the next;
    then the bidirectional ``CrossFusionBackbone`` alone, card against CPU
    (6 K1 launches);
-9. the card line, JSON lines of the train, video-train, clip-serve,
-   serve-variant and fusion-mode phases, a JSON line of the kernels and
-   the serving path, and the final line ``{"ok": true, "device":
-   {...}}``.
+9. evaluation, checkpoints, reference weights and remat: an oracle
+   detector whose outputs encode the ground truth of
+   ``datasets/synth_rgbd/coco/annotations/val.json`` through ``evaluate``
+   on the card (single frames and 5-frame clips, mAP 1.0); the serve
+   configuration in f32 evaluated over val.json's 60 images at 608x800
+   (13 K1 per batch of 8) and the TransVOD++ model over 2 clips x 5
+   frames per batch (16 K1 + 1 K3 per batch), with ms per image and the
+   evaluator's host ms; a small model's evaluation card vs CPU; the
+   ``LateFusion_bf16.sh`` state at B=6 saved, restored into a state from
+   another seed and stepped beside the unbroken one, then restored
+   weights only, with the file's size and save and load ms; the
+   reference's LateFusion model (``tests/torch_ref.py``) converted into
+   the port, small against the replica within atol 1e-4 / rtol 1e-3 and
+   at full width within the serve gate; a small remat step against the
+   plain one, then the ``LateFusion_bf16.sh`` step with ``remat=True``
+   (19 K1 + 13 K2 per step) and its peak memory below the plain step's;
+10. the card line, JSON lines of the train, video-train, clip-serve,
+   serve-variant, fusion-mode and evaluation/checkpoint phases, a JSON
+   line of the kernels and the serving path, and the final line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -1780,14 +1796,9 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16"):
     trains."""
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.train import create_train_state, train_step
-    from dfvod_tpu_torch.utils.config import Config
 
     tag = TRAIN_TAGS[fusion]
-    cfg = Config.from_flat(
-        fusion_type=fusion, num_classes=3, num_queries=300,
-        num_feature_levels=1, dilation=True, with_box_refine=True,
-        dropout=0.2, lr=1e-5, weight_decay=2e-5, clip_max_norm=0.1,
-        epochs=20, train_dtype=train_dtype)
+    cfg = train_cfg(fusion, train_dtype)
     m = cfg.model
     print(f"[{tag}] {fusion} hidden={m.hidden_dim} heads={m.nheads} "
           f"enc={m.enc_layers} dec={m.dec_layers} queries={m.num_queries} "
@@ -2344,6 +2355,553 @@ def phase_fusion_modes(serve_requests=3, train_steps=3):
     return results
 
 
+# ------------------------- evaluation, checkpoints, reference weights, remat
+VAL_JSON = os.path.join(REPO, "datasets", "synth_rgbd", "coco", "annotations",
+                        "val.json")
+# the eval resize of val.json's 256x320 images (short side 600), padded to
+# the serve shape
+EVAL_CONTENT = (600, 750)
+EVAL_BATCH = 8
+EVAL_CLIPS = 2
+
+
+def eval_ref_ids(coco, img_id, num_ref_frames):
+    """The eval reference frames of ``img_id``: a copy of the eval branch
+    of ``dfvod_tpu/data/dataset.py::CocoVideoDataset._ref_ids``
+    (``vid_multi.py:108-125``: one-sided strided sampling,
+    ``filter_key_img`` on), which the port's data slice has not brought
+    over yet."""
+    video_id = coco.imgs[img_id].get("video_id", -1)
+    if video_id == -1:
+        return [img_id] * num_ref_frames
+    img_ids = coco.get_img_ids_from_vid(video_id)
+    interval = max(len(img_ids) // 16, 1)
+    left_index = (img_id - img_ids[0]) // interval
+    if left_index < num_ref_frames:
+        refs = [min(img_id + (i + 1) * interval, img_ids[-1])
+                for i in range(num_ref_frames)]
+    else:
+        refs = [max(img_id - (i + 1) * interval, img_ids[0])
+                for i in range(num_ref_frames)]
+    if img_id in refs:
+        refs.remove(img_id)
+    while 0 < len(refs) < num_ref_frames:
+        refs.extend(refs)
+    return refs[:num_ref_frames] or [img_id] * num_ref_frames
+
+
+def eval_frame(coco, img_id, size, content):
+    """A seeded uint8 RGB-D frame for ``img_id``, ``content`` (h, w) of it
+    filled and the rest padded; its first pixel carries the image's index
+    in ``coco.getImgIds()`` (low byte in channel 0, high byte in 1) for
+    ``OracleDetector``."""
+    gen = torch.Generator().manual_seed(int(img_id))
+    img = torch.randint(0, 256, (*size, 4), generator=gen, dtype=torch.uint8)
+    img[content[0]:] = 0
+    img[:, content[1]:] = 0
+    index = coco.getImgIds().index(img_id)
+    img[0, 0, 0], img[0, 0, 1] = index % 256, index // 256
+    return img
+
+
+def eval_batches(coco, img_ids=None, batch=EVAL_BATCH, frames=1,
+                 size=(H, W), content=EVAL_CONTENT):
+    """The evaluation batches of ``evaluate`` over ``img_ids`` (default:
+    every image of ``coco``), ``batch`` key images each, the last padded
+    with repeated ids from the first: uint8 frames, content sizes, the
+    original sizes and ids. With ``frames`` > 1 every key frame is
+    followed by its ``frames - 1`` eval reference frames."""
+    ids = list(coco.getImgIds() if img_ids is None else img_ids)
+    groups = [ids[k:k + batch] for k in range(0, len(ids), batch)]
+    groups[-1] = groups[-1] + ids[:batch - len(groups[-1])]
+    for group in groups:
+        rows = [r for i in group
+                for r in [i, *(eval_ref_ids(coco, i, frames - 1)
+                               if frames > 1 else [])]]
+        yield {"images": torch.stack([eval_frame(coco, r, size, content)
+                                      for r in rows]),
+               "sizes": torch.tensor([content] * len(rows)),
+               "orig_size": torch.tensor([[coco.imgs[r]["height"],
+                                           coco.imgs[r]["width"]]
+                                          for r in rows]),
+               "image_id": torch.tensor(rows)}
+
+
+class OracleDetector(torch.nn.Module):
+    """A detector whose outputs encode a COCO file's ground truth: for the
+    image whose index ``eval_frame`` wrote into a key frame's first pixel,
+    one query per ground-truth box (its normalized cxcywh box, logit +8 at
+    its category) and logit -8 elsewhere. Through ``evaluate`` it must
+    score mAP 1.0, which holds postprocess, the original sizes and the key
+    rows to account. ``frames``: rows per prediction, key frame first."""
+
+    def __init__(self, coco, frames=1, num_queries=8, num_classes=3):
+        super().__init__()
+        from dfvod_tpu_torch.data.transforms import RGB_MEAN, RGB_STD
+        ids = coco.getImgIds()
+        logits = torch.full((len(ids), num_queries, num_classes), -8.0)
+        boxes = torch.tensor([0.05, 0.05, 0.02, 0.02]).repeat(
+            len(ids), num_queries, 1)
+        for i, img_id in enumerate(ids):
+            h, w = coco.imgs[img_id]["height"], coco.imgs[img_id]["width"]
+            for q, a in enumerate(coco.imgToAnns[img_id]):
+                x, y, bw, bh = a["bbox"]
+                boxes[i, q] = torch.tensor([(x + bw / 2) / w, (y + bh / 2) / h,
+                                            bw / w, bh / h])
+                logits[i, q, a["category_id"]] = 8.0
+        self.register_buffer("table_logits", logits)
+        self.register_buffer("table_boxes", boxes)
+        self.register_buffer("mean", torch.from_numpy(RGB_MEAN[:2]))
+        self.register_buffer("std", torch.from_numpy(RGB_STD[:2]))
+        # eval_forward reads the device and dtype of a parameter
+        self.scale = torch.nn.Parameter(torch.ones(()))
+        self.frames = frames
+
+    def forward(self, images, mask):
+        key = images[::self.frames, 0, 0, :2] * self.std + self.mean
+        code = torch.round(key * 255).long()
+        index = code[:, 0] + 256 * code[:, 1]
+        return {"pred_logits": self.table_logits[index] * self.scale,
+                "pred_boxes": self.table_boxes[index]}
+
+
+def timed_batches(batches, marks):
+    """``batches``, appending the host clock to ``marks`` once they run
+    out: after the last batch's postprocess and update."""
+    yield from batches
+    marks.append(time.perf_counter())
+
+
+def phase_eval_oracle():
+    """``OracleDetector`` on the card through ``evaluate``: single frames
+    (60 images, 8 per batch, the last padded) and 5-frame clips; both must
+    give mAP == mAP_50 == 1.0."""
+    from dfvod_tpu_torch.data.coco import CocoVID
+    from dfvod_tpu_torch.train.evaluate import evaluate
+    coco = CocoVID(VAL_JSON)
+    results = {}
+    for frames, batch in ((1, EVAL_BATCH), (CLIP_FRAMES, EVAL_CLIPS)):
+        oracle = OracleDetector(coco, frames).cuda()
+        stats = evaluate(oracle, [{k: v.cuda() for k, v in b.items()}
+                                  for b in eval_batches(
+                                      coco, batch=batch, frames=frames,
+                                      size=(64, 96), content=(60, 75))],
+                         coco, frames=frames, print_freq=0)
+        print(f"[eval-oracle] frames={frames}: mAP {stats['mAP']:.6f} "
+              f"mAP_50 {stats['mAP_50']:.6f} (must be 1)", flush=True)
+        check(stats["mAP"] == stats["mAP_50"] == 1.0,
+              f"the oracle scored {stats} with frames={frames}")
+        results[f"frames_{frames}"] = stats["mAP"]
+    return results
+
+
+def eval_full_width(cfg, coco, batches, frames, want, tag):
+    """``evaluate`` of the f32 model of ``cfg`` (seeded, ``randomize``d)
+    over ``batches`` on the card: launches, stats, and times (forward and
+    postprocess per image, then accumulate + summarize on the host)."""
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train.evaluate import evaluate
+    model, _, _ = build_model(cfg, device="cpu", seed=0)
+    model = randomize(model, seed=1).to("cuda")
+    batches = [{k: v.to("cuda") for k, v in b.items()} for b in batches]
+    n_images = sum(b["image_id"].shape[0] // frames for b in batches)
+    evaluate(model, batches[:1], coco, frames=frames, print_freq=0)  # warm
+    torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    stats, launches = counted(lambda: evaluate(
+        model, timed_batches(batches, marks), coco, frames=frames,
+        print_freq=0))
+    marks.append(time.perf_counter())
+    check(launches == want_launches(**{k: v * len(batches)
+                                       for k, v in want.items()}),
+          f"{tag}: {len(batches)} batches launched {launches}, not {want} "
+          f"per batch")
+    check(all(math.isfinite(v) and -1.0 <= v <= 1.0 for v in stats.values()),
+          f"{tag}: stats {stats}")
+    fwd_ms = 1e3 * (marks[1] - marks[0]) / n_images
+    host_ms = 1e3 * (marks[2] - marks[1])
+    print(f"[{tag}] {len(batches)} batches, {n_images} images: launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({want} per batch);"
+          f" ms per image (forward + postprocess + update) {fwd_ms:.3f}; "
+          f"accumulate + summarize {host_ms:.1f} ms (host); stats "
+          f"{ {k: round(v, 6) for k, v in stats.items()} }", flush=True)
+    del model
+    free_card()
+    return {"batches": len(batches), "images": n_images,
+            "launches": {k: v for k, v in launches.items() if v},
+            "ms_per_image": fwd_ms, "accumulate_summarize_ms": host_ms,
+            "stats": stats}
+
+
+def phase_eval_full():
+    """The serve configuration (LateFusion, hidden 256, 8 heads, 6+6 layers,
+    300 queries, DC5, box refinement) in f32, as the JAX package
+    evaluates, over val.json's 60 images at 608x800 (600x750 content) in
+    batches of 8: 13 K1 per batch. Then the TransVOD++ model of
+    ``TransVOD++_withdepth.sh`` on 2 clips x 5 frames per batch over the
+    first four videos' frames: 16 K1 and 1 K3 per batch."""
+    from dfvod_tpu_torch.data.coco import CocoVID
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    coco = CocoVID(VAL_JSON)
+    single = eval_full_width(
+        Config(model=ModelConfig(fusion_type="LateFusion")), coco,
+        list(eval_batches(coco)), 1, {"msda_fwd": 13}, "eval")
+    ids = [i for v in coco.get_vid_ids()[:4]
+           for i in coco.get_img_ids_from_vid(v)]
+    clips = eval_full_width(
+        Config(model=ModelConfig(fusion_type="LateFusion",
+                                 temporal_mode="transvod_pp",
+                                 num_ref_frames=CLIP_FRAMES - 1)),
+        coco, list(eval_batches(coco, ids, batch=EVAL_CLIPS,
+                                frames=CLIP_FRAMES)),
+        CLIP_FRAMES, {"msda_fwd": 16, "hat_sample_fwd": 1}, "eval-clips")
+    return {"single": single, "clips": clips}
+
+
+def phase_eval_card_vs_cpu():
+    """A small LateFusion model's ``eval_forward`` and ``evaluate`` on the
+    card and on the CPU over val.json's first 16 images at 96x128 (90x112
+    content; the other 44 count as missed): logits
+    and boxes of every batch within atol 1e-4 / rtol 1e-3; the stats'
+    largest difference is printed."""
+    from dfvod_tpu_torch.data.coco import COCO
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train.evaluate import eval_forward, evaluate
+    coco = COCO(VAL_JSON)
+    cpu_model, _, _ = build_model(small_cfg(), device="cpu", seed=3)
+    randomize(cpu_model, seed=4)
+    gpu_model, _, _ = build_model(small_cfg(), device="cuda", seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    batches = list(eval_batches(coco, coco.getImgIds()[:2 * EVAL_BATCH],
+                                size=(96, 128), content=(90, 112)))
+    worst = 0.0
+    for b in batches:
+        ref = eval_forward(cpu_model, b["images"], b["sizes"])
+        got = eval_forward(gpu_model, b["images"].cuda(), b["sizes"].cuda())
+        for g, r in zip(got, ref):
+            err = (g.cpu() - r).abs()
+            worst = max(worst, float(err.max()))
+            check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
+                  f"small eval forward: card vs cpu max_abs_err "
+                  f"{float(err.max()):.3e}")
+    stats_cpu = evaluate(cpu_model, batches, coco, print_freq=0)
+    stats_gpu = evaluate(gpu_model, batches, coco, print_freq=0)
+    diff = max(abs(stats_gpu[k] - stats_cpu[k]) for k in stats_cpu)
+    print(f"[eval-small] card vs cpu over {len(batches)} batches: logits and"
+          f" boxes max_abs_err {worst:.3e} (atol 1e-4 rtol 1e-3) ok; stats "
+          f"largest difference {diff:.3e} (mAP {stats_gpu['mAP']:.6f} vs "
+          f"{stats_cpu['mAP']:.6f})", flush=True)
+    return {"max_abs_err": worst, "stats_max_diff": diff}
+
+
+def train_cfg(fusion="LateFusion", train_dtype="bfloat16", **kw):
+    """The recipe of configs/training/LateFusion_bf16.sh (or, by
+    ``fusion``, Encoder_CrossFusion.sh / Backbone_CrossFusion.sh) in
+    ``train_dtype``."""
+    from dfvod_tpu_torch.utils.config import Config
+    return Config.from_flat(
+        fusion_type=fusion, num_classes=3, num_queries=300,
+        num_feature_levels=1, dilation=True, with_box_refine=True,
+        dropout=0.2, lr=1e-5, weight_decay=2e-5, clip_max_norm=0.1,
+        epochs=20, train_dtype=train_dtype, **kw)
+
+
+def params_agree(got, ref, lrs, tag):
+    """Every entry of two state dicts after one more step from equal
+    weights and optimizer state: within atol 1e-4 / rtol 1e-3 (the card's
+    gradient gate), or within twice Adam's largest step, 2.01 times the
+    learning rate ``lrs[key]`` of its group. At this step, Adam's step
+    m/sqrt(v) is at most 1.0014 of the rate, and where K2's summation
+    order flips the sign of a gradient at noise level, the two runs step
+    the entry in opposite directions. Returns (the largest error, the
+    entries held by the second bound)."""
+    worst, flipped = 0.0, 0
+    for k, r in ref.items():
+        err = (got[k].float() - r.float()).abs()
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        close = err <= 1e-4 + 1e-3 * r.float().abs()
+        flipped += int((~close).sum())
+        check(bool((close | (err <= 2.01 * lrs.get(k, 0.0))).all()),
+              f"{tag}: {k} max_abs_err {float(err.max()):.3e}")
+    return worst, flipped
+
+
+def phase_checkpoints():
+    """``LateFusion_bf16.sh`` at B=6 608x800: one step, ``save_checkpoint``,
+    a train state from another seed restored with ``weights_only=False``
+    (weights, optimizer, step and dropout generator bitwise), then one
+    more step on both: loss within atol 1e-5 / rtol 1e-4, every parameter
+    within the card's gradient gate or twice Adam's step (``params_agree``:
+    K2's atomics make two runs differ by summation order). Then
+    ``weights_only=True``: the weights bitwise, the
+    optimizer fresh. Prints the file's size and the save and load times."""
+    import tempfile
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train import create_train_state, train_step
+    from dfvod_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    cfg = train_cfg()
+    other = train_cfg(seed=cfg.train.seed + 1)
+    batches = [{k: v.to("cuda") for k, v in train_batch(seed).items()}
+               for seed in (20, 21)]
+
+    def fresh(c, seed):
+        model, criterion, _ = build_model(c, device="cpu", seed=seed)
+        model = randomize(model, seed=seed + 1).to("cuda")
+        return create_train_state(model, c, steps_per_epoch=1000), criterion
+
+    state, criterion = fresh(cfg, 0)
+    train_step(state, criterion, batches[0])
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(out, state, 0)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        resumed, _ = fresh(other, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(out, resumed, weights_only=False)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+        check(all(torch.equal(v, saved[k]) for k, v in
+                  resumed.model.state_dict().items())
+              and resumed.step == state.step == 1
+              and torch.equal(resumed.generator.get_state(),
+                              state.generator.get_state()),
+              "the restored state differs from the saved one")
+        a = train_step(state, criterion, batches[1])["loss"]
+        b = train_step(resumed, criterion, batches[1])["loss"]
+        loss_err = abs(float(a) - float(b))
+        check(loss_err <= 1e-5 + 1e-4 * abs(float(a)),
+              f"resumed step loss {float(b)} vs {float(a)}")
+        lrs = {n: g["lr"] for g in state.optimizer.param_groups
+               for n, p in state.model.named_parameters()
+               if any(p is q for q in g["params"])}
+        worst, flipped = params_agree(resumed.model.state_dict(),
+                                      state.model.state_dict(), lrs,
+                                      "resumed step")
+        del resumed
+        weights, _ = fresh(other, 7)
+        load_checkpoint(out, weights)
+        check(all(torch.equal(v, saved[k]) for k, v in
+                  weights.model.state_dict().items()),
+              "weights_only=True: the weights differ from the saved ones")
+        check(weights.step == 0 and not weights.optimizer.state,
+              "weights_only=True restored the optimizer")
+    del state, weights
+    free_card()
+    print(f"[ckpt] LateFusion_bf16 B={TRAIN_BATCH}: checkpoint "
+          f"{size / 2**20:.1f} MiB, save {save_ms:.1f} ms, load "
+          f"{load_ms:.1f} ms; resumed step loss {float(b):.6f} vs unbroken "
+          f"{float(a):.6f} (err {loss_err:.3e}, atol 1e-5 rtol 1e-4); "
+          f"parameters max_abs_err {worst:.3e} (atol 1e-4 rtol 1e-3, or "
+          f"2.01 lr: {flipped} entries); weights_only=True bitwise, "
+          f"optimizer fresh", flush=True)
+    return {"size_mib": size / 2**20, "save_ms": save_ms, "load_ms": load_ms,
+            "resumed_loss_err": loss_err, "resumed_param_max_err": worst,
+            "resumed_param_adam_flips": flipped}
+
+
+def reference_pair(dims, cfg, seed):
+    """``tests/torch_ref.py``'s LateFusion replica of the reference, built
+    on the card with random weights, and the port model of ``cfg`` loaded
+    through the reference converter."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_ref import TorchDeformableDETR
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.utils.checkpoint import merge_matching
+    from dfvod_tpu_torch.utils.convert_reference import (
+        convert_reference_state_dict,
+    )
+    torch.manual_seed(seed)
+    # the replica makes its constants with factory calls and no device
+    with torch.device("cuda"):
+        tm = TorchDeformableDETR(
+            with_box_refine=True, two_stage=False, dilation=True,
+            depth_type="DepthDeform_latefusion_dformer", **dims).eval()
+        tm.randomize()
+    state, unmapped = convert_reference_state_dict(tm.state_dict(),
+                                                   verbose=False)
+    model, _, _ = build_model(cfg, device="cuda", seed=seed)
+    merged, report = merge_matching(model.state_dict(), state, verbose=False)
+    # the reference's DFormer path holds a fourth stage its forward never
+    # runs; the port builds none
+    check(not unmapped and not report["missing"]
+          and not report["shape_mismatch"]
+          and all(".stage3_" in k for k in report["unexpected"]),
+          f"reference conversion: unmapped {unmapped[:4]}, {report}")
+    model.load_state_dict(merged)
+    return tm, model.eval()
+
+
+def reference_outputs(tm, model, x, s):
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    img, mask = device_normalize(x.cuda(), s.cuda())
+    with torch.no_grad():
+        with torch.device("cuda"):
+            ref = tm(img.permute(0, 3, 1, 2).contiguous(), mask)
+        got, launches = counted(lambda: model(img, mask))
+    return ref, got, launches
+
+
+def phase_reference_weights():
+    """The reference's LateFusion model (``tests/torch_ref.py``, its MSDA the
+    reference's ``F.grid_sample`` oracle) on the card, converted into the
+    port (K1). Small (``test_full_model_parity.py``'s dims, 96x128, one
+    padded image): logits, boxes and every aux output within atol 1e-4 /
+    rtol 1e-3. Full width (the serve configuration, B=2 608x800, one
+    padded), f32, TF32 off: the errors printed, the boxes within the serve
+    gate."""
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    small = dict(num_classes=3, num_queries=12, d_model=64, nhead=4,
+                 enc_layers=2, dec_layers=2, dim_feedforward=128)
+    cfg = small_cfg(dropout=0.0)
+    tm, model = reference_pair(small, cfg, seed=0)
+    x, s = frames(8, B=2)
+    x, s = x[:, :96, :128].contiguous(), torch.tensor([[96, 128], [60, 84]])
+    ref, got, launches = reference_outputs(tm, model, x, s)
+    check(launches == want_launches(msda_fwd=5),
+          f"the small converted model launched {launches}")
+    worst = 0.0
+    heads = [("final", got, ref), *((f"aux{i}", g, r) for i, (g, r) in
+                                    enumerate(zip(got["aux_outputs"],
+                                                  ref["aux_outputs"])))]
+    for tag, g, r in heads:
+        for k in ("pred_logits", "pred_boxes"):
+            err = (g[k] - r[k]).abs()
+            worst = max(worst, float(err.max()))
+            check(bool((err <= 1e-4 + 1e-3 * r[k].abs()).all()),
+                  f"converted small model vs the replica, {tag} {k}: "
+                  f"max_abs_err {float(err.max()):.3e}")
+    print(f"[ref-weights] small LateFusion, port (K1) vs replica "
+          f"(grid_sample), {len(heads)} heads: max_abs_err {worst:.3e} (atol "
+          f"1e-4 rtol 1e-3) ok", flush=True)
+    del tm, model
+    full = dict(num_classes=3, num_queries=300, d_model=256, nhead=8,
+                enc_layers=6, dec_layers=6, dim_feedforward=1024)
+    tm, model = reference_pair(
+        full, Config(model=ModelConfig(fusion_type="LateFusion",
+                                       dropout=0.0)), seed=1)
+    x, s = frames(9, B=2)
+    ref, got, launches = reference_outputs(tm, model, x, s)
+    check(launches == want_launches(msda_fwd=13),
+          f"the full-width converted model launched {launches}")
+    errs = {k: (got[k] - ref[k]).abs() for k in ("pred_logits",
+                                                 "pred_boxes")}
+    reading = {f"{k}_{f}": float(getattr(e, f)()) for k, e in errs.items()
+               for f in ("max", "mean")}
+    print(f"[ref-weights] full-width LateFusion B=2 {H}x{W} f32, port (K1) "
+          f"vs replica (grid_sample): logits max "
+          f"{reading['pred_logits_max']:.3e} mean "
+          f"{reading['pred_logits_mean']:.3e}, boxes max "
+          f"{reading['pred_boxes_max']:.3e} mean "
+          f"{reading['pred_boxes_mean']:.3e} (gate max {BOX_MAX_TOL}, mean "
+          f"{BOX_MEAN_TOL})", flush=True)
+    check(reading["pred_boxes_max"] <= BOX_MAX_TOL
+          and reading["pred_boxes_mean"] <= BOX_MEAN_TOL,
+          "the converted full-width model disagrees with the replica")
+    del tm, model
+    free_card()
+    return {"small_max_abs_err": worst, **reading}
+
+
+def phase_remat(steps=3, train_peak_gib=None):
+    """Encoder remat. A small model's remat step on the card against its
+    non-remat step, dropout 0.2, the same weights, batch and generator
+    state: loss atol 1e-5 / rtol 1e-4, gradients atol 1e-4 / rtol 1e-3.
+    Then ``LateFusion_bf16.sh`` with ``remat=True`` at B=6 608x800: one
+    warm-up, then ``steps`` timed steps with 19 K1 (13 + 6 recomputed) and
+    13 K2 launches each, finite losses, and a peak memory below the
+    non-remat train phase's."""
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train import create_train_state, train_step
+    from dfvod_tpu_torch.train.engine import forward
+    batch = train_batch(5, B=2, max_boxes=8)
+    batch["images"] = batch["images"][:, :96, :128].contiguous()
+    batch["sizes"] = torch.tensor([[96, 128], [60, 84]])
+    batch = {k: v.cuda() for k, v in batch.items()}
+    results = []
+    for remat in (False, True):
+        cfg = small_cfg(dropout=0.2, remat=remat)
+        model, criterion, _ = build_model(cfg, device="cpu", seed=3)
+        model = randomize(model, seed=4).cuda()
+        state = create_train_state(model, cfg)
+
+        def step():
+            loss, parts = criterion(*forward(state, batch))
+            loss.backward()
+            return loss.detach()
+        loss, launches = counted(step)
+        results.append((loss, {n: p.grad for n, p in model.named_parameters()
+                               if p.grad is not None}, launches))
+    (l0, g0, k0), (l1, g1, k1) = results
+    check(k0 == want_launches(msda_fwd=5, msda_bwd=5)
+          and k1 == want_launches(msda_fwd=7, msda_bwd=5),
+          f"small remat step launched {k1} (plain {k0})")
+    check(abs(float(l1) - float(l0)) <= 1e-5 + 1e-4 * abs(float(l0)),
+          f"small remat loss {float(l1)} vs {float(l0)}")
+    check(g0.keys() == g1.keys(), "remat: gradients on different sets")
+    worst = 0.0
+    for n, r in g0.items():
+        err = (g1[n] - r).abs()
+        worst = max(worst, float(err.max()))
+        check(bool((err <= 1e-4 + 1e-3 * r.abs()).all()),
+              f"small remat gradient {n}: max_abs_err {float(err.max()):.3e}")
+    print(f"[remat-small] remat vs plain step on the card, dropout 0.2: loss "
+          f"{float(l1):.6f} vs {float(l0):.6f}; {len(g0)} gradients "
+          f"max_abs_err {worst:.3e} (atol 1e-4 rtol 1e-3); launches "
+          f"msda_fwd 7 / 5, msda_bwd 5 / 5 ok", flush=True)
+
+    cfg = train_cfg(remat=True)
+    model, criterion, _ = build_model(cfg, device="cpu", seed=0)
+    model = randomize(model, seed=1).to("cuda")
+    state = create_train_state(model, cfg, steps_per_epoch=1000)
+    batches = [{k: v.to("cuda") for k, v in train_batch(seed).items()}
+               for seed in range(steps + 1)]
+    train_step(state, criterion, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = want_launches(msda_fwd=19, msda_bwd=13)
+    times, fwd, bwd = [], 0, 0
+    for i, b in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        mt, launches = counted(lambda: train_step(state, criterion, b))
+        times.append(time.perf_counter() - t0)
+        check(launches == want,
+              f"remat step {i + 1} launched {launches}, not {want}")
+        check_finite({k: mt[k] for k in ("loss", "grad_norm")},
+                     f"remat step {i + 1}")
+        fwd += launches["msda_fwd"]
+        bwd += launches["msda_bwd"]
+    ms = 1e3 * sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[remat] LateFusion_bf16 remat=True B={TRAIN_BATCH} {H}x{W}: "
+          f"launches over {steps} steps msda_fwd {fwd}, msda_bwd {bwd} (19 "
+          f"and 13 per step); ms per step mean {ms:.3f} (per step "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in times)}); peak memory "
+          f"{peak:.3f} GiB (without remat {train_peak_gib:.3f})", flush=True)
+    check(peak < train_peak_gib, f"remat peak {peak:.3f} GiB is not below "
+                                 f"the plain step's {train_peak_gib:.3f}")
+    del state, model
+    free_card()
+    return {"small_grad_max_abs_err": worst, "ms_per_step": ms,
+            "steps_ms": [1e3 * t for t in times], "peak_memory_gib": peak,
+            "plain_peak_memory_gib": train_peak_gib, "launches_fwd": fwd,
+            "launches_bwd": bwd, "steps": steps}
+
+
+def phase_eval_ckpt(train_peak_gib):
+    """Evaluation, checkpoints, reference weights and remat, in that
+    order; each full-width model freed before the next."""
+    return {"oracle": phase_eval_oracle(), **phase_eval_full(),
+            "small": phase_eval_card_vs_cpu(),
+            "checkpoint": phase_checkpoints(),
+            "reference": phase_reference_weights(),
+            "remat": phase_remat(train_peak_gib=train_peak_gib)}
+
+
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
            "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck")
 
@@ -2422,6 +2980,7 @@ def main() -> int:
     phase_small_video_train_reference()
     fusion = phase_fusion_modes()
     ecf, bcf = (fusion[m] for m in FUSION_MODES)
+    eval_ckpt = phase_eval_ckpt(train["peak_memory_gib"])
 
     enc = kern["enc"]
     record = {
@@ -2448,6 +3007,9 @@ def main() -> int:
         "backbone_cf_serve_launches": bcf["serve"]["launches"],
         "encoder_cf_train_launches": ecf["train"]["launches_fwd"],
         "backbone_cf_train_launches": bcf["train"]["launches_fwd"],
+        "eval_launches": eval_ckpt["single"]["launches"]["msda_fwd"],
+        "clip_eval_launches": eval_ckpt["clips"]["launches"]["msda_fwd"],
+        "remat_train_launches": eval_ckpt["remat"]["launches_fwd"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -2471,6 +3033,7 @@ def main() -> int:
         "cf_stage2": kern_bwd["cf_stage2"],
         "encoder_cf_train_launches": ecf["train"]["launches_bwd"],
         "backbone_cf_train_launches": bcf["train"]["launches_bwd"],
+        "remat_train_launches": eval_ckpt["remat"]["launches_bwd"],
     }
     record_hat = {
         "name": "hat_sample_fwd", "route": "cuda",
@@ -2487,6 +3050,8 @@ def main() -> int:
         "shape": f"QRF BM={QRF_FRAMES} 38x50 D=256 bf16 value, "
                  f"Lq={QRF_ROIS}x49 PL=4 f32 points",
         "train_clips_launches": train_clips["launches"]["hat_sample_fwd"],
+        "clip_eval_launches": eval_ckpt["clips"]["launches"][
+            "hat_sample_fwd"],
     }
     main_bwd = kern_hat_bwd["qrf_float32_gv"]
     record_hat_bwd = {
@@ -2613,7 +3178,9 @@ def main() -> int:
               record_hat_bwd, *record_hat_bwd["other"].values(),
               *new_records, record_sparse["enc_l4"], train, clip,
               train_clips, *(v[k] for v in fusion_line.values()
-                             if isinstance(v, dict) for k in v)):
+                             if isinstance(v, dict) for k in v),
+              *eval_ckpt.values(), eval_ckpt["single"]["stats"],
+              eval_ckpt["clips"]["stats"]):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -2632,6 +3199,7 @@ def main() -> int:
             "ms_per_batch", "box_max", "box_mean")}
         for k, v in variants.items()}}))
     print(json.dumps({"fusion_modes": fusion_line}))
+    print(json.dumps({"eval_ckpt": eval_ckpt}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
                                   record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",

@@ -16,10 +16,14 @@ Layout
 - ``models``   : backbones, transformer trunk, LateFusion adapter, heads,
                  the TransVOD / TransVOD++ temporal heads, postprocess,
                  matcher, criterion.
-- ``train``    : the grouped optimizer and the train step.
-- ``data``     : on-device uint8 normalization.
+- ``train``    : the grouped optimizer, the train step and the COCO
+                 evaluation loop.
+- ``data``     : on-device uint8 normalization, the COCO / CocoVID index
+                 and the bbox mAP evaluator.
 - ``utils``    : box ops, config, weight conversion from the JAX package,
-                 device choice.
+                 checkpoints (key surgery, save and resume, the ResNet-50
+                 and DFormer converters), the reference-checkpoint
+                 converter, device choice.
 - ``serve``    : the serving entry point (single frames or clips).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -133,8 +133,8 @@ class SetCriterion:
                                       "slice")
         if "enc_outputs" in outputs:
             raise NotImplementedError("two-stage enc_outputs wait for the "
-                                      "other-fusion-modes slice (two-stage "
-                                      "proposals)")
+                                      "two-stage proposals slice (ROADMAP.md "
+                                      "Queue 1 item 12b)")
         num_boxes = targets["valid"].float().sum().clamp(min=1.0)
         layers = [outputs] + list(outputs.get("aux_outputs", []))
         assign = match_layers(layers, targets, self.loss_cfg)

@@ -81,7 +81,8 @@ class DeformableDETR(nn.Module):
             with_box_refine=cfg.with_box_refine,
             num_classes=cfg.num_classes,
             fusion=cfg.transformer_fusion,
-            dpth_n_points=cfg.dpth_n_points)
+            dpth_n_points=cfg.dpth_n_points,
+            remat=cfg.remat)
 
     def forward(self, images, mask):
         """images: (B, H, W, 3|4); mask: (B, H, W) bool, True = pad."""

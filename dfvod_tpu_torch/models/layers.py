@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dfvod_tpu_torch.ops import ms_deform_attn
 
@@ -67,6 +68,42 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator):
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def remat_call(module: nn.Module, *args):
+    """``module(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of flax's
+    ``nn.remat``.
+
+    ``checkpoint``'s ``preserve_rng_state`` covers only the global RNGs,
+    and ``Dropout`` draws from its own generator. So the generators'
+    states are taken before the call, set back for the recomputation, and
+    the states the whole forward left are put back after it: the
+    recomputation draws the forward's masks, and the next layer and step
+    draw what they would without remat."""
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 and m.training and m.p > 0.0}.values())
+    start = [g.get_state() for g in gens]
+    calls = []
+
+    def run(*a):
+        if not calls:
+            calls.append(True)
+            return module(*a)
+        after = [g.get_state() for g in gens]
+        for g, s in zip(gens, start):
+            g.set_state(s)
+        try:
+            return module(*a)
+        finally:
+            # the recomputation may stop early, once it has what the
+            # backward needs
+            for g, s in zip(gens, after):
+                g.set_state(s)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def fixed_linear(in_features: int, out_features: int,

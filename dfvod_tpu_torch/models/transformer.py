@@ -32,6 +32,7 @@ from dfvod_tpu_torch.models.layers import (
     MultiHeadAttention,
     SingleLinearFFN,
     fixed_linear,
+    remat_call,
     with_pos,
 )
 from dfvod_tpu_torch.utils.box_ops import inverse_sigmoid
@@ -205,7 +206,7 @@ class DeformableTransformer(nn.Module):
                  enc_n_points=4, num_queries=300, with_box_refine=False,
                  num_classes=3, fusion="none", dpth_n_points=4,
                  dpth_feature_levels=1, dropout=0.1,
-                 num_enc_fusion_layers=4):
+                 num_enc_fusion_layers=4, remat=False):
         super().__init__()
         if fusion not in ("none", "late", "encoder_cf"):
             raise ValueError(f"fusion={fusion!r} not in 'none', 'late', "
@@ -217,6 +218,8 @@ class DeformableTransformer(nn.Module):
             if fusion == "encoder_cf" else 0)
         self.num_decoder_layers = num_decoder_layers
         self.with_box_refine = with_box_refine
+        # recompute the encoder layers' activations in the backward
+        self.remat = remat
         self.level_embed = nn.Parameter(
             torch.zeros(num_feature_levels, d_model))
         self.query_embed = nn.Parameter(torch.zeros(num_queries,
@@ -290,9 +293,12 @@ class DeformableTransformer(nn.Module):
             same_tokens = mask_flat.shape[1] == depth_mask_flat.shape[1]
             fusion_src = depth_flat
             fusion_mask = mask_flat if same_tokens else depth_mask_flat
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_encoder_layers):
-            output = getattr(self, f"encoder_layers_{i}")(
-                output, pos_flat, ref_points_enc, spatial_shapes, mask_flat)
+            layer = getattr(self, f"encoder_layers_{i}")
+            args = (output, pos_flat, ref_points_enc, spatial_shapes,
+                    mask_flat)
+            output = remat_call(layer, *args) if remat else layer(*args)
             if i < self.num_enc_fusion_layers:
                 fused = getattr(self, f"fusion_layers_{i}")(
                     output, pos_flat, ref_points_enc, fusion_src,

@@ -13,13 +13,13 @@ are the key frames'.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from dfvod_tpu_torch.data.device_pipeline import device_normalize
 from dfvod_tpu_torch.models import build_model
 from dfvod_tpu_torch.utils.config import Config
 from dfvod_tpu_torch.utils.convert import load_jax_variables
+from dfvod_tpu_torch.utils.device import as_tensor
 
 
 class Server:
@@ -49,8 +49,8 @@ class Server:
     @torch.no_grad()
     def forward(self, images_u8, sizes):
         """The model's output dict for one request (see ``__call__``)."""
-        images_u8 = _as_tensor(images_u8, self.device)
-        sizes = _as_tensor(sizes, self.device)
+        images_u8 = as_tensor(images_u8, self.device)
+        sizes = as_tensor(sizes, self.device)
         if images_u8.dtype != torch.uint8 or images_u8.dim() != 4:
             raise ValueError("images must be uint8 (B, H, W, C)")
         if images_u8.shape[0] % self.frames:
@@ -68,11 +68,6 @@ class Server:
         content (h, w). Returns scores (B, k), labels (B, k) and boxes
         (B, k, 4) as xyxy pixels of the (key) frame's content."""
         out = self.forward(images_u8, sizes)
-        key_sizes = _as_tensor(sizes, self.device)[::self.frames]
+        key_sizes = as_tensor(sizes, self.device)[::self.frames]
         return self.postprocess(out["pred_logits"], out["pred_boxes"],
                                 key_sizes)
-
-
-def _as_tensor(x, device):
-    return (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-            ).to(device)

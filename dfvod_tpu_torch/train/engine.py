@@ -22,7 +22,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -35,6 +34,7 @@ from dfvod_tpu_torch.train.optim import (
     set_learning_rates,
 )
 from dfvod_tpu_torch.utils.config import Config, check_supported
+from dfvod_tpu_torch.utils.device import as_tensor
 
 TRAIN_DTYPES = ("float32", "bfloat16")
 
@@ -70,11 +70,6 @@ def create_train_state(model: nn.Module, cfg: Config,
                       steps_per_epoch)
 
 
-def _as_tensor(x, device):
-    return (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-            ).to(device)
-
-
 def _f32(out):
     """The criterion's inputs cast to f32 (``engine.py:148-152``)."""
     res = {k: out[k].float() for k in ("pred_logits", "pred_boxes")}
@@ -89,16 +84,16 @@ def forward(state: TrainState, batch):
     targets), ready for the criterion."""
     model = state.model
     device = next(model.parameters()).device
-    images = _as_tensor(batch["images"], device)
+    images = as_tensor(batch["images"], device)
     if images.dtype != torch.uint8:
         raise TypeError(f"images must be uint8 frames, got {images.dtype}")
-    images, mask = device_normalize(images, _as_tensor(batch["sizes"], device))
+    images, mask = device_normalize(images, as_tensor(batch["sizes"], device))
     m = state.cfg.model
     # batch rows per prediction: the clip's frames, key frame first
     F = 1 if m.temporal_mode == "none" else 1 + m.num_ref_frames
     targets = {}
     for k in ("labels", "boxes", "valid"):
-        x = _as_tensor(batch[k], device)
+        x = as_tensor(batch[k], device)
         targets[k] = x.reshape(x.shape[0] // F, F, *x.shape[1:])[:, 0]
     model.train()
     bf16 = state.cfg.train.train_dtype == "bfloat16"

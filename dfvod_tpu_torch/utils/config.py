@@ -186,14 +186,13 @@ class Config:
 
 def check_supported(m: ModelConfig, training: bool = False) -> None:
     """Raise ``NotImplementedError`` for what this slice cannot build (or,
-    with ``training``, train), naming the slice it waits for."""
+    with ``training``, train), naming the slice it waits for. Every
+    configuration that serves also trains (``remat`` recomputes only
+    training activations)."""
     waits = []
-    if training and m.remat:
-        waits.append("remat=True waits for the next training slice "
-                     "(activation recompute)")
     if m.two_stage:
-        waits.append("two_stage=True waits for the other-fusion-modes "
-                     "slice (two-stage proposals)")
+        waits.append("two_stage=True waits for the two-stage proposals "
+                     "slice (ROADMAP.md Queue 1 item 12b)")
     if m.masks:
         waits.append("masks=True waits for the segmentation slice")
     if m.num_feature_levels != 1:

@@ -14,8 +14,8 @@ module names, so the mapping is mechanical:
   buffers ...)
 
 Coverage is checked both ways: a flax leaf that fills no port key, or a
-port key that no flax leaf fills, raises. Loading a reference ``.pth``
-waits for a later slice.
+port key that no flax leaf fills, raises. A reference ``.pth`` loads
+through ``utils/convert_reference.py``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Device choice for the port's entry points."""
+"""Device choice for the port's entry points, and their host inputs."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,9 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port on the CPU")
     return torch.device("cuda")
+
+
+def as_tensor(x, device) -> torch.Tensor:
+    """A tensor or an array-like (numpy, lists) as a tensor on ``device``."""
+    return (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+            ).to(device)

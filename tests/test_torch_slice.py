@@ -127,13 +127,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Server(cfg)
 
 
+# ids as pytest named these cases while the list began with remat, which
+# is supported now (``test_remat_serves_and_trains``)
 UNSUPPORTED = [
-    (dict(temporal_mode="transvod_pp", remat=True), "training slice"),
-    (dict(two_stage=True), "two-stage"),
-    (dict(masks=True), "segmentation"),
-    (dict(num_feature_levels=4), "multi-level"),
-    (dict(fusion_type="LateFusion", depth_backbone_type="resnet18"),
-     "research"),
+    pytest.param(dict(two_stage=True), "two-stage proposals slice",
+                 id="kw1-two-stage"),
+    pytest.param(dict(masks=True), "segmentation", id="kw2-segmentation"),
+    pytest.param(dict(num_feature_levels=4), "multi-level",
+                 id="kw3-multi-level"),
+    pytest.param(dict(fusion_type="LateFusion",
+                      depth_backbone_type="resnet18"), "research",
+                 id="kw4-research"),
 ]
 
 
@@ -147,13 +151,17 @@ def test_other_fusion_modes_are_supported(fusion, training):
     check_supported(ModelConfig(fusion_type=fusion), training=training)
 
 
+@pytest.mark.parametrize("training", [False, True], ids=["serve", "train"])
+def test_remat_serves_and_trains(training):
+    """Encoder remat recomputes training activations
+    (``tests/test_torch_remat.py``) and is a no-op in eval."""
+    check_supported(ModelConfig(temporal_mode="transvod_pp", remat=True),
+                    training=training)
+
+
 @pytest.mark.parametrize("kw,slice_name", UNSUPPORTED)
 def test_unsupported_config_names_its_slice(kw, slice_name):
-    # refused for serving, as ``Server`` and ``build_model`` check it; remat
-    # only recomputes training activations, so serving takes it
-    if kw.get("remat"):
-        check_supported(ModelConfig(**kw))
-        return
+    # refused for serving, as ``Server`` and ``build_model`` check it
     with pytest.raises(NotImplementedError, match=slice_name):
         check_supported(ModelConfig(**kw))
 
