@@ -106,9 +106,25 @@ Phases, each on lines of its own:
    at full width within the serve gate; a small remat step against the
    plain one, then the ``LateFusion_bf16.sh`` step with ``remat=True``
    (19 K1 + 13 K2 per step) and its peak memory below the plain step's;
-10. the card line, JSON lines of the train, video-train, clip-serve,
-   serve-variant, fusion-mode and evaluation/checkpoint phases, a JSON
-   line of the kernels and the serving path, and the final line
+10. the data path and the training CLI (``phase_data_cli``): the host
+   libraries (JPEG decoder, resize) built with g++; the 600 JPEGs of
+   ``datasets/synth_rgbd`` decoded, their SHA-256 against the constant
+   that PIL and cv2 give on the CPU; the first batches of the
+   ``Synth_LateFusion.sh`` loader against the CPU's digest, and copied to
+   the card; then three recipes' argument lists through
+   ``dfvod_tpu_torch.cli.main`` / ``main_multi`` in this process:
+   ``LateFusion_bf16.sh`` for 1 epoch (40 steps of B=6 at short sides
+   480-800, 13 K1 + 13 K2 per step, 13 K1 per eval batch), with ms per
+   step, the loader's host ms per batch and the share of the epoch the
+   loop waited for it; ``Synth_LateFusion.sh`` for 2 epochs, evaluated
+   again by ``--eval --resume`` (the same stats) and continued by
+   ``--auto_resume`` for exactly one epoch; and ``SynthHard_Temporal.sh``'s
+   video stage (TransVOD++, 2 reference frames, B=4,
+   ``--fixed_pretrained_model``: 16 K1 + 1 K3 + 3 K2 + 0 K4 per step),
+   the frozen parameters bitwise the spatial checkpoint's;
+11. the card line, JSON lines of the train, video-train, clip-serve,
+   serve-variant, fusion-mode, evaluation/checkpoint and data/CLI phases,
+   a JSON line of the kernels and the serving path, and the final line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
@@ -2365,31 +2381,6 @@ EVAL_BATCH = 8
 EVAL_CLIPS = 2
 
 
-def eval_ref_ids(coco, img_id, num_ref_frames):
-    """The eval reference frames of ``img_id``: a copy of the eval branch
-    of ``dfvod_tpu/data/dataset.py::CocoVideoDataset._ref_ids``
-    (``vid_multi.py:108-125``: one-sided strided sampling,
-    ``filter_key_img`` on), which the port's data slice has not brought
-    over yet."""
-    video_id = coco.imgs[img_id].get("video_id", -1)
-    if video_id == -1:
-        return [img_id] * num_ref_frames
-    img_ids = coco.get_img_ids_from_vid(video_id)
-    interval = max(len(img_ids) // 16, 1)
-    left_index = (img_id - img_ids[0]) // interval
-    if left_index < num_ref_frames:
-        refs = [min(img_id + (i + 1) * interval, img_ids[-1])
-                for i in range(num_ref_frames)]
-    else:
-        refs = [max(img_id - (i + 1) * interval, img_ids[0])
-                for i in range(num_ref_frames)]
-    if img_id in refs:
-        refs.remove(img_id)
-    while 0 < len(refs) < num_ref_frames:
-        refs.extend(refs)
-    return refs[:num_ref_frames] or [img_id] * num_ref_frames
-
-
 def eval_frame(coco, img_id, size, content):
     """A seeded uint8 RGB-D frame for ``img_id``, ``content`` (h, w) of it
     filled and the rest padded; its first pixel carries the image's index
@@ -2410,13 +2401,16 @@ def eval_batches(coco, img_ids=None, batch=EVAL_BATCH, frames=1,
     every image of ``coco``), ``batch`` key images each, the last padded
     with repeated ids from the first: uint8 frames, content sizes, the
     original sizes and ids. With ``frames`` > 1 every key frame is
-    followed by its ``frames - 1`` eval reference frames."""
+    followed by its ``frames - 1`` eval reference frames, as the port's
+    ``CocoVideoDataset._ref_ids`` picks them (``data/dataset.py::ref_ids``
+    with ``train=False``)."""
+    from dfvod_tpu_torch.data.dataset import ref_ids
     ids = list(coco.getImgIds() if img_ids is None else img_ids)
     groups = [ids[k:k + batch] for k in range(0, len(ids), batch)]
     groups[-1] = groups[-1] + ids[:batch - len(groups[-1])]
     for group in groups:
         rows = [r for i in group
-                for r in [i, *(eval_ref_ids(coco, i, frames - 1)
+                for r in [i, *(ref_ids(coco, i, frames - 1, train=False)
                                if frames > 1 else [])]]
         yield {"images": torch.stack([eval_frame(coco, r, size, content)
                                       for r in rows]),
@@ -2902,6 +2896,386 @@ def phase_eval_ckpt(train_peak_gib):
             "remat": phase_remat(train_peak_gib=train_peak_gib)}
 
 
+# ------------------------------------------------------- data path and CLI
+SYNTH_RGBD = os.path.join(REPO, "datasets", "synth_rgbd")
+RECIPES = os.path.join(REPO, "configs", "training")
+# SHA-256 of the decoded frames of datasets/synth_rgbd in sorted file order:
+# images/*.jpg as RGB (H, W, 3), then depth_pred/*.jpg as (H, W) samples.
+# tests/test_torch_image_io.py computes it with PIL and cv2.
+SYNTH_RGBD_DECODE_SHA256 = ("3ba73367e57c4a683d511a1736aab991"
+                            "de5e53eb0b93d233b4be22ea33a6aaaf")
+# SHA-256 of the port's first 3 train batches (epoch 0) and first 2 val
+# batches of configs/training/Synth_LateFusion.sh on datasets/synth_rgbd,
+# built on the host (``loader_digest``); tests/test_torch_data.py holds it
+# on the CPU and against the JAX package's loader.
+SYNTH_RGBD_LOADER_SHA256 = ("4a9113e10a88f05dcbb0b90ff638f200"
+                            "6d601294f5fac40a0fb5cc80f0fb9cf5")
+# K1 / K3 / K2 / K4 launches of one step of each CLI run: LateFusion (6
+# encoder + 1 depth encoder + 6 decoder MSDA layers, all trained); the
+# TransVOD++ video stage under --fixed_pretrained_model (the trunk's 13
+# layers forward and 3 temporal decoder rounds, RoIAlign once; the trunk
+# gets no gradient, so K2 runs for the temporal rounds only, K4 not)
+CLI_STEP_LAUNCHES = want_launches(msda_fwd=13, msda_bwd=13)
+CLI_EVAL_LAUNCHES = want_launches(msda_fwd=13)
+CLI_VIDEO_STEP_LAUNCHES = want_launches(msda_fwd=16, hat_sample_fwd=1,
+                                        msda_bwd=3)
+CLI_VIDEO_EVAL_LAUNCHES = want_launches(msda_fwd=16, hat_sample_fwd=1)
+
+
+def recipe_argv(recipe, *args, **env):
+    """(the port's module, the argument list) that
+    ``configs/training/<recipe>`` passes to the JAX package's CLI, with
+    ``args`` as the script's own arguments and ``env`` as its variables
+    (``STAGE="video"``, ``COCO_PATH``, ...). bash runs the script with
+    ``python`` standing in to print its arguments and ``mkdir`` / ``tee``
+    doing nothing, so the list is bash's own expansion of the recipe."""
+    stand_ins = ('python() { printf "%s\\0" "$@"; }; mkdir() { :; }; '
+                 'tee() { cat; }; export -f python mkdir tee; . "$0"')
+    out = subprocess.run(
+        ["bash", "-c", stand_ins, os.path.join(RECIPES, recipe), *args],
+        capture_output=True, text=True, check=True, timeout=60, cwd=REPO,
+        env={**os.environ, **env})
+    words = out.stdout.split("\0")[:-1]
+    check(words[:2] == ["-u", "-m"] and words[2].startswith("dfvod_tpu."),
+          f"{recipe}: not a CLI call: {words[:3]}")
+    return words[2].replace("dfvod_tpu.", "dfvod_tpu_torch.", 1), words[3:]
+
+
+def synth_jpegs(root=SYNTH_RGBD):
+    """The JPEG files of ``root``: (sorted images/, sorted depth_pred/)."""
+    coco = os.path.join(root, "coco")
+    return tuple(sorted(os.path.join(coco, sub, f)
+                        for f in os.listdir(os.path.join(coco, sub))
+                        if f.endswith(".jpg"))
+                 for sub in ("images", "depth_pred"))
+
+
+def decode_digest(read_rgb, read_gray, root=SYNTH_RGBD):
+    """SHA-256 over the decoded frames of ``root``: every RGB file through
+    ``read_rgb`` ((H, W, 3) uint8), then every depth file through
+    ``read_gray`` ((H, W) uint8), in sorted file order."""
+    import hashlib
+    import numpy as np
+    digest = hashlib.sha256()
+    images, depths = synth_jpegs(root)
+    for files, read in ((images, read_rgb), (depths, read_gray)):
+        for f in files:
+            digest.update(np.ascontiguousarray(read(f), np.uint8).tobytes())
+    return digest.hexdigest()
+
+
+def synth_recipe_cfg(root=SYNTH_RGBD):
+    """The Config of configs/training/Synth_LateFusion.sh on ``root``."""
+    from dfvod_tpu_torch.cli.flags import config_from_args, get_args_parser
+    module, argv = recipe_argv("Synth_LateFusion.sh", COCO_PATH=root)
+    return config_from_args(get_args_parser().parse_args(argv))
+
+
+def loader_batches(cfg, train_batches=3, val_batches=2, device=None):
+    """The first ``train_batches`` batches of ``cfg``'s train loader (epoch
+    0) and the first ``val_batches`` of its val loader, as the CLI builds
+    them, on the host (or on ``device``)."""
+    from dfvod_tpu_torch.data.dataset import build_dataset, make_transform
+    from dfvod_tpu_torch.data.loader import Loader
+    out = []
+    for split, n in (("train", train_batches), ("val", val_batches)):
+        loader = Loader(build_dataset(split, cfg),
+                        make_transform(split == "train", cfg),
+                        batch_size=cfg.train.batch_size,
+                        max_boxes=cfg.data.max_boxes,
+                        use_depth=cfg.data.use_depth, seed=cfg.train.seed,
+                        shuffle=split == "train", drop_last=split == "train",
+                        device=device)
+        for i, b in enumerate(loader):
+            if i == n:
+                break
+            out.append(b)
+    return out
+
+
+def loader_digest(batches):
+    """SHA-256 over every batch's keys in sorted order: name, dtype, shape
+    and bytes of each array."""
+    import hashlib
+    import numpy as np
+    digest = hashlib.sha256()
+    for b in batches:
+        for k in sorted(b):
+            v = b[k].cpu().numpy() if torch.is_tensor(b[k]) else np.asarray(
+                b[k])
+            digest.update(f"{k} {v.dtype} {v.shape}".encode())
+            digest.update(np.ascontiguousarray(v).tobytes())
+    return digest.hexdigest()
+
+
+class CliProbe:
+    """While active, every train step and eval forward that the CLI runs
+    is timed (host clock to a synchronize) with the launches of each
+    kernel in it: ``steps`` and ``evals`` hold (ms, {kernel: launches})."""
+
+    def __enter__(self):
+        from dfvod_tpu_torch.cli import main as cli
+        from dfvod_tpu_torch.train import evaluate as ev
+        self.steps, self.evals = [], []
+        self._saved = [(cli, "train_step", cli.train_step),
+                       (cli, "eval_forward", cli.eval_forward),
+                       (ev, "eval_forward", ev.eval_forward)]
+        for mod, name, fn in self._saved:
+            into = self.steps if name == "train_step" else self.evals
+            setattr(mod, name, self._wrap(fn, into))
+        return self
+
+    @staticmethod
+    def _wrap(fn, into):
+        counters = kernel_counters()
+
+        def probe(*args, **kw):
+            before = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append((1e3 * (time.perf_counter() - t0),
+                         {k: c.launches - before[k]
+                          for k, c in counters.items()}))
+            return out
+        return probe
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def run_cli(recipe, out_dir, *args, env=None, cli_args=()):
+    """``recipe``'s argument list (``args`` as the script's own, ``env`` its
+    variables) plus ``cli_args`` through the port's CLI in this process, on
+    the card. Returns (final stats, the probe, wall s, the launches of the
+    whole run, the run's log.txt lines)."""
+    from dfvod_tpu_torch.cli import main as cli
+    module, argv = recipe_argv(recipe, *args, **(env or {}))
+    argv = [*argv, "--output_dir", out_dir, *cli_args]
+    print(f"[data-cli] python -m {module} {' '.join(argv)}", flush=True)
+    with CliProbe() as probe:
+        t0 = time.perf_counter()
+        stats, total = counted(lambda: cli.main(
+            argv, video=module.endswith("main_multi")))
+        wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        lines = [json.loads(x) for x in f]
+    return stats, probe, wall, total, lines
+
+
+def check_cli_launches(probe, total, want_step, want_eval, tag):
+    """Every probed step and eval forward launched ``want_step`` /
+    ``want_eval``, and the run launched nothing outside them. Returns the
+    launches per step."""
+    for i, (_, got) in enumerate(probe.steps):
+        check(got == want_step, f"{tag}: step {i} launches {got}, want "
+              f"{want_step}")
+    for i, (_, got) in enumerate(probe.evals):
+        check(got == want_eval, f"{tag}: eval batch {i} launches {got}, "
+              f"want {want_eval}")
+    want_total = {k: len(probe.steps) * want_step[k]
+                  + len(probe.evals) * want_eval[k] for k in want_step}
+    check(total == want_total, f"{tag}: run launches {total}, want "
+          f"{want_total}")
+    return want_step
+
+
+def epoch_timing(line, probe_steps):
+    """ms per step (median after the first 2), the loader's host ms per
+    batch (decode, transform, collate) and the share of the epoch's wall
+    time the loop waited for the loader, from a log.txt epoch line."""
+    t = line["timing"]
+    ld = t["loader_s"]
+    ms = sorted(m for m, _ in probe_steps[2:]) or [m for m, _ in probe_steps]
+    per = {k: 1e3 * ld[k] / max(ld["batches"], 1)
+           for k in ("decode", "transform", "collate")}
+    return {"ms_per_step": ms[len(ms) // 2], "steps": len(probe_steps),
+            "loader_ms_per_batch": per,
+            "loader_waited_share": ld["wait"] / t["epoch_s"],
+            "epoch_s": t["epoch_s"]}
+
+
+def check_stats(stats, tag):
+    check(set(stats) == {"mAP", "mAP_50", "mAP_75", "mAP_small",
+                         "mAP_medium", "mAP_large"}
+          and all(math.isfinite(v) for v in stats.values()),
+          f"{tag}: eval stats {stats}")
+
+
+def phase_data_cli():
+    """The data path and the training CLI on datasets/synth_rgbd: the host
+    libraries built and the 600 JPEGs decoded against
+    SYNTH_RGBD_DECODE_SHA256; the loader's first batches against
+    SYNTH_RGBD_LOADER_SHA256 (and on the card against the host); then
+    three recipes through the port's CLI in this process:
+    LateFusion_bf16.sh for 1 epoch (40 steps of B=6, short sides 480-800),
+    Synth_LateFusion.sh for 2 epochs, evaluated again from its output
+    (--eval --resume) and continued by --auto_resume for a third epoch,
+    and the video stage of SynthHard_Temporal.sh from that output
+    (TransVOD++, 2 reference frames, B=4, --fixed_pretrained_model)."""
+    import tempfile
+    import numpy as np
+    from dfvod_tpu_torch.data import image_io
+    from dfvod_tpu_torch.ops import build
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(build.build_host, ("jpeg_decode",
+                                                 "preprocess")))
+    for (path, seconds, _), name in zip(built, ("jpeg_decode",
+                                                "preprocess")):
+        print(f"[data-cli] {name}.cpp -> {os.path.relpath(path, REPO)}: "
+              f"{seconds:.1f} s g++", flush=True)
+    images, depths = synth_jpegs()
+    t0 = time.perf_counter()
+    digest = decode_digest(image_io.read_rgb, image_io.read_gray)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (len(images) + len(depths))
+    check(digest == SYNTH_RGBD_DECODE_SHA256,
+          f"decoded frames sha256 {digest} != {SYNTH_RGBD_DECODE_SHA256}")
+    print(f"[data-cli] decoded {len(images)} RGB + {len(depths)} depth JPEGs"
+          f" of datasets/synth_rgbd: {decode_ms:.3f} host ms per frame "
+          f"(hashing included), sha256 equals PIL's and cv2's ok",
+          flush=True)
+
+    cfg = synth_recipe_cfg()
+    host = loader_batches(cfg)
+    digest = loader_digest(host)
+    check(digest == SYNTH_RGBD_LOADER_SHA256,
+          f"loader sha256 {digest} != {SYNTH_RGBD_LOADER_SHA256}")
+    card = loader_batches(cfg, device="cuda")
+    check(all(v.device.type == "cuda" for b in card for v in b.values())
+          and loader_digest(card) == digest,
+          "loader batches on the card differ from the host's")
+    print(f"[data-cli] Synth_LateFusion.sh loader: 3 train + 2 val batches, "
+          f"image {tuple(host[0]['image'].shape)}, sha256 equals the CPU's; "
+          f"pinned copies on the card equal", flush=True)
+
+    results = {"decode_ms_per_frame": decode_ms}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 3. LateFusion_bf16.sh: "" fills its --resume slot (RESUME_PATH
+        # unset), as a user runs it without a checkpoint
+        out = os.path.join(tmp, "bf16")
+        stats, probe, wall, total, lines = run_cli(
+            "LateFusion_bf16.sh", out, "", "--coco_path", SYNTH_RGBD,
+            "--epochs", "1", "--eval_every", "1")
+        per_step = check_cli_launches(probe, total, CLI_STEP_LAUNCHES,
+                                      CLI_EVAL_LAUNCHES, "LateFusion_bf16")
+        check_stats(stats, "LateFusion_bf16")
+        check(len(probe.steps) == 40, f"{len(probe.steps)} steps, want 40")
+        check(all(os.path.exists(os.path.join(out, f)) for f in (
+            "args.yaml", "checkpoint0000.pth", "best/checkpoint0000.pth",
+            "best_meta.json"))
+              and [ln.get("epoch") for ln in lines] == [0, None]
+              and lines[-1] == {"eval": stats}
+              and math.isfinite(lines[0]["train_loss"]),
+              f"LateFusion_bf16: output {sorted(os.listdir(out))} {lines}")
+        bf16 = {**epoch_timing(lines[0], probe.steps), "wall_s": wall,
+                "launches_per_step": per_step, "eval_batches":
+                len(probe.evals), "stats": stats}
+        results["latefusion_bf16"] = bf16
+        print(f"[data-cli] LateFusion_bf16.sh 1 epoch on synth_rgbd: "
+              f"{bf16['steps']} steps B=6 {bf16['ms_per_step']:.1f} ms/step "
+              f"(median after 2); loader host ms/batch "
+              + ", ".join(f"{k} {v:.1f}" for k, v in
+                          bf16["loader_ms_per_batch"].items())
+              + f"; loop waited {100 * bf16['loader_waited_share']:.2f}% of "
+              f"the epoch's {bf16['epoch_s']:.1f} s; K1/K2 per step "
+              f"{per_step['msda_fwd']}/{per_step['msda_bwd']}; "
+              f"mAP_50 {stats['mAP_50']:.4f}; {card_line()}", flush=True)
+
+        # 4. Synth_LateFusion.sh for 2 epochs, then --eval and --auto_resume
+        out = os.path.join(tmp, "synth")
+        stats, probe, wall, total, lines = run_cli(
+            "Synth_LateFusion.sh", out, "--epochs", "2", "--eval_every", "1",
+            env={"COCO_PATH": SYNTH_RGBD})
+        per_step = check_cli_launches(probe, total, CLI_STEP_LAUNCHES,
+                                      CLI_EVAL_LAUNCHES, "Synth_LateFusion")
+        check_stats(stats, "Synth_LateFusion")
+        synth = {**epoch_timing(lines[1], probe.steps[30:]), "wall_s": wall,
+                 "launches_per_step": per_step, "stats": stats}
+        again, _, _, _, _ = run_cli(
+            "Synth_LateFusion.sh", out, "--epochs", "2",
+            env={"COCO_PATH": SYNTH_RGBD}, cli_args=("--eval", "--resume",
+                                                     out))
+        diff = max(abs(again[k] - stats[k]) for k in stats)
+        check(diff == 0.0, f"--eval --resume stats {again} != {stats}")
+        _, probe3, _, _, lines3 = run_cli(
+            "Synth_LateFusion.sh", out, "--epochs", "3", "--eval_every", "1",
+            env={"COCO_PATH": SYNTH_RGBD}, cli_args=("--auto_resume",))
+        epochs = [ln["epoch"] for ln in lines3 if "epoch" in ln]
+        check(epochs == [0, 1, 2] and len(probe3.steps) == 30,
+              f"--auto_resume ran epochs {epochs} in {len(probe3.steps)} "
+              f"steps, want [0, 1, 2] and 30")
+        results["synth_latefusion"] = synth
+        print(f"[data-cli] Synth_LateFusion.sh 2 epochs: "
+              f"{synth['ms_per_step']:.1f} ms/step in epoch 1, loop waited "
+              f"{100 * synth['loader_waited_share']:.2f}%, mAP_50 "
+              f"{stats['mAP_50']:.4f}; --eval --resume gives the same stats; "
+              f"--auto_resume --epochs 3 ran epoch 2 only ({card_line()})",
+              flush=True)
+
+        # 5. SynthHard_Temporal.sh's video stage from that output
+        vout = os.path.join(tmp, "video")
+        vstats, vprobe, vwall, vtotal, vlines = run_cli(
+            "SynthHard_Temporal.sh", vout, "--epochs", "1",
+            env={"STAGE": "video", "COCO_PATH": SYNTH_RGBD,
+                 "SPATIAL_WEIGHTS": out, "NREF": "2", "BATCH": "4"})
+        per_step = check_cli_launches(vprobe, vtotal, CLI_VIDEO_STEP_LAUNCHES,
+                                      CLI_VIDEO_EVAL_LAUNCHES, "video stage")
+        check_stats(vstats, "video stage")
+        frozen, moved = video_params_check(vout, out)
+        video = {**epoch_timing(vlines[0], vprobe.steps), "wall_s": vwall,
+                 "launches_per_step": per_step, "stats": vstats,
+                 "temporal_tensors_moved": moved, "frozen_tensors": frozen}
+        results["video_stage"] = video
+        print(f"[data-cli] SynthHard_Temporal.sh video stage (TransVOD++, 2 "
+              f"ref frames, B=4 clips, --fixed_pretrained_model): "
+              f"{video['steps']} steps {video['ms_per_step']:.1f} ms/step; "
+              f"K1/K3/K2/K4 per step {per_step['msda_fwd']}/"
+              f"{per_step['hat_sample_fwd']}/{per_step['msda_bwd']}/"
+              f"{per_step['hat_sample_bwd']}; {frozen} frozen parameters "
+              f"bitwise the spatial checkpoint's, {moved[0]} of {moved[1]} "
+              f"temporal ones moved; mAP_50 {vstats['mAP_50']:.4f} "
+              f"({card_line()})", flush=True)
+    free_card()
+    return results
+
+
+def video_params_check(video_out, spatial_out):
+    """After the video stage: every frozen parameter bitwise the spatial
+    checkpoint's (under ``detr.``), and the temporal ones moved from their
+    initial values (the CLI's seeded init). Returns (frozen tensors,
+    (temporal tensors moved, temporal tensors))."""
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train.optim import label_params
+    from dfvod_tpu_torch.utils.checkpoint import load_checkpoint
+    from dfvod_tpu_torch.utils.config import Config
+    saved = load_checkpoint(video_out)[0]
+    a = saved["args"]
+    cfg = Config.from_flat(**{**a["data"], **a["train"], **a["loss"],
+                              **a["model"]})
+    check(cfg.model.fixed_pretrained_model and
+          cfg.model.temporal_mode == "transvod_pp",
+          f"the video stage ran {cfg.model}")
+    model = build_model(cfg, device="cpu", seed=cfg.train.seed)[0]
+    labels = label_params(model, "LateFusion", True, temporal=True)
+    got = saved["model"]
+    spatial = load_checkpoint(spatial_out)[0]["model"]
+    init = model.state_dict()
+    frozen, moved, temporal = 0, 0, 0
+    for k, label in labels.items():
+        if label == "frozen":
+            check(torch.equal(got[k].cpu(), spatial[k[len("detr."):]].cpu()),
+                  f"video stage: frozen {k} changed")
+            frozen += 1
+        else:
+            temporal += 1
+            moved += int(not torch.equal(got[k].cpu(), init[k]))
+    check(frozen > 0 and moved > 0, f"video stage: {moved} of {temporal} "
+          f"temporal tensors moved")
+    return frozen, (moved, temporal)
+
+
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
            "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck")
 
@@ -2981,6 +3355,7 @@ def main() -> int:
     fusion = phase_fusion_modes()
     ecf, bcf = (fusion[m] for m in FUSION_MODES)
     eval_ckpt = phase_eval_ckpt(train["peak_memory_gib"])
+    data_cli = phase_data_cli()
 
     enc = kern["enc"]
     record = {
@@ -3180,7 +3555,11 @@ def main() -> int:
               train_clips, *(v[k] for v in fusion_line.values()
                              if isinstance(v, dict) for k in v),
               *eval_ckpt.values(), eval_ckpt["single"]["stats"],
-              eval_ckpt["clips"]["stats"]):
+              eval_ckpt["clips"]["stats"],
+              *(v for k, v in data_cli.items() if isinstance(v, dict)),
+              *(v["stats"] for v in data_cli.values() if isinstance(v, dict)),
+              *(v["loader_ms_per_batch"] for v in data_cli.values()
+                if isinstance(v, dict))):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -3200,6 +3579,7 @@ def main() -> int:
         for k, v in variants.items()}}))
     print(json.dumps({"fusion_modes": fusion_line}))
     print(json.dumps({"eval_ckpt": eval_ckpt}))
+    print(json.dumps({"data_cli": data_cli}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
                                   record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",

@@ -18,12 +18,16 @@ Layout
                  matcher, criterion.
 - ``train``    : the grouped optimizer, the train step and the COCO
                  evaluation loop.
-- ``data``     : on-device uint8 normalization, the COCO / CocoVID index
-                 and the bbox mAP evaluator.
+- ``data``     : the JPEG decoder and resize (host C++ in ``csrc/*.cpp``),
+                 the RGB-D COCO datasets, transforms and loader, on-device
+                 uint8 normalization, the COCO / CocoVID index and the bbox
+                 mAP evaluator.
+- ``cli``      : the training CLI (``python -m dfvod_tpu_torch.cli.main``
+                 / ``cli.main_multi``) with the JAX CLI's flags.
 - ``utils``    : box ops, config, weight conversion from the JAX package,
                  checkpoints (key surgery, save and resume, the ResNet-50
                  and DFormer converters), the reference-checkpoint
-                 converter, device choice.
+                 converter, device choice, metric logging.
 - ``serve``    : the serving entry point (single frames or clips).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

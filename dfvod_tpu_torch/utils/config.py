@@ -102,9 +102,9 @@ class LossConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer/schedule config (``main.py:311-435``). ``batch_size``,
-    ``num_devices``, ``profile_dir`` and ``eval_every`` are carried for the
-    data-path and CLI slices; the train step reads none of them (it takes
-    the batch it is given, on one device)."""
+    ``num_devices``, ``profile_dir`` and ``eval_every`` are read by the CLI
+    (``cli/main.py``), not by the train step, which takes the batch it is
+    given, on one device."""
     lr: float = 1e-4
     lr_backbone: float = 1e-5
     lr_linear_proj_mult: float = 0.1
@@ -149,9 +149,11 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The run configuration. The data part is carried for the data-path
-    slice; nothing in the port reads it yet (the train step normalizes
-    uint8 frames on the device, as ``device_preprocess=True`` would)."""
+    """The run configuration. The data part is read by the datasets,
+    transforms and loader (``data/dataset.py``, ``data/loader.py``) that
+    the CLI builds; the loader ships uint8 frames and the train step
+    normalizes them on the device, whether or not ``device_preprocess``
+    is set."""
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

@@ -13,11 +13,16 @@ opt-in forms: the folded-corner gather (K5b/c), the level-stacked sampling
 the CPU's. Last, the other two fusion modes: K1 and K2 at a copy of
 Backbone_CrossFusion's stage-2 geometry on their vector kernels, and small
 Encoder_CrossFusion and Backbone_CrossFusion models and train steps on the
-card against the CPU. They skip without a CUDA device. This file imports neither JAX
+card against the CPU. Then the data path: loader batches pinned and
+copied to the card against the host's, and one epoch of a small model
+through ``cli.main`` on the card against the CPU. They skip without a CUDA
+device. This file imports neither JAX
 nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1123,3 +1128,111 @@ def test_small_fusion_train_step_card_matches_cpu(cuda_device, mode):
                 name, rel)
         else:
             torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-3)
+
+
+# ------------------------------------------------------ data path and CLI
+SYNTH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "datasets", "synth_rgbd", "coco")
+
+
+def test_loader_batches_on_the_card_equal_the_host_batch(cuda_device):
+    """val.json's first batches through the loader, pinned and copied
+    ``non_blocking`` to the card: every key equal to the host batch."""
+    from dfvod_tpu_torch.data.dataset import CocoDetectionDataset
+    from dfvod_tpu_torch.data.loader import Loader
+    from dfvod_tpu_torch.data.transforms import EvalTransform
+    ds = CocoDetectionDataset(os.path.join(SYNTH, "images"),
+                              os.path.join(SYNTH, "annotations", "val.json"),
+                              use_depth=True, train=False)
+    kw = dict(batch_size=8, use_depth=True, shuffle=False)
+    host = Loader(ds, EvalTransform(600, 1333), **kw)
+    card = Loader(ds, EvalTransform(600, 1333), device=cuda_device, **kw)
+    for n, (h, c) in enumerate(zip(host, card)):
+        assert h.keys() == c.keys()
+        for k, v in h.items():
+            assert c[k].is_cuda
+            np.testing.assert_array_equal(c[k].cpu().numpy(), v, err_msg=k)
+        if n == 2:
+            break
+
+
+def synth_tree(root):
+    """8 frames of datasets/synth_rgbd (RGB and depth) under ``root`` as
+    the reference's layout, train.json = val.json."""
+    import json
+    import shutil
+    dirs = [os.path.join(root, "coco", d) for d in ("images", "depth_pred",
+                                                    "annotations")]
+    for d in dirs:
+        os.makedirs(d)
+    with open(os.path.join(SYNTH, "annotations", "val.json")) as f:
+        val = json.load(f)
+    images = val["images"][:8]
+    ids = {im["id"] for im in images}
+    for im in images:
+        for src, dst in zip(("images", "depth_pred"), dirs):
+            shutil.copy(os.path.join(SYNTH, src, im["file_name"]), dst)
+    ds = {**val, "images": images,
+          "annotations": [a for a in val["annotations"]
+                          if a["image_id"] in ids]}
+    for split in ("train", "val"):
+        with open(os.path.join(dirs[2], f"{split}.json"), "w") as f:
+            json.dump(ds, f)
+    return root
+
+
+def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """One epoch (one step of 8 frames, f32, dropout 0) of a small
+    LateFusion model through ``cli.main`` on the card and on the CPU: the
+    losses within the train step's gate (atol 1e-5 / rtol 1e-4); every
+    parameter within the gradient gate (atol 1e-4 / rtol 1e-3) or within
+    twice Adam's step, 2.01 lr (``chip_smoke.params_agree``: where K2's
+    summation order flips a noise-level gradient's sign, the two runs step
+    an entry in opposite directions). The card's run launches K1 and K2 3
+    times in its step (1 encoder, 1 depth encoder, 1 decoder layer) and K1
+    3 times in its final evaluation of one batch."""
+    import json
+    from dfvod_tpu_torch.cli import main as cli
+    from dfvod_tpu_torch.train.optim import label_params
+    from dfvod_tpu_torch.utils.checkpoint import load_checkpoint
+    tree = synth_tree(str(tmp_path / "data"))
+    lr = 1e-5
+
+    def argv(out):
+        return ["--coco_path", tree, "--output_dir", str(out),
+                "--hidden_dim", "32", "--nheads", "4", "--enc_layers", "1",
+                "--dec_layers", "1", "--dim_feedforward", "64",
+                "--num_queries", "12", "--dropout", "0",
+                "--num_feature_levels", "1", "--dilation",
+                "--with_box_refine", "--fusion_type", "LateFusion",
+                "--dformer_backbone", "--batch_size", "8", "--epochs", "1",
+                "--train_short_sides", "96", "--eval_short_side", "96",
+                "--max_size", "128", "--lr", str(lr), "--device_preprocess"]
+
+    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    logs, params = [], []
+    for dev in ("cpu", cuda_device):
+        out = tmp_path / str(dev)
+        stats = cli.main(argv(out), device=dev)
+        assert all(np.isfinite(v) for v in stats.values())
+        with open(out / "log.txt") as f:
+            logs.append(json.loads(f.readline()))
+        params.append(load_checkpoint(str(out))[0]["model"])
+    assert msda.ms_deform_attn_bwd.launches - bwd == 3
+    assert msda.ms_deform_attn.launches - fwd == 3 + 3
+    for k in ("train_loss", "train_loss_ce", "train_loss_bbox",
+              "train_loss_giou"):
+        np.testing.assert_allclose(logs[1][k], logs[0][k], atol=1e-5,
+                                   rtol=1e-4, err_msg=k)
+    model = build_model(Config(model=ModelConfig(
+        fusion_type="LateFusion", hidden_dim=32, nheads=4, enc_layers=1,
+        dec_layers=1, dim_feedforward=64, num_queries=12)), device="cpu")[0]
+    mult = {"base": 1.0, "linear_proj": 0.1, "fusion10x": 10.0,
+            "frozen": 0.0}
+    lrs = {k: lr * mult[label] for k, label in
+           label_params(model, "LateFusion").items()}
+    for k, r in params[0].items():
+        g = params[1][k].cpu().float()
+        err = (g - r.float()).abs()
+        close = err <= 1e-4 + 1e-3 * r.float().abs()
+        assert bool((close | (err <= 2.01 * lrs.get(k, 0.0))).all()), k
