@@ -122,10 +122,34 @@ Phases, each on lines of its own:
    video stage (TransVOD++, 2 reference frames, B=4,
    ``--fixed_pretrained_model``: 16 K1 + 1 K3 + 3 K2 + 0 K4 per step),
    the frozen parameters bitwise the spatial checkpoint's;
-11. the card line, JSON lines of the train, video-train, clip-serve,
-   serve-variant, fusion-mode, evaluation/checkpoint and data/CLI phases,
-   a JSON line of the kernels and the serving path, and the final line
-   ``{"ok": true, "device": {...}}``.
+11. the rest of the data layer (``phase_data_layer``): the PNG and HSV
+   host libraries built with g++; arrays of every PNG kind the reader
+   takes, written by ``png_bytes`` (standard-library zlib, the five row
+   filters), decoded bitwise, with host ms per 608x800 RGB and 16-bit
+   depth decode; the
+   Synth_LateFusion.sh loaders over a PNG copy of 24 train and 24 val
+   frames (written under chiprun_out/, removed after) bitwise the JPEG
+   ones; the s2d route: 3 Synth_LateFusion.sh steps packed and unpacked
+   from one seed, the first batch's normalized image equal on the card
+   and the first step's losses within the card-vs-CPU gate; then
+   ``configs/training/OID_Joint.sh`` through the CLI (--strong_aug, 448
+   short sides, B=8, bf16) for 1 epoch of the 240 frames of
+   datasets/oid_joint the repository holds (its 160 real OID frames lie in
+   the git-ignored datasets/oid_hands; synth_rgbd's 60 val frames stand
+   in for its 7 absent val photos): 30 steps, 13 K1 + 13 K2 per step,
+   ms per step, the loader's host ms per batch, the transform's ms per
+   batch with and without strong_aug and the share the loop waited;
+12. multi-level features (``phase_multi_level``): LateFusion with
+   num_feature_levels=4 at full width, B=8 608x800 bf16 serve and a B=6
+   LateFusion_bf16.sh-shaped step, 13 K1 (and 13 K2) per forward (and
+   backward), 12 of them over the 4 levels (76x100, 38x50, 38x50, 19x25),
+   with ms and peak memory; small 4-level models card vs CPU; K1 and K2
+   are also checked and timed alone at that encoder shape (``enc_l4``:
+   11875 queries over the 4 levels) in phase 3;
+13. the card line, JSON lines of the train, video-train, clip-serve,
+   serve-variant, fusion-mode, evaluation/checkpoint, data/CLI,
+   data-layer and multi-level phases, a JSON line of the kernels and the
+   serving path, and the final line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -276,7 +300,12 @@ def msda_bound(value, loc, attw, out, outside=False):
 # K1's timed shapes in the serving mix; cf_stage2 is Backbone_CrossFusion's
 # stage-2 fusion site at 608x800: 76x100 RGB queries onto the 152x200 depth
 # stem, 4x the queries and 16x the value tokens of the encoder's shape
-TIMED_FWD = ("enc", "dec", "tdam_l5", "enc_oob", "cf_stage2")
+TIMED_FWD = ("enc", "dec", "tdam_l5", "enc_oob", "cf_stage2", "enc_l4")
+# the encoder of num_feature_levels=4 at 608x800 with DC5: ResNet stages
+# 2-4 (strides 8, 16, 16) and one 3x3 stride-2 level, 11875 tokens
+LEVELS_4 = ((H // 8, W // 8), (H // 16, W // 16), (H // 16, W // 16),
+            (-(-H // 32), -(-W // 32)))
+ENC_L4_TOKENS = sum(h * w for h, w in LEVELS_4)
 
 
 def cf_stage2(B):
@@ -316,7 +345,9 @@ def phase_msda_kernel():
     multi = (((19, 25), (10, 13)), 2, 301, 8, 24, 4)
     # TDAM with 5 reference frames: the key frame's tokens into 5 levels
     tdam = (((38, 50),) * 5, 2, 1900, 8, 32, 4)
+    enc_l4 = (LEVELS_4, BATCH, ENC_L4_TOKENS, 8, 32, 4)
     cases = [("cf_stage2", cf_stage2(BATCH), serve, False),
+             ("enc_l4", enc_l4, serve, False),
              ("enc", enc, f32, False), ("enc", enc, serve, False),
              ("dec", dec, f32, False), ("dec", dec, serve, False),
              ("tdam_l5", tdam, f32, False), ("tdam_l5", tdam, serve, False),
@@ -371,7 +402,7 @@ def phase_msda_kernel():
             r["bound_ms"], r["bound_by"] = msda_bound(value, loc, attw, got,
                                                       outside=oob)
             yardstick = ""
-            if name in ("enc", "dec", "cf_stage2"):
+            if name in ("enc", "dec", "cf_stage2", "enc_l4"):
                 r["yardstick_ms"] = cuda_ms(lambda: grid_sample_msda(
                     value, shapes, loc, attw), 20)
                 yardstick = (f" grid_sample yardstick "
@@ -493,14 +524,16 @@ def phase_msda_bwd_kernel():
     tdam = (((38, 50),) * 5, 1, 1900, 8, 32, 4)
     # the TransVOD++ f32 training step: 1 clip x 5 frames
     video = (((38, 50),), CLIP_TRAIN_FRAMES, 1900, 8, 32, 4)
+    enc_l4 = (LEVELS_4, TRAIN_BATCH, ENC_L4_TOKENS, 8, 32, 4)
     # the recipes train Backbone_CrossFusion in f32 at B=6
-    cases = [("cf_stage2", cf_stage2(TRAIN_BATCH), f32)] + [
+    cases = [("cf_stage2", cf_stage2(TRAIN_BATCH), f32),
+             ("enc_l4", enc_l4, train)] + [
         (name, dims, dt) for name, dims in
         (("enc", enc), ("dec", dec), ("multi_d24", multi), ("oob", oob),
          ("integer_px", integer), ("tdam_l5", tdam))
         for dt in (f32, train, serve)] + [("video_f32", video, f32)]
     timed = {("enc", train), ("dec", train), ("tdam_l5", train),
-             ("video_f32", f32), ("cf_stage2", f32)}
+             ("video_f32", f32), ("cf_stage2", f32), ("enc_l4", train)}
     results = {}
     for name, (shapes, B, Lq, M, D, P), dtypes in cases:
         value, loc, attw = msda_inputs(gen, shapes, B, Lq, M, D, P, dtypes,
@@ -552,7 +585,7 @@ def phase_msda_bwd_kernel():
             r["bound_ms"], r["bound_by"] = msda_bwd_bound(
                 (value, loc, attw, go))
             yardstick = ""
-            if name in ("enc", "dec", "cf_stage2"):
+            if name in ("enc", "dec", "cf_stage2", "enc_l4"):
                 r["yardstick_ms"] = backward_ms(
                     lambda v, l, a: grid_sample_msda(v, shapes, l, a),
                     inputs, go, 10)
@@ -1366,24 +1399,25 @@ TAGS = {"LateFusion": "serve", "Encoder_CrossFusion": "serve-ecf",
         "Backbone_CrossFusion": "serve-bcf"}
 
 
-def phase_serve(requests=6, fusion="LateFusion", warmup=0):
+def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1):
     """The ``fusion`` recipe's model at full width, B=8 608x800 bf16
-    through ``Server``: ``warmup`` requests, then ``requests`` timed ones
-    with every kernel count set to 0 just before and read just after (the
-    first timed request is left out of the mean); the bf16 boxes against
-    the port's own f32 forward."""
+    through ``Server``, with ``levels`` feature levels: ``warmup``
+    requests, then ``requests`` timed ones with every kernel count set to
+    0 just before and read just after (the first timed request is left out
+    of the mean); the bf16 boxes against the port's own f32 forward."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.serve import Server
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
-    tag = TAGS[fusion]
-    cfg = Config(model=ModelConfig(fusion_type=fusion))
+    tag = TAGS[fusion] + (f"-L{levels}" if levels > 1 else "")
+    cfg = Config(model=ModelConfig(fusion_type=fusion,
+                                   num_feature_levels=levels))
     m = cfg.model
     print(f"[{tag}] {fusion} hidden={m.hidden_dim} heads={m.nheads} "
           f"enc={m.enc_layers} dec={m.dec_layers} queries={m.num_queries} "
-          f"dc5={m.dilation} refine={m.with_box_refine} B={BATCH} {H}x{W} "
-          f"bf16", flush=True)
+          f"levels={m.num_feature_levels} dc5={m.dilation} "
+          f"refine={m.with_box_refine} B={BATCH} {H}x{W} bf16", flush=True)
     t0 = time.perf_counter()
     ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
     randomize(ref_model, seed=1)
@@ -1408,13 +1442,16 @@ def phase_serve(requests=6, fusion="LateFusion", warmup=0):
             dets.append(server(x, s))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-    (_, counts), paths = path_counts(msda_paths("msda_fwd"),
-                                     lambda: counted(run))
+    with msda_levels(levels > 1) as levels_seen:
+        (_, counts), paths = path_counts(msda_paths("msda_fwd"),
+                                         lambda: counted(run))
     launches = counts["msda_fwd"]
     n = MSDA_LAYERS[fusion]
+    per_levels = {k: v // requests for k, v in levels_seen.items()}
     print(f"[{tag}] msda_fwd launches over {requests} requests: {launches}"
-          f" ({launches / requests:g} per forward; K1 paths {paths})",
-          flush=True)
+          f" ({launches / requests:g} per forward; K1 paths {paths}"
+          + (f"; per forward by levels {per_levels}" if levels > 1 else "")
+          + ")", flush=True)
     check(counts == want_launches(msda_fwd=n * requests),
           f"expected {n} msda_fwd launches per forward and no other kernel, "
           f"got {counts}")
@@ -1453,6 +1490,7 @@ def phase_serve(requests=6, fusion="LateFusion", warmup=0):
           "bf16 serve disagrees with the f32 forward")
     return ({"ms_per_batch": ms, "frames_per_s": BATCH / (ms / 1e3),
              "launches": launches, "requests": requests,
+             "launches_by_levels": per_levels,
              "peak_memory_gib": peak, "box_max": float(diff.max()),
              "box_mean": float(diff.mean()), "paths": paths},
             server, ref_model, reqs[0], out32)
@@ -1550,13 +1588,14 @@ def small_msda_layers(fusion, layers=2):
     return 2 * layers + extra
 
 
-def phase_small_cpu_reference(fusion="LateFusion"):
-    """A small model on the card (CUDA kernel) against the same model on
-    the CPU (plain MSDA), f32, padded inputs: atol 1e-4 / rtol 1e-3 (TF32
-    off; only summation order differs); K1 once per MSDA layer."""
+def phase_small_cpu_reference(fusion="LateFusion", levels=1):
+    """A small model (``levels`` feature levels) on the card (CUDA kernel)
+    against the same model on the CPU (plain MSDA), f32, padded inputs:
+    atol 1e-4 / rtol 1e-3 (TF32 off; only summation order differs); K1
+    once per MSDA layer."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
     from dfvod_tpu_torch.models import build_model
-    cfg = small_cfg(fusion)
+    cfg = small_cfg(fusion, num_feature_levels=levels)
     cpu_model, _, _ = build_model(cfg, device="cpu", seed=3)
     randomize(cpu_model, seed=4)
     gpu_model, _, _ = build_model(cfg, device="cuda", seed=3)
@@ -1573,7 +1612,7 @@ def phase_small_cpu_reference(fusion="LateFusion"):
     for k in ("pred_logits", "pred_boxes"):
         err = (got[k].cpu() - ref[k]).abs()
         ok = bool((err <= 1e-4 + 1e-3 * ref[k].abs()).all())
-        print(f"[small] {fusion} card vs cpu {k}: max_abs_err "
+        print(f"[small] {fusion} L={levels} card vs cpu {k}: max_abs_err "
               f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"small {fusion} model on the card disagrees with the CPU "
                   f"on {k}")
@@ -1802,22 +1841,25 @@ TRAIN_TAGS = {"LateFusion": "train", "Encoder_CrossFusion": "train-ecf",
               "Backbone_CrossFusion": "train-bcf"}
 
 
-def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16"):
+def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
+                levels=1):
     """The recipe of configs/training/LateFusion_bf16.sh (or, by
     ``fusion``, Encoder_CrossFusion.sh / Backbone_CrossFusion.sh) at full
-    width: one warm-up step, then ``steps`` timed ones with every kernel
-    count set to 0 just before and read just after. Every trainable group
+    width with ``levels`` feature levels: one warm-up step, then ``steps``
+    timed ones with every kernel count set to 0 just before and read just
+    after. Every trainable group
     and the DFormer BN statistics move; a frozen ResNet-50 (LateFusion,
     Encoder_CrossFusion) stays bitwise unchanged, Backbone_CrossFusion's
     trains."""
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.train import create_train_state, train_step
 
-    tag = TRAIN_TAGS[fusion]
-    cfg = train_cfg(fusion, train_dtype)
+    tag = TRAIN_TAGS[fusion] + (f"-L{levels}" if levels > 1 else "")
+    cfg = train_cfg(fusion, train_dtype, levels)
     m = cfg.model
     print(f"[{tag}] {fusion} hidden={m.hidden_dim} heads={m.nheads} "
           f"enc={m.enc_layers} dec={m.dec_layers} queries={m.num_queries} "
+          f"levels={m.num_feature_levels} "
           f"dropout={m.dropout} lr={cfg.train.lr} clip="
           f"{cfg.train.clip_max_norm} B={TRAIN_BATCH} {H}x{W} "
           f"{cfg.train.train_dtype}"
@@ -1847,18 +1889,37 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16"):
     want = want_launches(msda_fwd=n, msda_bwd=n)
     times = []
     fwd = bwd = 0
+    levels_seen = {}
+    paths = {"msda_fwd": {}, "msda_bwd": {}}
     for i, batch in enumerate(batches[1:]):
         t0 = time.perf_counter()
-        mt, launches = counted(lambda: train_step(state, criterion, batch))
+        if levels > 1:
+            with msda_levels() as seen:
+                ((mt, launches), p_fwd), p_bwd = path_counts(
+                    msda_paths("msda_bwd"), lambda: path_counts(
+                        msda_paths("msda_fwd"), lambda: counted(
+                            lambda: train_step(state, criterion, batch))))
+        else:
+            mt, launches = counted(lambda: train_step(state, criterion,
+                                                      batch))
+            seen, p_fwd, p_bwd = {}, None, None
         times.append(time.perf_counter() - t0)
+        levels_seen = dict(seen)
+        for name, got in (("msda_fwd", p_fwd), ("msda_bwd", p_bwd)):
+            for k, v in (got or {}).items():
+                paths[name][k] = paths[name].get(k, 0) + v
         metrics.append(mt)
         check(launches == want,
               f"{tag} step {i + 1} launched {launches}, not {want}")
         fwd += launches["msda_fwd"]
         bwd += launches["msda_bwd"]
+    by_levels = (f"; K1 per step by levels {levels_seen}, each K2 the "
+                 f"backward of one of them; by their C entries K1 "
+                 f"{paths['msda_fwd']}, K2 {paths['msda_bwd']}"
+                 if levels > 1 else "")
     print(f"[{tag}] launches over {steps} steps: msda_fwd {fwd}, msda_bwd "
           f"{bwd} ({n} and {n} per step; counts set to 0 before each "
-          f"step, read after)", flush=True)
+          f"step, read after){by_levels}", flush=True)
     for i, mt in enumerate(metrics):
         loss, gn = float(mt["loss"]), float(mt["grad_norm"])
         print(f"[{tag}] step {i}: loss {loss:.4f} grad_norm {gn:.4f} "
@@ -1919,11 +1980,41 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16"):
     return {"ms_per_step": ms, "frames_per_s": TRAIN_BATCH / (ms / 1e3),
             "first_step_ms": first_ms, "steps_ms": [1e3 * t for t in times],
             "peak_memory_gib": peak, "launches_fwd": fwd,
-            "launches_bwd": bwd, "steps": steps}
+            "launches_bwd": bwd, "launches_by_levels": levels_seen,
+            "paths": paths, "steps": steps}
 
 
 KERNELS = ("msda_fwd", "hat_sample_fwd", "msda_bwd", "hat_sample_bwd",
            "corner_gather_fwd", "hat_sample_sparse", "fused_bottleneck")
+
+
+class msda_levels:
+    """While active (and ``on``), {levels: calls} of the model's MSDA
+    layers (``models/layers.py::ms_deform_attn``, which launches K1 on the
+    card): how many of a path's K1 launches sample how many levels. Off,
+    it counts nothing and leaves the layers' calls as they are (the
+    1-level phases time the model without it)."""
+
+    def __init__(self, on=True):
+        self.on = on
+
+    def __enter__(self):
+        from dfvod_tpu_torch.models import layers
+        self.seen = {}
+        if not self.on:
+            return self.seen
+        self._kernel = kernel = layers.ms_deform_attn
+
+        def spy(value, shapes, loc, attw, **kw):
+            self.seen[len(shapes)] = self.seen.get(len(shapes), 0) + 1
+            return kernel(value, shapes, loc, attw, **kw)
+        layers.ms_deform_attn = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        from dfvod_tpu_torch.models import layers
+        if self.on:
+            layers.ms_deform_attn = self._kernel
 
 
 def kernel_counters():
@@ -1991,7 +2082,7 @@ def check_parts(ref_parts, parts, tag):
     return worst
 
 
-def phase_small_train_reference(impl=None, fusion="LateFusion"):
+def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1):
     """One train-step loss and every gradient, a small model on the card
     (CUDA kernels) against the same model on the CPU (plain MSDA): f32, TF32
     off, the same weights, batch and generator seed, dropout 0. Loss and
@@ -2000,13 +2091,14 @@ def phase_small_train_reference(impl=None, fusion="LateFusion"):
     With ``impl`` (a ``DFVOD_MSDA_IMPL`` of the gather forms) the model has
     6+6 layers, so all 13 MSDA layers take K5b/c forward and K2 backward
     on the card, the flat form's plain version and autograd on the CPU.
-    ``fusion`` picks the model's fusion mode (2+2 layers); with
+    ``fusion`` picks the model's fusion mode and ``levels`` its feature
+    levels (2+2 layers); with
     Backbone_CrossFusion the backbone trains, and its gradients are held
     in relative L2 norm within 1e-2 (``grads_close``, the video step's
     gate: ResNet-50 gradients differ by up to 5e-4 entry by entry, 9e-4 in
     relative L2, on an H100)."""
     layers = 6 if impl else 2
-    cfg = small_cfg(fusion, layers, dropout=0.0)
+    cfg = small_cfg(fusion, layers, dropout=0.0, num_feature_levels=levels)
     n_msda = small_msda_layers(fusion, layers)
     want = (want_launches(corner_gather_fwd=n_msda, msda_bwd=n_msda) if impl
             else want_launches(msda_fwd=n_msda, msda_bwd=n_msda))
@@ -2021,7 +2113,7 @@ def phase_small_train_reference(impl=None, fusion="LateFusion"):
     finally:
         os.environ.pop("DFVOD_MSDA_IMPL", None)
     tag = f"small train step under DFVOD_MSDA_IMPL={impl}" if impl else (
-        f"small {fusion} train step")
+        f"small {fusion} L={levels} train step")
     check(launches == want, f"the {tag} on the card launched {launches}, "
                             f"not {want}")
     worst = check_parts(ref_parts, parts, tag)
@@ -2050,7 +2142,8 @@ def phase_small_train_reference(impl=None, fusion="LateFusion"):
     check(not bad, f"{tag}: {len(bad)} gradients differ: {bad[:6]}")
     norm_line = (f"; {n_trunk} backbone gradients in relative L2, worst "
                  f"{rworst:.3e} (1e-2)" if trunk else "")
-    print(f"[small-train] {'impl=' + impl if impl else fusion} card vs "
+    print(f"[small-train] {'impl=' + impl if impl else fusion} L={levels} "
+          f"card vs "
           f"cpu: loss {float(parts['loss']):.6f} vs "
           f"{float(ref_parts['loss']):.6f}, max component err {worst:.3e} "
           f"(atol 1e-5 rtol 1e-4); {len(grads) - n_trunk} gradients, max "
@@ -2588,14 +2681,14 @@ def phase_eval_card_vs_cpu():
     return {"max_abs_err": worst, "stats_max_diff": diff}
 
 
-def train_cfg(fusion="LateFusion", train_dtype="bfloat16", **kw):
+def train_cfg(fusion="LateFusion", train_dtype="bfloat16", levels=1, **kw):
     """The recipe of configs/training/LateFusion_bf16.sh (or, by
     ``fusion``, Encoder_CrossFusion.sh / Backbone_CrossFusion.sh) in
-    ``train_dtype``."""
+    ``train_dtype``, with ``levels`` feature levels (the recipes' 1)."""
     from dfvod_tpu_torch.utils.config import Config
     return Config.from_flat(
         fusion_type=fusion, num_classes=3, num_queries=300,
-        num_feature_levels=1, dilation=True, with_box_refine=True,
+        num_feature_levels=levels, dilation=True, with_box_refine=True,
         dropout=0.2, lr=1e-5, weight_decay=2e-5, clip_max_norm=0.1,
         epochs=20, train_dtype=train_dtype, **kw)
 
@@ -2964,6 +3057,62 @@ def decode_digest(read_rgb, read_gray, root=SYNTH_RGBD):
     return digest.hexdigest()
 
 
+PNG_FILTERS = (0, 1, 2, 3, 4)      # None, Sub, Up, Average, Paeth
+
+
+def png_bytes(arr, filters=PNG_FILTERS, chunk=1 << 16):
+    """A non-interlaced PNG of ``arr`` written with the standard library's
+    ``zlib``: (H, W) uint8 or uint16 grey, (H, W, 2) grey + alpha, (H, W,
+    3) RGB or (H, W, 4) RGBA uint8. Row y takes filter
+    ``filters[y % len(filters)]``; the IDAT stream is split into chunks of
+    ``chunk`` bytes."""
+    import struct
+    import zlib
+    import numpy as np
+    arr = np.asarray(arr)
+    channels = 1 if arr.ndim == 2 else arr.shape[2]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    h, w = arr.shape[:2]
+    raw = (arr.astype(">u2") if depth == 16 else arr).reshape(h, -1).view(
+        np.uint8).astype(np.int32)
+    bpp = channels * depth // 8
+    rows = []
+    for y in range(h):
+        x = raw[y]
+        up = raw[y - 1] if y else np.zeros_like(x)
+        left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+        f = filters[y % len(filters)]
+        if f == 0:
+            pred = 0
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = up
+        elif f == 3:
+            pred = (left + up) >> 1
+        else:
+            p = left + up - ul
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, ul))
+        rows.append(bytes([f]) + ((x - pred) & 255).astype(np.uint8)
+                    .tobytes())
+    data = zlib.compress(b"".join(rows), 6)
+
+    def part(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    idat = b"".join(part(b"IDAT", data[i:i + chunk])
+                    for i in range(0, max(len(data), 1), chunk))
+    return (b"\x89PNG\r\n\x1a\n"
+            + part(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                        0))
+            + idat + part(b"IEND", b""))
+
+
 def synth_recipe_cfg(root=SYNTH_RGBD):
     """The Config of configs/training/Synth_LateFusion.sh on ``root``."""
     from dfvod_tpu_torch.cli.flags import config_from_args, get_args_parser
@@ -3276,6 +3425,348 @@ def video_params_check(video_out, spatial_out):
     return frozen, (moved, temporal)
 
 
+# ------------------------------------------ multi-level features (4 levels)
+def phase_multi_level():
+    """LateFusion with num_feature_levels=4 (ResNet stages 2-4 and one 3x3
+    stride-2 level; the depth stream at one level): the full-width B=8
+    608x800 bf16 serve (one warm-up, 4 timed requests) and one
+    LateFusion_bf16.sh-shaped B=6 train step (one warm-up, 2 timed), 13 K1
+    (and 13 K2) per forward (and backward), 12 of them over 4 levels;
+    small models card vs CPU, forward and train step, under the gates of
+    the 1-level phases."""
+    serve, server, ref_model, _, _ = phase_serve(requests=4, warmup=1,
+                                                 levels=4)
+    check(serve["launches_by_levels"] == {4: 12, 1: 1}
+          and serve["paths"] in (None, {"vector": 52, "scalar": 0}),
+          f"4-level serve: K1 per forward by levels "
+          f"{serve['launches_by_levels']}, want 12 at 4 levels, 1 at 1")
+    del server, ref_model
+    free_card()
+    phase_small_cpu_reference(levels=4)
+    phase_small_train_reference(levels=4)
+    train = phase_train(steps=2, levels=4)
+    check(train["launches_by_levels"] == {4: 12, 1: 1}
+          and sum(train["paths"]["msda_fwd"].values()) == 13 * train["steps"]
+          and sum(train["paths"]["msda_bwd"].values()) == 13 * train["steps"],
+          f"4-level step: K1 by levels {train['launches_by_levels']}, "
+          f"C entries {train['paths']}")
+    free_card()
+    return {"serve": {k: serve[k] for k in (
+        "ms_per_batch", "frames_per_s", "peak_memory_gib", "launches",
+        "requests", "launches_by_levels", "paths", "box_max", "box_mean")},
+        "train": {k: train[k] for k in (
+            "ms_per_step", "frames_per_s", "first_step_ms",
+            "peak_memory_gib", "launches_fwd", "launches_bwd",
+            "launches_by_levels", "paths", "steps")},
+        "levels_608x800": [list(hw) for hw in LEVELS_4]}
+
+
+# ------------------------------- the rest of the data layer (PNG, s2d, OID)
+OID_JOINT = os.path.join(REPO, "datasets", "oid_joint")
+CHIPRUN_OUT = os.path.join(REPO, "chiprun_out")
+
+
+def png_round_trip():
+    """Seeded arrays of every kind the reader takes, encoded by
+    ``png_bytes`` with the five row filters in turn and decoded by the
+    port: bitwise the arrays. Returns host ms per decode of a 608x800 RGB
+    frame and of a 608x800 16-bit depth map."""
+    import numpy as np
+    from dfvod_tpu_torch.data import image_io
+    rng = np.random.default_rng(0)
+    cases = [((37, 53), np.uint8), ((37, 53), np.uint16),
+             ((9, 17, 2), np.uint8), ((37, 53, 3), np.uint8),
+             ((37, 53, 4), np.uint8), ((1, 1, 3), np.uint8)]
+    for shape, dtype in cases:
+        arr = rng.integers(0, np.iinfo(dtype).max + 1, shape, dtype=dtype)
+        for filters in ((0,), (1,), (2,), (3,), (4,), PNG_FILTERS):
+            got = image_io.read_image(png_bytes(arr, filters, chunk=97))
+            want = arr[..., [0, 0, 0, 1]] if arr.ndim == 3 and \
+                arr.shape[2] == 2 else arr
+            check(got.dtype == want.dtype and np.array_equal(got, want),
+                  f"PNG {shape} {dtype.__name__} filters {filters} decodes "
+                  f"to other samples")
+    yy, xx = np.mgrid[:H, :W]
+    rgb = np.stack([(xx * 255) // W, (yy * 255) // H, (xx + yy) % 256],
+                   -1).astype(np.uint8)
+    rgb = (rgb + rng.integers(0, 8, rgb.shape)).astype(np.uint8)
+    depth = (yy * 60 + xx * 7 + rng.integers(0, 64, yy.shape)).astype(
+        np.uint16)
+    times = {}
+    for name, arr in (("rgb_608x800", rgb), ("depth16_608x800", depth)):
+        data = png_bytes(arr)
+        check(np.array_equal(image_io.read_image(data), arr),
+              f"{name} decodes to other samples")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            image_io.read_image(data)
+        times[name] = 1e3 * (time.perf_counter() - t0) / 5
+    return times
+
+
+def png_synth_tree(n=24):
+    """A PNG copy of the first ``n`` train and val frames of
+    datasets/synth_rgbd under chiprun_out/png_synth: each JPEG decoded by
+    the port, written as an 8-bit RGB and an 8-bit grey PNG, the
+    annotations filtered to those frames."""
+    import numpy as np
+    from dfvod_tpu_torch.data import image_io
+    root = os.path.join(CHIPRUN_OUT, "png_synth")
+    shutil.rmtree(root, ignore_errors=True)
+    coco = os.path.join(root, "coco")
+    for sub in ("images", "depth_pred", "annotations"):
+        os.makedirs(os.path.join(coco, sub))
+    src = os.path.join(SYNTH_RGBD, "coco")
+    for split in ("train", "val"):
+        with open(os.path.join(src, "annotations", f"{split}.json")) as f:
+            ann = json.load(f)
+        ann["images"] = ann["images"][:n]
+        ids = {im["id"] for im in ann["images"]}
+        ann["annotations"] = [a for a in ann["annotations"]
+                              if a["image_id"] in ids]
+        for im in ann["images"]:
+            name = im["file_name"]
+            im["file_name"] = name[:-4] + ".png"
+            for sub, read in (("images", image_io.read_rgb),
+                              ("depth_pred", image_io.read_gray)):
+                arr = read(os.path.join(src, sub, name))
+                with open(os.path.join(coco, sub, im["file_name"]),
+                          "wb") as f:
+                    f.write(png_bytes(np.ascontiguousarray(arr)))
+        with open(os.path.join(coco, "annotations", f"{split}.json"),
+                  "w") as f:
+            json.dump(ann, f)
+    return root
+
+
+def png_loader_pass():
+    """The Synth_LateFusion.sh loaders over the PNG copy of its frames:
+    the batches bitwise those of the same loaders over the JPEG frames the
+    PNGs encode (same seed, the annotations cut to the same images)."""
+    import numpy as np
+    root = png_synth_tree()
+    png = loader_batches(synth_recipe_cfg(root), 2, 2)
+    jpeg_root = os.path.join(CHIPRUN_OUT, "jpeg_synth")
+    shutil.rmtree(jpeg_root, ignore_errors=True)
+    shutil.copytree(root, jpeg_root, ignore=lambda d, names: [
+        n for n in names if n.endswith(".png")])
+    coco = os.path.join(jpeg_root, "coco")
+    for split in ("train", "val"):
+        path = os.path.join(coco, "annotations", f"{split}.json")
+        with open(path) as f:
+            ann = json.load(f)
+        for im in ann["images"]:
+            im["file_name"] = im["file_name"][:-4] + ".jpg"
+            for sub in ("images", "depth_pred"):
+                os.symlink(os.path.join(SYNTH_RGBD, "coco", sub,
+                                        im["file_name"]),
+                           os.path.join(coco, sub, im["file_name"]))
+        with open(path, "w") as f:
+            json.dump(ann, f)
+    jpeg = loader_batches(synth_recipe_cfg(jpeg_root), 2, 2)
+    for b, (p, j) in enumerate(zip(png, jpeg)):
+        check(p.keys() == j.keys() and all(
+            np.array_equal(np.asarray(p[k]), np.asarray(j[k])) for k in p),
+            f"PNG loader batch {b} differs from the JPEG one")
+    shutil.rmtree(jpeg_root)
+    shutil.rmtree(root)
+    return len(png), tuple(png[0]["image"].shape)
+
+
+def phase_s2d(steps=3):
+    """Synth_LateFusion.sh's first ``steps`` train batches packed
+    (--pack_s2d) and unpacked, from one seed, through two copies of the
+    recipe's model on the card: the packed and unpacked first batches give
+    the same normalized image, and the first step's loss and components
+    agree within the card-vs-CPU loss gate (atol 1e-5 / rtol 1e-4); every
+    loss finite; 13 K1 and 13 K2 launches per step either way."""
+    import copy
+    import dataclasses
+    from dfvod_tpu_torch.data.dataset import build_dataset, make_transform
+    from dfvod_tpu_torch.data.device_pipeline import (normalize_frames,
+                                                      unpack_s2d)
+    from dfvod_tpu_torch.data.loader import Loader, to_train_batch
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.train import create_train_state, train_step
+    cfg = synth_recipe_cfg()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             dropout=0.0))
+    model, criterion, _ = build_model(cfg, device="cpu", seed=0)
+    randomize(model, seed=1)
+    runs = {}
+    for pack in (False, True):
+        loader = Loader(build_dataset("train", cfg),
+                        make_transform(True, cfg),
+                        batch_size=cfg.train.batch_size,
+                        max_boxes=cfg.data.max_boxes, use_depth=True,
+                        seed=cfg.train.seed, shuffle=True, drop_last=True,
+                        pack_s2d=pack, device="cuda")
+        batches = []
+        for b in loader:
+            batches.append(b)
+            if len(batches) == steps:
+                break
+        state = create_train_state(copy.deepcopy(model).to("cuda"), cfg,
+                                   steps_per_epoch=len(loader))
+        metrics = []
+        for b in batches:
+            mt, launches = counted(lambda: train_step(
+                state, criterion, to_train_batch(b)))
+            check(launches == CLI_STEP_LAUNCHES,
+                  f"s2d={pack}: step launched {launches}")
+            metrics.append({k: float(v) for k, v in mt.items()})
+        first = normalize_frames(batches[0]["image"], batches[0]["size"])
+        runs[pack] = (metrics, first, tuple(batches[0]["image"].shape))
+        del state
+        free_card()
+    (m0, (img0, mask0), shape0), (m1, (img1, mask1), shape1) = (
+        runs[False], runs[True])
+    check(shape1[-1] == 16 and shape1[1] * 2 == shape0[1],
+          f"packed batch {shape1} vs {shape0}")
+    check(torch.equal(unpack_s2d(img1), img0) and torch.equal(mask1, mask0),
+          "the packed first batch normalizes to another image on the card")
+    # the first step from the same weights; later ones start from weights
+    # that K2's atomics (summation order) have already parted
+    worst = 0.0
+    for k in ("loss", "loss_ce", "loss_bbox", "loss_giou"):
+        a, b = m0[0][k], m1[0][k]
+        worst = max(worst, abs(a - b))
+        check(abs(a - b) <= 1e-5 + 1e-4 * abs(a),
+              f"s2d first step {k}: packed {b} vs unpacked {a}")
+    check(all(math.isfinite(m[k]) for m in m0 + m1 for k in m),
+          "s2d: a non-finite loss")
+    later = max(abs(a["loss"] - b["loss"]) for a, b in zip(m0[1:], m1[1:]))
+    print(f"[s2d] Synth_LateFusion.sh {steps} steps packed {shape1} and "
+          f"unpacked {shape0}: the first batch's normalized image bitwise "
+          f"equal on the card, first-step losses max diff {worst:.3e} "
+          f"(atol 1e-5 rtol 1e-4), later steps' losses {later:.3e} apart; "
+          f"13 K1 + 13 K2 per step ({card_line()})", flush=True)
+    return {"steps": steps, "loss_max_diff": worst,
+            "later_loss_max_diff": later,
+            "packed_shape": list(shape1), "unpacked_shape": list(shape0),
+            "first_losses": {"unpacked": m0[0]["loss"],
+                             "packed": m1[0]["loss"]}}
+
+
+def oid_joint_tree(tmp):
+    """datasets/oid_joint as far as its files are in the repository: its
+    train.json cut to the frames present (the 240 synthetic ones; the 160
+    real OID photos it oversamples lie in the git-ignored
+    datasets/oid_hands), and, since none of its 7 real val photos is
+    present, datasets/synth_rgbd's 60 val frames as the val split."""
+    coco = os.path.join(tmp, "coco")
+    for sub in ("images", "depth_pred", "annotations"):
+        os.makedirs(os.path.join(coco, sub))
+    for split, root in (("train", OID_JOINT), ("val", SYNTH_RGBD)):
+        src = os.path.join(root, "coco")
+        with open(os.path.join(src, "annotations", f"{split}.json")) as f:
+            ann = json.load(f)
+        ann["images"] = [im for im in ann["images"] if all(
+            os.path.exists(os.path.join(src, sub, im["file_name"]))
+            for sub in ("images", "depth_pred"))]
+        ids = {im["id"] for im in ann["images"]}
+        ann["annotations"] = [a for a in ann["annotations"]
+                              if a["image_id"] in ids]
+        for im in ann["images"]:
+            for sub in ("images", "depth_pred"):
+                os.symlink(os.path.realpath(os.path.join(
+                    src, sub, im["file_name"])), os.path.join(
+                        coco, sub, im["file_name"]))
+        with open(os.path.join(coco, "annotations", f"{split}.json"),
+                  "w") as f:
+            json.dump(ann, f)
+    return tmp
+
+
+def photometric_ms(cfg, n=32):
+    """Host ms per batch of the train transform with and without
+    ``strong_aug``, each on the same ``n`` frames in batches of the
+    recipe's size (decode excluded)."""
+    import dataclasses
+    import numpy as np
+    from dfvod_tpu_torch.data.dataset import build_dataset, make_transform
+    ds = build_dataset("train", cfg)
+    clips = [ds[i] for i in range(n)]
+    out = {}
+    for strong in (False, True):
+        c = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, strong_aug=strong))
+        tf = make_transform(True, c)
+        t0 = time.perf_counter()
+        for i, clip in enumerate(clips):
+            tf(clip, np.random.default_rng(i))
+        out["strong_aug" if strong else "plain"] = (
+            1e3 * (time.perf_counter() - t0) / n * cfg.train.batch_size)
+    return out
+
+
+def phase_data_layer():
+    """The rest of the data layer: the PNG and HSV libraries built, the PNG
+    round trip and a loader pass over a PNG copy of synth_rgbd frames, the s2d
+    route, then configs/training/OID_Joint.sh through the port's CLI
+    (--strong_aug, --device_preprocess, 448 short sides, B=8, bf16) for 1
+    epoch on the frames of datasets/oid_joint that the repository holds."""
+    import tempfile
+    from dfvod_tpu_torch.ops import build
+    names = ("png_unfilter", "photometric")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build.build_host, names))
+    for (path, seconds, _), name in zip(built, names):
+        print(f"[data-layer] {name}.cpp -> {os.path.relpath(path, REPO)}: "
+              f"{seconds:.1f} s g++", flush=True)
+    decode = png_round_trip()
+    batches, shape = png_loader_pass()
+    print(f"[data-layer] PNG: every colour type, both depths and the five "
+          f"row filters round-trip bitwise; decode host ms per frame "
+          + ", ".join(f"{k} {v:.2f}" for k, v in decode.items())
+          + f"; Synth_LateFusion.sh loaders over a PNG copy of 24+24 "
+          f"frames: {batches} batches {shape} bitwise the JPEG ones",
+          flush=True)
+    results = {"png_decode_ms": decode, "png_loader_batches": batches,
+               "s2d": phase_s2d()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = oid_joint_tree(os.path.join(tmp, "oid_joint"))
+        module, argv = recipe_argv("OID_Joint.sh", COCO_PATH=root)
+        from dfvod_tpu_torch.cli.flags import (config_from_args,
+                                               get_args_parser)
+        cfg = config_from_args(get_args_parser().parse_args(argv))
+        check(cfg.data.strong_aug
+              and tuple(cfg.data.train_short_sides) == (448,)
+              and cfg.train.batch_size == 8
+              and cfg.train.train_dtype == "bfloat16",
+              f"OID_Joint.sh's configuration: {cfg.data} {cfg.train}")
+        aug = photometric_ms(cfg)
+        out = os.path.join(tmp, "out")
+        stats, probe, wall, total, lines = run_cli(
+            "OID_Joint.sh", out, "--epochs", "1", "--eval_every", "1",
+            env={"COCO_PATH": root})
+        per_step = check_cli_launches(probe, total, CLI_STEP_LAUNCHES,
+                                      CLI_EVAL_LAUNCHES, "OID_Joint")
+        check_stats(stats, "OID_Joint")
+        check(len(probe.steps) == 30 and math.isfinite(
+            lines[0]["train_loss"]), f"OID_Joint: {len(probe.steps)} steps, "
+              f"loss {lines[0].get('train_loss')}")
+        oid = {**epoch_timing(lines[0], probe.steps), "wall_s": wall,
+               "launches_per_step": per_step, "stats": stats,
+               "train_loss": lines[0]["train_loss"],
+               "transform_ms_per_batch": aug}
+    results["oid_joint"] = oid
+    print(f"[data-layer] OID_Joint.sh 1 epoch (--strong_aug, 448, B=8, bf16;"
+          f" 240 frames): {oid['steps']} steps {oid['ms_per_step']:.1f} "
+          f"ms/step (median after 2); loader host ms/batch "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      oid["loader_ms_per_batch"].items())
+          + f"; the transform alone {aug['plain']:.1f} ms/batch plain, "
+          f"{aug['strong_aug']:.1f} with strong_aug; loop waited "
+          f"{100 * oid['loader_waited_share']:.2f}% of the epoch's "
+          f"{oid['epoch_s']:.1f} s; K1/K2 per step {per_step['msda_fwd']}/"
+          f"{per_step['msda_bwd']}; train loss {oid['train_loss']:.4f}, "
+          f"mAP_50 {stats['mAP_50']:.4f} ({card_line()})", flush=True)
+    free_card()
+    return results
+
+
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
            "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck")
 
@@ -3356,6 +3847,8 @@ def main() -> int:
     ecf, bcf = (fusion[m] for m in FUSION_MODES)
     eval_ckpt = phase_eval_ckpt(train["peak_memory_gib"])
     data_cli = phase_data_cli()
+    data_layer = phase_data_layer()
+    multi = phase_multi_level()
 
     enc = kern["enc"]
     record = {
@@ -3385,6 +3878,9 @@ def main() -> int:
         "eval_launches": eval_ckpt["single"]["launches"]["msda_fwd"],
         "clip_eval_launches": eval_ckpt["clips"]["launches"]["msda_fwd"],
         "remat_train_launches": eval_ckpt["remat"]["launches_fwd"],
+        "enc_l4": kern["enc_l4"],
+        "multilevel_serve_launches": multi["serve"]["launches"],
+        "multilevel_train_launches": multi["train"]["launches_fwd"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -3409,6 +3905,8 @@ def main() -> int:
         "encoder_cf_train_launches": ecf["train"]["launches_bwd"],
         "backbone_cf_train_launches": bcf["train"]["launches_bwd"],
         "remat_train_launches": eval_ckpt["remat"]["launches_bwd"],
+        "enc_l4": kern_bwd["enc_l4"],
+        "multilevel_train_launches": multi["train"]["launches_bwd"],
     }
     record_hat = {
         "name": "hat_sample_fwd", "route": "cuda",
@@ -3547,7 +4045,12 @@ def main() -> int:
     fusion_line["bidirectional_relative_l2"] = fusion[
         "bidirectional_relative_l2"]
     for r in (record, record["decoder"], record["tdam_l5"], record["enc_oob"],
-              record["cf_stage2"], record_bwd, record_bwd["decoder"],
+              record["cf_stage2"], record["enc_l4"], record_bwd["enc_l4"],
+              multi["serve"], multi["train"], data_layer["png_decode_ms"],
+              data_layer["s2d"], data_layer["oid_joint"],
+              data_layer["oid_joint"]["loader_ms_per_batch"],
+              data_layer["oid_joint"]["transform_ms_per_batch"],
+              record_bwd, record_bwd["decoder"],
               record_bwd["tdam_l5"], record_bwd["video_f32"],
               record_bwd["needs_ms"], record_bwd["cf_stage2"], record_hat,
               record_hat_bwd, *record_hat_bwd["other"].values(),
@@ -3580,6 +4083,8 @@ def main() -> int:
     print(json.dumps({"fusion_modes": fusion_line}))
     print(json.dumps({"eval_ckpt": eval_ckpt}))
     print(json.dumps({"data_cli": data_cli}))
+    print(json.dumps({"data_layer": data_layer}))
+    print(json.dumps({"multi_level": multi}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
                                   record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",

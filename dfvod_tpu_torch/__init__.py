@@ -18,10 +18,11 @@ Layout
                  matcher, criterion.
 - ``train``    : the grouped optimizer, the train step and the COCO
                  evaluation loop.
-- ``data``     : the JPEG decoder and resize (host C++ in ``csrc/*.cpp``),
-                 the RGB-D COCO datasets, transforms and loader, on-device
-                 uint8 normalization, the COCO / CocoVID index and the bbox
-                 mAP evaluator.
+- ``data``     : the JPEG decoder, PNG reader, resize and HSV conversions
+                 (host C++ in ``csrc/*.cpp``), the RGB-D COCO datasets,
+                 transforms (photometric ``strong_aug`` included) and
+                 loader (host s2d packing), on-device uint8 normalization,
+                 the COCO / CocoVID index and the bbox mAP evaluator.
 - ``cli``      : the training CLI (``python -m dfvod_tpu_torch.cli.main``
                  / ``cli.main_multi``) with the JAX CLI's flags.
 - ``utils``    : box ops, config, weight conversion from the JAX package,

@@ -1,5 +1,7 @@
 """Reading frames from disk: a baseline JPEG decoder in host C++
-(``csrc/jpeg_decode.cpp``), bound with ctypes.
+(``csrc/jpeg_decode.cpp``) and a PNG reader (the chunks and the inflate in
+Python, the row unfiltering in host C++, ``csrc/png_unfilter.cpp``), bound
+with ctypes.
 
 Counterpart of the JAX package's ``PIL.Image.open(...).convert("RGB")``
 (``dfvod_tpu/data/dataset.py:162-174``) and ``cv2.imread(...,
@@ -9,14 +11,25 @@ card machine has neither). The library is built at first use
 (``ops/build.py::load_host``); a failed build raises.
 
 Each reader takes a path or the file's ``bytes``. Unsupported files
-(progressive, arithmetic-coded, 12-bit, lossless, CMYK) and truncated ones
-raise ``ValueError`` naming what they are; PNG waits for a later slice.
+(JPEG: progressive, arithmetic-coded, 12-bit, lossless, CMYK; PNG:
+Adam7-interlaced, 1/2/4-bit samples, 16-bit colour) and truncated or
+corrupt ones raise ``ValueError`` naming what they are.
+
+PNG (non-interlaced; colour types 0, 2, 3, 4, 6 at 8 bits, type 0 at 16
+bits): ``read_image`` gives the samples as ``cv2.imread(IMREAD_UNCHANGED)``
+does, in RGB(A) order: a 16-bit grey map stays uint16, grey + alpha becomes
+grey, grey, grey, alpha, and a palette is expanded (to RGBA when it has a
+``tRNS`` chunk). ``read_rgb`` follows PIL's ``convert("RGB")``: grey is
+repeated, alpha dropped, a palette expanded, 16-bit grey clipped to 255.
+The IDAT stream is inflated with the standard library's ``zlib``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import os
+import struct
+import zlib
 from typing import Union
 
 import numpy as np
@@ -52,10 +65,130 @@ def _read(src: Source):
         return f.read(), os.fspath(src)
 
 
+@functools.lru_cache(maxsize=1)
+def _png_lib() -> ctypes.CDLL:
+    lib = build.load_host("png_unfilter")
+    lib.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                 ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_uint8)]
+    lib.png_unfilter.restype = ctypes.c_int64
+    return lib
+
+
+# PNG colour type -> (name, samples per pixel)
+_PNG_TYPES = {0: ("grey", 1), 2: ("RGB", 3), 3: ("palette", 1),
+              4: ("grey + alpha", 2), 6: ("RGBA", 4)}
+
+
+def _png_chunks(data: bytes, name: str):
+    """The chunks after the signature as (type, payload), CRCs checked, up
+    to IEND."""
+    pos = len(_PNG_SIGNATURE)
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"{name}: truncated PNG (no IEND chunk)")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 8 + length
+        if end + 4 > len(data):
+            raise ValueError(f"{name}: truncated PNG ({kind!r} chunk)")
+        payload = data[pos + 8:end]
+        crc, = struct.unpack(">I", data[end:end + 4])
+        if zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"{name}: PNG chunk {kind!r} fails its CRC")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos = end + 4
+
+
+def _read_png(data: bytes, name: str):
+    """(samples (H, W, C) uint8 or uint16, colour type, palette (N, 3) or
+    None, palette alpha (N,) or None)."""
+    chunks = list(_png_chunks(data, name))
+    if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
+        raise ValueError(f"{name}: PNG without an IHDR chunk")
+    w, h, depth, ctype, comp, filt, interlace = struct.unpack(
+        ">IIBBBBB", chunks[0][1])
+    if ctype not in _PNG_TYPES or comp or filt:
+        raise ValueError(f"{name}: PNG with colour type {ctype}, "
+                         f"compression {comp}, filter method {filt}")
+    kind, channels = _PNG_TYPES[ctype]
+    if interlace:
+        raise ValueError(f"{name}: Adam7-interlaced PNG ({kind}, {depth}-bit)"
+                         " is not decoded; only non-interlaced PNG is")
+    if depth != 8 and not (depth == 16 and ctype == 0):
+        raise ValueError(f"{name}: {depth}-bit {kind} PNG is not decoded; "
+                         "8-bit samples are, and 16-bit grey")
+    if not (0 < h < 1 << 16 and 0 < w < 1 << 16):
+        raise ValueError(f"{name}: PNG of {w}x{h} pixels")
+    palette = alpha = None
+    idat = []
+    for kind_, payload in chunks[1:]:
+        if kind_ == b"IDAT":
+            idat.append(payload)
+        elif kind_ == b"PLTE":
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif kind_ == b"tRNS" and ctype == 3:
+            alpha = np.frombuffer(payload, np.uint8)
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{name}: corrupt PNG image data ({e})") from None
+    nbytes = depth // 8
+    row = w * channels * nbytes
+    out = np.empty((h, row), np.uint8)
+    code = _png_lib().png_unfilter(
+        raw, len(raw), h, row, channels * nbytes,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if code == 1:
+        raise ValueError(f"{name}: PNG image data of {len(raw)} bytes, not "
+                         f"{h * (row + 1)}")
+    if code:
+        raise ValueError(f"{name}: PNG row {code - 2} has an unknown filter "
+                         "type")
+    if nbytes == 2:
+        out = out.view(">u2").astype(np.uint16)
+    return out.reshape(h, w, channels), ctype, palette, alpha
+
+
+def _png_palette(samples, palette, alpha, name, with_alpha):
+    idx = samples[..., 0]
+    if int(idx.max()) >= len(palette):
+        raise ValueError(f"{name}: palette index beyond the PLTE chunk")
+    rgb = palette[idx]
+    if not with_alpha:
+        return rgb
+    a = np.full(len(palette), 255, np.uint8)
+    a[:min(len(alpha), len(palette))] = alpha[:len(palette)]
+    return np.concatenate([rgb, a[idx][..., None]], -1)
+
+
+def _png_image(data: bytes, name: str) -> np.ndarray:
+    samples, ctype, palette, alpha = _read_png(data, name)
+    if ctype == 0:
+        return samples[..., 0]
+    if ctype == 3:
+        return _png_palette(samples, palette, alpha, name, alpha is not None)
+    if ctype == 4:
+        return samples[..., [0, 0, 0, 1]]
+    return samples
+
+
+def _png_rgb(data: bytes, name: str) -> np.ndarray:
+    samples, ctype, palette, alpha = _read_png(data, name)
+    if ctype == 3:
+        return _png_palette(samples, palette, alpha, name, False)
+    if ctype in (0, 4):
+        grey = samples[..., 0]
+        if grey.dtype == np.uint16:
+            grey = np.minimum(grey, 255).astype(np.uint8)
+        return np.repeat(grey[..., None], 3, -1)
+    return np.ascontiguousarray(samples[..., :3])
+
+
 def _header(data: bytes, name: str):
-    if data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{name}: PNG (16-bit depth maps) waits for the PNG "
-                         "and 16-bit depth slice; only JPEG is decoded")
     h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     lib = _lib()
     code = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w),
@@ -79,8 +212,11 @@ def _decode(data: bytes, name: str, h: int, w: int, channels: int):
 def read_image(src: Source) -> np.ndarray:
     """The file's own samples, as ``cv2.imread(IMREAD_UNCHANGED)`` gives
     them but in RGB order: (H, W) uint8 for a grayscale JPEG, (H, W, 3) for
-    a colour one."""
+    a colour one; for a PNG see the module docstring ((H, W) uint16 for a
+    16-bit grey map)."""
     data, name = _read(src)
+    if data.startswith(_PNG_SIGNATURE):
+        return _png_image(data, name)
     h, w, c = _header(data, name)
     out = _decode(data, name, h, w, 1 if c == 1 else 3)
     return out[..., 0] if c == 1 else out
@@ -90,13 +226,21 @@ def read_rgb(src: Source) -> np.ndarray:
     """(H, W, 3) uint8 RGB, as ``PIL.Image.open(src).convert("RGB")``: a
     grayscale file's samples are repeated in the three channels."""
     data, name = _read(src)
+    if data.startswith(_PNG_SIGNATURE):
+        return _png_rgb(data, name)
     h, w, _ = _header(data, name)
     return _decode(data, name, h, w, 3)
 
 
 def read_gray(src: Source) -> np.ndarray:
-    """(H, W) uint8 of a single-component JPEG; a colour file raises."""
+    """(H, W) uint8 of a single-component JPEG or an 8-bit grey PNG; a
+    colour file raises."""
     data, name = _read(src)
+    if data.startswith(_PNG_SIGNATURE):
+        out = _png_image(data, name)
+        if out.ndim != 2 or out.dtype != np.uint8:
+            raise ValueError(f"{name}: not an 8-bit single-channel image")
+        return out
     h, w, c = _header(data, name)
     if c != 1:
         raise ValueError(f"{name}: has {c} channels (expected a "

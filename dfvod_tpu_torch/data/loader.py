@@ -17,8 +17,9 @@ Augmentation draws come from ``np.random.default_rng((seed, epoch, rank,
 batch_index))``, so batches do not depend on the number of workers and
 equal the JAX package's.
 
-Data parallelism (``world`` > 1) waits for item 14; the host-side s2d
-packing (``pack_s2d``) waits for the s2d slice.
+With ``pack_s2d`` each batch's canvas is 2x2 space-to-depth packed on the
+host (``data/device_pipeline.py::pack_s2d``): the same bytes, (B', H/2,
+W/2, 12|16). Data parallelism (``world`` > 1) waits for item 14.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
+from dfvod_tpu_torch.data.device_pipeline import pack_s2d
 from dfvod_tpu_torch.data.transforms import bucket_shape, pad_u8
 
 TIMING_KEYS = ("decode", "transform", "collate", "wait")
@@ -77,10 +79,6 @@ class Loader:
             raise NotImplementedError(
                 f"world={world}: a loader sharded over processes waits for "
                 "data parallelism (ROADMAP.md item 14)")
-        if pack_s2d:
-            raise NotImplementedError(
-                "pack_s2d (host space-to-depth packing) waits for the s2d "
-                "slice")
         self.dataset = dataset
         self.transform = transform
         self.batch_size = batch_size
@@ -92,6 +90,7 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.pack_s2d = pack_s2d
         self.device = torch.device(device) if device is not None else None
         # DFVOD_BUCKET_LADDER="512,896": snap every padded dim up to the
         # nearest rung instead of the BUCKET_STEP multiple (read once, as
@@ -142,7 +141,7 @@ class Loader:
                        out_img=canvas[i]) for i, f in enumerate(frames)]
         batch = {k: np.stack([c[k] for c in cols])
                  for k in cols[0] if k != "image"}
-        batch["image"] = canvas
+        batch["image"] = pack_s2d(canvas) if self.pack_s2d else canvas
         self._add(transform=t1 - t0, collate=time.perf_counter() - t1)
         return batch
 

@@ -12,8 +12,9 @@ Frames stay uint8: ``pad_u8`` writes them into the batch's canvas and the
 train step and ``eval_forward`` normalize on the device
 (``data/device_pipeline.py``), whether or not ``--device_preprocess`` is
 set. Every resize goes through the port's host library
-(``data/native.py``). The photometric ``strong_aug`` and the segmentation
-masks wait for later slices.
+(``data/native.py``). ``strong_aug`` puts the photometric distortion and
+``MinIoURandomCrop`` (``data/photometric.py``) before the flip and resize.
+The segmentation masks wait for a later slice.
 """
 from __future__ import annotations
 
@@ -125,26 +126,26 @@ def pad_u8(sample: Sample, pad_hw: Tuple[int, int], use_depth: bool,
             "orig_size": np.array(sample.orig_size, np.int64)}
 
 
-def _no_strong_aug():
-    raise NotImplementedError(
-        "strong_aug (photometric distortion + MinIoURandomCrop) waits for "
-        "the photometric slice (data/photometric.py)")
-
-
 @dataclasses.dataclass
 class TrainTransform:
     """HFlip + multi-scale resize; one draw shared across a clip, from the
-    same ``rng`` calls in the same order as the JAX package."""
+    same ``rng`` calls in the same order as the JAX package.
+    ``strong_aug`` first applies the photometric distortion, then
+    ``MinIoURandomCrop`` (``transforms_multi.py:254-398`` of the
+    reference), clip-consistently."""
     short_sides: Sequence[int] = tuple(range(480, 801, 32))
     max_size: int = 1333
     strong_aug: bool = False
 
-    def __post_init__(self):
-        if self.strong_aug:
-            _no_strong_aug()
-
     def __call__(self, frames: List[Sample], rng: np.random.Generator
                  ) -> List[Sample]:
+        if self.strong_aug:
+            from dfvod_tpu_torch.data.photometric import (
+                MinIoURandomCrop,
+                PhotometricDistortion,
+            )
+            frames = MinIoURandomCrop()(PhotometricDistortion()(frames, rng),
+                                        rng)
         flip = rng.random() < 0.5
         short = int(rng.choice(np.asarray(self.short_sides)))
         return [_resize(_hflip(s) if flip else s, short, self.max_size)

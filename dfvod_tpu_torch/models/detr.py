@@ -9,14 +9,25 @@
 - Encoder_CrossFusion  : ResNet-50 + DFormer; fusion layers after the
                          first four encoder layers
 
-Inputs are channels-last ``(B, H, W, 4)`` RGB-D (or ``(B, H, W, 3)`` RGB)
-with a ``(B, H, W)`` padding mask, True = pad.
+Inputs are channels-last ``(B, H, W, 4)`` RGB-D (or ``(B, H, W, 3)`` RGB),
+or their 2x2 space-to-depth packing ``(B, H/2, W/2, 16|12)``
+(``data/device_pipeline.py::pack_s2d``), with a full-resolution
+``(B, H, W)`` padding mask, True = pad. The JAX stems convolve the packed
+form directly (``StemConvS2D``, ``Conv3x3S2D``: the same taps reordered);
+here it is unpacked on the device and the plain stems run, which gives the
+unpacked input's result.
+
+With ``num_feature_levels`` L > 1 the levels are ResNet stages 2-4 and
+L - 3 more, each a 3x3 stride-2 ``InputProj`` of the level before
+(``deformable_detr_single.py:271-281`` of the reference); the depth stream
+stays one level.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
+from dfvod_tpu_torch.data.device_pipeline import unpack_s2d
 from dfvod_tpu_torch.models.backbone_crossfusion import CrossFusionBackbone
 from dfvod_tpu_torch.models.backbone_dformer import DFormerBackbone
 from dfvod_tpu_torch.models.backbone_resnet import ResNet50, downsample_mask
@@ -31,12 +42,14 @@ DFORMER_CHANNELS = 128
 
 
 class InputProj(nn.Module):
-    """1x1 conv + GroupNorm(32) level projection; (B, H, W, C) in and
-    out."""
+    """Conv (1x1, or 3x3 stride 2 for an extra level) + GroupNorm(32) level
+    projection; (B, H, W, C) in and out."""
 
-    def __init__(self, in_features: int, d_model: int):
+    def __init__(self, in_features: int, d_model: int, kernel: int = 1,
+                 stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, d_model, 1, bias=True)
+        self.conv = nn.Conv2d(in_features, d_model, kernel, stride=stride,
+                              padding=(kernel - 1) // 2, bias=True)
         self.gn = nn.GroupNorm(32, d_model, eps=1e-5)
 
     def forward(self, x):
@@ -65,9 +78,16 @@ class DeformableDETR(nn.Module):
         if self.depth_tokens:
             self.depth_backbone = DFormerBackbone()
             self.input_proj_depth_0 = InputProj(DFORMER_CHANNELS, d)
+        n_stages = len(cfg.backbone_stages)
         for i, stage in enumerate(cfg.backbone_stages):
             self.add_module(f"input_proj_{i}",
                             InputProj(RESNET50_STAGE_CHANNELS[stage], d))
+        # extra levels: 3x3 stride-2 convs, the first on the last stage
+        for i in range(n_stages, cfg.num_feature_levels):
+            cin = (RESNET50_STAGE_CHANNELS[cfg.backbone_stages[-1]]
+                   if i == n_stages else d)
+            self.add_module(f"input_proj_{i}",
+                            InputProj(cin, d, kernel=3, stride=2))
         self.transformer = DeformableTransformer(
             d_model=d, n_heads=cfg.nheads,
             num_encoder_layers=cfg.enc_layers,
@@ -85,8 +105,15 @@ class DeformableDETR(nn.Module):
             remat=cfg.remat)
 
     def forward(self, images, mask):
-        """images: (B, H, W, 3|4); mask: (B, H, W) bool, True = pad."""
+        """images: (B, H, W, 3|4), or s2d-packed (B, H/2, W/2, 12|16);
+        mask: (B, H, W) bool, True = pad."""
         cfg = self.cfg
+        if images.shape[-1] in (12, 16):
+            if self.cross_fusion_backbone:
+                raise ValueError("s2d-packed input needs the s2d stems "
+                                 "(ResNet50 / DFormer); Backbone_CrossFusion "
+                                 "takes unpacked frames")
+            images = unpack_s2d(images)
         channels = 4 if cfg.use_depth else 3
         if images.shape[-1] != channels:
             raise ValueError(f"{cfg.fusion_type} takes {channels}-channel "
@@ -101,6 +128,11 @@ class DeformableDETR(nn.Module):
                      for f in feats]
         srcs = [getattr(self, f"input_proj_{i}")(f)
                 for i, f in enumerate(feats)]
+        masks = list(masks)
+        for i in range(len(feats), cfg.num_feature_levels):
+            srcs.append(getattr(self, f"input_proj_{i}")(
+                feats[-1] if i == len(feats) else srcs[-1]))
+            masks.append(downsample_mask(mask, tuple(srcs[-1].shape[1:3])))
         pos = [sine_position_embedding(~m, cfg.hidden_dim // 2)
                for m in masks]
 

@@ -1,7 +1,7 @@
 """Serving entry point: uint8 RGB-D frames in, detections out.
 
 The counterpart of ``dfvod_tpu/cli/inference.py::DeformableDETRInference``
-without file IO. Each request runs ``device_normalize`` -> the model ->
+without file IO. Each request runs ``normalize_frames`` -> the model ->
 ``postprocess``. In serving mode (``dtype=torch.bfloat16``, the default)
 every float parameter and buffer is cast to bf16 and the model is fed a
 bf16 image, as the JAX package's bench does.
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from dfvod_tpu_torch.data.device_pipeline import device_normalize
+from dfvod_tpu_torch.data.device_pipeline import normalize_frames
 from dfvod_tpu_torch.models import build_model
 from dfvod_tpu_torch.utils.config import Config
 from dfvod_tpu_torch.utils.convert import load_jax_variables
@@ -59,7 +59,7 @@ class Server:
         if sizes.shape != (images_u8.shape[0], 2):
             raise ValueError(f"sizes must be ({images_u8.shape[0]}, 2), not "
                              f"{tuple(sizes.shape)}")
-        img, mask = device_normalize(images_u8, sizes)
+        img, mask = normalize_frames(images_u8, sizes)
         return self.model(img.to(self.dtype), mask)
 
     def __call__(self, images_u8, sizes):

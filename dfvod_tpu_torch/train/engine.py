@@ -1,7 +1,7 @@
 """The train step (counterpart of ``dfvod_tpu/train/engine.py``):
 ``create_train_state`` + ``train_step``.
 
-One step: ``device_normalize`` on uint8 frames -> the forward in
+One step: ``normalize_frames`` on uint8 frames -> the forward in
 ``model.train()`` (under ``torch.autocast`` to bf16 when
 ``train_dtype="bfloat16"``, with f32 master parameters and optimizer state)
 -> the criterion in f32 -> ``backward`` -> optax-style global-norm clip ->
@@ -25,7 +25,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from dfvod_tpu_torch.data.device_pipeline import device_normalize
+from dfvod_tpu_torch.data.device_pipeline import normalize_frames
 from dfvod_tpu_torch.models.layers import set_dropout_generator
 from dfvod_tpu_torch.train.optim import (
     build_optimizer,
@@ -87,7 +87,8 @@ def forward(state: TrainState, batch):
     images = as_tensor(batch["images"], device)
     if images.dtype != torch.uint8:
         raise TypeError(f"images must be uint8 frames, got {images.dtype}")
-    images, mask = device_normalize(images, as_tensor(batch["sizes"], device))
+    images, mask = normalize_frames(images,
+                                    as_tensor(batch["sizes"], device))
     m = state.cfg.model
     # batch rows per prediction: the clip's frames, key frame first
     F = 1 if m.temporal_mode == "none" else 1 + m.num_ref_frames

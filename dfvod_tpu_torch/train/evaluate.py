@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from dfvod_tpu_torch.data.coco_eval import COCOEvaluator
-from dfvod_tpu_torch.data.device_pipeline import device_normalize
+from dfvod_tpu_torch.data.device_pipeline import normalize_frames
 from dfvod_tpu_torch.models.postprocess import postprocess
 from dfvod_tpu_torch.utils.device import as_tensor
 
@@ -35,12 +35,12 @@ def _host(x) -> np.ndarray:
 @torch.no_grad()
 def eval_forward(model, images_u8, sizes):
     """(pred_logits, pred_boxes) of ``model`` in ``eval()`` mode on uint8
-    frames and their content sizes: ``device_normalize`` on the model's
+    frames and their content sizes: ``normalize_frames`` on the model's
     device, then the forward in the model's own dtype (an f32 model runs
     f32, as the JAX package's eval applies its f32 training variables with
     no autocast)."""
     param = next(model.parameters())
-    images, mask = device_normalize(as_tensor(images_u8, param.device),
+    images, mask = normalize_frames(as_tensor(images_u8, param.device),
                                     as_tensor(sizes, param.device))
     out = model.eval()(images.to(param.dtype), mask)
     return out["pred_logits"], out["pred_boxes"]

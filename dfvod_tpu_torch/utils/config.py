@@ -197,9 +197,17 @@ def check_supported(m: ModelConfig, training: bool = False) -> None:
                      "slice (ROADMAP.md Queue 1 item 12b)")
     if m.masks:
         waits.append("masks=True waits for the segmentation slice")
-    if m.num_feature_levels != 1:
-        waits.append(f"num_feature_levels={m.num_feature_levels} waits for "
-                     "the multi-level slice")
+    if m.num_feature_levels < 1 or m.num_feature_levels == 2:
+        waits.append(
+            f"num_feature_levels={m.num_feature_levels}: a multi-level model "
+            "takes ResNet stages 2-4, 3 levels, and adds levels from there; "
+            "the JAX package's and the reference's models fail at 2 too")
+    if m.num_feature_levels > 1 and m.temporal_mode != "none":
+        waits.append(
+            f"num_feature_levels={m.num_feature_levels} with temporal_mode="
+            f"{m.temporal_mode!r}: the temporal heads read the key frame's "
+            "memory as one level, and the JAX package fails on a "
+            "multi-level memory")
     if m.backbone != "resnet50":
         waits.append(f"backbone={m.backbone!r}: only resnet50 exists")
     if m.use_depth and m.depth_backbone_type != "dformer":

@@ -324,8 +324,9 @@ REFUSALS = {
     "num_devices": (["--num_devices", "2"], {}, "item 14"),
     "coordinator": ([], {"COORDINATOR_ADDRESS": "h:1"}, "item 14"),
     "multihost": ([], {"DFVOD_MULTIHOST": "1"}, "item 14"),
-    "pack_s2d": (["--pack_s2d"], {}, "s2d slice"),
-    "strong_aug": (["--strong_aug"], {}, "photometric slice"),
+    "num_feature_levels_2": (["--num_feature_levels", "2"], {},
+                             "multi-level"),
+    "backbone": (["--backbone", "resnet101"], {}, "only resnet50"),
     "masks": (["--masks"], {}, "segmentation slice"),
     "coco_panoptic": (["--dataset_file", "coco_panoptic"], {},
                       "segmentation slice"),
@@ -341,6 +342,27 @@ def test_refused_flags_name_their_slice(name, tree, tmp_path, monkeypatch):
     argv = tiny_argv(tree, tmp_path / "run", *extra)
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv, device="cpu")
+
+
+def test_cli_default_levels_with_strong_aug_and_pack_s2d(tree, tmp_path):
+    """The parser's default ``--num_feature_levels`` (4, the reference's)
+    trains and evaluates, here with ``--strong_aug`` and ``--pack_s2d``:
+    one epoch, finite losses, the checkpoint holds the fourth level's
+    projection."""
+    argv = tiny_argv(tree, tmp_path / "run", "--strong_aug", "--pack_s2d")
+    k = argv.index("--num_feature_levels")
+    del argv[k:k + 2]
+    cfg = flags.config_from_args(flags.get_args_parser().parse_args(argv))
+    assert (cfg.model.num_feature_levels, cfg.data.strong_aug,
+            cfg.data.pack_s2d) == (4, True, True)
+    stats = cli.main(argv, device="cpu")
+    assert set(stats) >= {"mAP", "mAP_50"}
+    lines = log_lines(tmp_path / "run")
+    assert lines[0]["epoch"] == 0 and all(
+        np.isfinite(lines[0][k]) for k in LOSS_KEYS)
+    state = load_checkpoint(str(tmp_path / "run"))[0]["model"]
+    assert "input_proj_3.conv.weight" in state
+    assert state["transformer.level_embed"].shape[0] == 4
 
 
 def test_cli_runs_on_the_card_unless_asked(tree, tmp_path):

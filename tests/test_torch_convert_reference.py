@@ -60,7 +60,10 @@ MODELS = {
     "Backbone_CrossFusion": ("Backbone_CrossFusion", True, False),
     "no_box_refine": ("LateFusion", False, False),
     "transvod_pp": ("Baseline", True, True),
+    "LateFusion_4_levels": ("LateFusion", True, False),
 }
+# feature levels where not 1: layer2-4 and one 3x3 stride-2 level
+LEVELS = {"LateFusion_4_levels": 4}
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,7 +76,8 @@ def replica(name):
     kw = dict(with_box_refine=refine, two_stage=False, dilation=True,
               depth_type=DEPTH_TYPE[fusion], **DIMS)
     tm = (TorchTransVODPP(num_ref_frames=N_REF, **kw) if video
-          else TorchDeformableDETR(**kw)).eval()
+          else TorchDeformableDETR(num_feature_levels=LEVELS.get(name, 1),
+                                   **kw)).eval()
     tm.randomize()
     return tm, {k: v.detach().clone() for k, v in tm.state_dict().items()}
 
@@ -84,8 +88,9 @@ def port_cfg(name):
         else {}
     return Config(model=ModelConfig(
         num_classes=3, num_queries=12, hidden_dim=64, nheads=4, enc_layers=2,
-        dec_layers=2, dim_feedforward=128, dropout=0.0, num_feature_levels=1,
-        fusion_type=fusion, with_box_refine=refine, dilation=True, **kw))
+        dec_layers=2, dim_feedforward=128, dropout=0.0,
+        num_feature_levels=LEVELS.get(name, 1), fusion_type=fusion,
+        with_box_refine=refine, dilation=True, **kw))
 
 
 def port_model(name):

@@ -16,6 +16,7 @@ import json
 import os
 import shutil
 import sys
+import zlib
 
 import cv2
 import numpy as np
@@ -30,6 +31,8 @@ from dfvod_tpu_torch.data import dataset, image_io, native
 from dfvod_tpu_torch.data import transforms as tf
 from dfvod_tpu_torch.data.device_pipeline import device_normalize
 from dfvod_tpu_torch.data.loader import Loader, shard_indices
+from dfvod_tpu_torch.utils.config import check_supported
+from torch_port_helpers import private_jax_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -41,6 +44,15 @@ TRAIN_JSON = os.path.join(COCO_DIR, "annotations", "train.json")
 VAL_JSON = os.path.join(COCO_DIR, "annotations", "val.json")
 IMAGES, DEPTHS = chip_smoke.synth_jpegs()
 MAX_DIFF_SHARE = 5e-4           # the resize gate: values 1 level apart
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library(tmp_path_factory):
+    """The JAX native library, built for this worker alone
+    (``torch_port_helpers.private_jax_native``)."""
+    restore = private_jax_native(tmp_path_factory.mktemp("jax_native"))
+    yield
+    restore()
 
 
 @pytest.fixture(autouse=True)
@@ -490,14 +502,22 @@ def test_loader_digest_is_chip_smokes_constant_and_close_to_jax():
         assert_batches_close(got, r)
 
 
-def test_data_layer_refusals_name_their_slice():
+def test_data_layer_refusals_name_their_slice(tmp_path):
+    """What the data layer still refuses: a loader sharded over processes
+    (item 14), an Adam7-interlaced PNG frame, the segmentation targets;
+    and the two-stage model the CLI would build."""
     ds = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON)
     with pytest.raises(NotImplementedError, match="item 14"):
         Loader(ds, tf.EvalTransform(), batch_size=2, world=2)
-    with pytest.raises(NotImplementedError, match="s2d slice"):
-        Loader(ds, tf.EvalTransform(), batch_size=2, pack_s2d=True)
-    with pytest.raises(NotImplementedError, match="photometric slice"):
-        tf.TrainTransform(strong_aug=True)
+    png = bytearray(chip_smoke.png_bytes(image_io.read_gray(DEPTHS[0])))
+    png[28] = 1                        # IHDR's interlace method: Adam7
+    png[29:33] = zlib.crc32(bytes(png[12:29])).to_bytes(4, "big")
+    (tmp_path / "adam7.png").write_bytes(bytes(png))
+    with pytest.raises(ValueError, match="Adam7-interlaced PNG"):
+        dataset.load_depth(str(tmp_path / "adam7.png"))
+    with pytest.raises(NotImplementedError, match="two-stage proposals"):
+        check_supported(dataclasses.replace(
+            chip_smoke.synth_recipe_cfg().model, two_stage=True))
     with pytest.raises(NotImplementedError, match="segmentation slice"):
         dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, return_masks=True)
     cfg = chip_smoke.synth_recipe_cfg()

@@ -9,8 +9,9 @@ frames with (``dfvod_tpu/data/dataset.py:27-44``, ``:162-174``):
 - files that Pillow encodes: 4:4:4, 4:2:2, 4:2:0 and grayscale at 1x1,
   9x17 and 37x53, quality 5 and 100, optimized tables, restart markers,
   each bitwise equal to PIL and cv2;
-- refusals: progressive, CMYK, truncated, PNG, not a JPEG, a colour file
-  read as gray;
+- refusals: progressive, CMYK, truncated, an Adam7-interlaced PNG, not a
+  JPEG, a colour file read as gray (``tests/test_torch_png.py`` holds the
+  PNGs that are read);
 - ``load_depth`` bitwise equal to the JAX package's;
 - no module of the port imports PIL or cv2.
 """
@@ -19,6 +20,7 @@ import itertools
 import os
 import subprocess
 import sys
+import zlib
 
 import cv2
 import numpy as np
@@ -143,9 +145,14 @@ def refused(name):
     if name == "cmyk":
         return encode(Image.fromarray(arr).convert("CMYK"))
     if name == "png":
+        # Pillow writes no interlaced PNG: set IHDR's interlace byte and
+        # its CRC
         buf = io.BytesIO()
         Image.fromarray(arr).save(buf, format="PNG")
-        return buf.getvalue()
+        data = bytearray(buf.getvalue())
+        data[28] = 1
+        data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
+        return bytes(data)
     if name == "not_jpeg":
         return b"GIF89a" + full[6:]
     cut = {"truncated_half": len(full) // 2, "truncated_scan_end":

@@ -133,7 +133,8 @@ UNSUPPORTED = [
     pytest.param(dict(two_stage=True), "two-stage proposals slice",
                  id="kw1-two-stage"),
     pytest.param(dict(masks=True), "segmentation", id="kw2-segmentation"),
-    pytest.param(dict(num_feature_levels=4), "multi-level",
+    # stages 2-4 give 3 levels: 2 is refused, as the JAX model fails there
+    pytest.param(dict(num_feature_levels=2), "multi-level",
                  id="kw3-multi-level"),
     pytest.param(dict(fusion_type="LateFusion",
                       depth_backbone_type="resnet18"), "research",

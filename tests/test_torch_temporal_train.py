@@ -51,7 +51,7 @@ from dfvod_tpu.train.optim import label_params as j_label_params
 from dfvod_tpu.utils.config import Config as JConfig
 from dfvod_tpu.utils.config import ModelConfig as JModelConfig
 from dfvod_tpu.utils.config import TrainConfig as JTrainConfig
-from dfvod_tpu_torch.data.device_pipeline import device_normalize
+from dfvod_tpu_torch.data.device_pipeline import normalize_frames
 from dfvod_tpu_torch.models import build_model
 from dfvod_tpu_torch.train import engine
 from dfvod_tpu_torch.train.engine import create_train_state, forward, train_step
@@ -172,15 +172,15 @@ def port_grads(name, init, batch, noise=0.0):
                                cfg, steps_per_epoch=1)
 
     def noisy(images, sizes):
-        x, mask = device_normalize(images, sizes)
+        x, mask = normalize_frames(images, sizes)
         gen = torch.Generator().manual_seed(1)
         return x + noise * torch.randn(x.shape, generator=gen), mask
 
-    engine.device_normalize = noisy
+    engine.normalize_frames = noisy
     try:
         loss, _ = criterion(*forward(state, batch))
     finally:
-        engine.device_normalize = device_normalize
+        engine.normalize_frames = normalize_frames
     loss.backward()
     return {k: p.grad for k, p in model.named_parameters()}
 

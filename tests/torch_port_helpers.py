@@ -66,3 +66,34 @@ def make_frames(channels, seed=0, B=2, H=96, W=128):
         imgs[i, h:] = 0
         imgs[i, :, w:] = 0
     return imgs, sizes
+
+
+def private_jax_native(directory):
+    """Point the JAX package's native library (``dfvod_tpu/data/native.py``)
+    at a copy built into ``directory`` with ``native/Makefile``'s own
+    flags; returns a function that restores the shared path.
+
+    ``native.available()`` builds ``native/libdfvod_native.so`` in place on
+    first use and caches a failed load for the life of the process. Under
+    ``pytest -n`` every worker calls it while collecting
+    ``tests/test_native.py``, so one worker can load the file another is
+    still writing, and then sees no library for the rest of the run. A
+    copy of its own, built once per worker, has no such race."""
+    import os
+    import subprocess
+
+    from dfvod_tpu.data import native as j_native
+
+    lib = os.path.join(str(directory), "libdfvod_native.so")
+    subprocess.run(["make", "-s", "-C", os.path.dirname(j_native._LIB_PATH),
+                    f"TARGET={lib}"], check=True, capture_output=True)
+    shared = j_native._LIB_PATH
+    j_native._LIB_PATH = lib
+    j_native._lib.cache_clear()
+    assert j_native.available(), lib
+
+    def restore():
+        j_native._LIB_PATH = shared
+        j_native._lib.cache_clear()
+
+    return restore

@@ -329,6 +329,10 @@ class TorchLateFusionLayer(tnn.Module):
 
     def forward(self, tgt, query_pos, ref, src, src_shapes, src_mask=None):
         src = self.norm_depth_scale(self.depth_scale_adapt(src))
+        # RGB reference points over more levels than the depth stream's:
+        # the first ones (the JAX package's reading; the reference's
+        # multi-level LateFusion does not broadcast)
+        ref = ref[:, :, :self.cross_attn.n_levels]
         tgt2 = self.cross_attn(tgt + query_pos, ref, src, src_shapes,
                                src_mask)
         tgt2 = self.cross_scale_adapt(tgt2)
@@ -643,8 +647,9 @@ class TorchDeformableTransformer(tnn.Module):
 # --------------------------------------------------------------------------
 # full single-frame model — ``deformable_detr_single.py:44-362``
 # --------------------------------------------------------------------------
-def _proj(cin, d_model):
-    return tnn.Sequential(tnn.Conv2d(cin, d_model, 1),
+def _proj(cin, d_model, kernel=1, stride=1):
+    return tnn.Sequential(tnn.Conv2d(cin, d_model, kernel, stride,
+                                     (kernel - 1) // 2),
                           tnn.GroupNorm(32, d_model))
 
 
@@ -652,13 +657,16 @@ class TorchDeformableDETR(tnn.Module):
     def __init__(self, num_classes=3, num_queries=12, d_model=64, nhead=4,
                  enc_layers=3, dec_layers=3, dim_feedforward=128,
                  with_box_refine=True, two_stage=False,
-                 depth_type="Baseline_rgb", dilation=True):
+                 depth_type="Baseline_rgb", dilation=True,
+                 num_feature_levels=1):
         super().__init__()
         self.use_depth = depth_type != "Baseline_rgb"
         self.depth_type = depth_type
         self.with_box_refine = with_box_refine
         self.two_stage = two_stage
-        self.num_feature_levels = 1
+        # more than one level: layer2-4 and 3x3 stride-2 levels after them
+        # (``:101-150``, ``:271-281``); RGB backbones only
+        self.num_feature_levels = num_feature_levels
 
         pos_embed = TorchPositionEmbeddingSine(d_model // 2)
         if "crossfusion" in depth_type:
@@ -668,7 +676,7 @@ class TorchDeformableDETR(tnn.Module):
                 pos_embed=pos_embed)])
         else:
             self.backbone = tnn.ModuleList(
-                [TorchRGBBackbone(False, dilation)])
+                [TorchRGBBackbone(num_feature_levels > 1, dilation)])
         if "latefusion" in depth_type or "encoder_cf" in depth_type:
             self.depth_backbone = tnn.ModuleList([TorchDFormerBackbone()])
             self.input_proj_depth = tnn.ModuleList([_proj(128, d_model)])
@@ -676,12 +684,18 @@ class TorchDeformableDETR(tnn.Module):
 
         self.transformer = TorchDeformableTransformer(
             d_model, nhead, enc_layers, dec_layers, dim_feedforward,
-            num_feature_levels=1, two_stage=two_stage,
+            num_feature_levels=num_feature_levels, two_stage=two_stage,
             two_stage_num_proposals=num_queries, depth_type=depth_type)
         if not two_stage:
             self.query_embed = tnn.Embedding(num_queries, d_model * 2)
-        in_ch = 2048 if "crossfusion" not in depth_type else 2048
-        self.input_proj = tnn.ModuleList([_proj(in_ch, d_model)])
+        if num_feature_levels > 1:
+            projs = [_proj(c, d_model) for c in (512, 1024, 2048)]
+            for lvl in range(3, num_feature_levels):
+                projs.append(_proj(2048 if lvl == 3 else d_model, d_model,
+                                   3, 2))
+            self.input_proj = tnn.ModuleList(projs)
+        else:
+            self.input_proj = tnn.ModuleList([_proj(2048, d_model)])
 
         class_embed = tnn.Linear(d_model, num_classes)
         bbox_embed = TorchMLP(d_model, d_model, 4, 3)
@@ -746,9 +760,17 @@ class TorchDeformableDETR(tnn.Module):
                 depth_masks = d_masks
                 depth_pos = [self.pos_embed(depth_srcs[0], d_masks[0])]
 
-        srcs = [self.input_proj[0](feats[-1])]
-        lvl_masks = [masks[-1]]
-        pos = [self.pos_embed(srcs[0], lvl_masks[0])]
+        if self.num_feature_levels > 1:
+            srcs = [proj(f) for proj, f in zip(self.input_proj, feats)]
+            lvl_masks = list(masks)
+            for lvl in range(len(feats), self.num_feature_levels):
+                srcs.append(self.input_proj[lvl](
+                    feats[-1] if lvl == len(feats) else srcs[-1]))
+                lvl_masks.append(interp_mask(mask, srcs[-1].shape[-2:]))
+        else:
+            srcs = [self.input_proj[0](feats[-1])]
+            lvl_masks = [masks[-1]]
+        pos = [self.pos_embed(s, m) for s, m in zip(srcs, lvl_masks)]
 
         query_embeds = None
         if not self.two_stage:
