@@ -146,10 +146,24 @@ Phases, each on lines of its own:
    with ms and peak memory; small 4-level models card vs CPU; K1 and K2
    are also checked and timed alone at that encoder shape (``enc_l4``:
    11875 queries over the 4 levels) in phase 3;
-13. the card line, JSON lines of the train, video-train, clip-serve,
+13. two-stage proposals and the ResNet-18 depth trunk
+   (``phase_two_stage_r18``): two-stage LateFusion (box refinement, 300
+   of 1,900 encoder proposals) and the ResNet-18 LateFusion model at full
+   width, each B=8 608x800 bf16 served and a B=6 step trained, 13 K1 (and
+   13 K2) each; the bf16 two-stage serve held against the f32 forward
+   with the f32 forward taking the bf16 top-k (``proposal_replay``,
+   ``two_stage_gate``); two-stage at 4 levels (12 of 13 K1 at ``enc_l4``);
+   small two-stage (with and without box refinement) and ResNet-18 (DC5
+   on and off) models card vs CPU, forward and train step; then the CLI:
+   ``Synth_LateFusion.sh``'s arguments without --dformer_backbone and with
+   --two_stage for 1 epoch with its evaluation, ``cli.inference`` over
+   val.json's 60 frames from that checkpoint (a txt and a PNG per frame)
+   and ``cli.benchmark`` at 608x800;
+14. the card line, JSON lines of the train, video-train, clip-serve,
    serve-variant, fusion-mode, evaluation/checkpoint, data/CLI,
-   data-layer and multi-level phases, a JSON line of the kernels and the
-   serving path, and the final line ``{"ok": true, "device": {...}}``.
+   data-layer, multi-level and two-stage/ResNet-18 phases, a JSON line of
+   the kernels and the serving path, and the final line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -1399,25 +1413,90 @@ TAGS = {"LateFusion": "serve", "Encoder_CrossFusion": "serve-ecf",
         "Backbone_CrossFusion": "serve-bcf"}
 
 
-def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1):
+class proposal_replay:
+    """The two-stage trunk's top-k (``models/transformer.py::
+    proposal_topk``) while active: with ``record``, each call's indices are
+    kept; otherwise each call returns the next kept indices in turn, so a
+    second forward takes the first one's proposals."""
+
+    def __init__(self, kept=None):
+        self.kept = [] if kept is None else kept
+        self.record = kept is None
+
+    def __enter__(self):
+        from dfvod_tpu_torch.models import transformer
+        self._topk = topk = transformer.proposal_topk
+        replay = iter(self.kept)
+
+        def spy(scores, k):
+            if self.record:
+                self.kept.append(topk(scores, k))
+                return self.kept[-1]
+            return next(replay)
+        transformer.proposal_topk = spy
+        return self
+
+    def __exit__(self, *exc):
+        from dfvod_tpu_torch.models import transformer
+        transformer.proposal_topk = self._topk
+
+
+def two_stage_gate(out16, out32, kept, tag):
+    """bf16 two-stage serve against the f32 forward, independent of which
+    of two nearly equal proposal logits wins: the f32 forward took the
+    bf16 forward's top-k proposals (``proposal_replay``), so the serve
+    gate holds query by query; every token's encoder proposal (no top-k
+    in it) is held under the same gate; and each proposal the bf16 top-k
+    picked is within twice the largest bf16-vs-f32 encoder logit error of
+    the f32 top-k's last logit, as a top-k of those logits must be.
+    Returns the gate's numbers."""
+    enc16, enc32 = out16["enc_outputs"], out32["enc_outputs"]
+    ediff = (enc16["pred_boxes"].float() - enc32["pred_boxes"]).abs()
+    lerr = float((enc16["pred_logits"].float()
+                  - enc32["pred_logits"]).abs()[..., 0].max())
+    l32 = enc32["pred_logits"][..., 0]
+    k = kept[0].shape[1]
+    kth = l32.topk(k, dim=1).values[:, -1:]
+    slack = float((kth - torch.gather(l32, 1, kept[0])).max())
+    print(f"[{tag}] two-stage: the f32 forward replays the bf16 top-{k}; "
+          f"encoder proposals bf16 vs f32 boxes max {float(ediff.max()):.3e}"
+          f" mean {float(ediff.mean()):.3e}, class-0 logits max "
+          f"{lerr:.3e}; the bf16 picks lie at most {slack:.3e} below the "
+          f"f32 top-{k} (allowed 2 x {lerr:.3e})", flush=True)
+    check(float(ediff.max()) <= BOX_MAX_TOL
+          and float(ediff.mean()) <= BOX_MEAN_TOL,
+          f"{tag}: bf16 encoder proposals disagree with the f32 ones")
+    check(slack <= 2 * lerr, f"{tag}: a bf16 proposal lies {slack:.3e} "
+          f"below the f32 top-{k}, more than 2 x {lerr:.3e}")
+    return {"enc_box_max": float(ediff.max()),
+            "enc_box_mean": float(ediff.mean()),
+            "enc_logit_max": lerr, "topk_slack": slack}
+
+
+def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1,
+                model_kw=None, tag=None):
     """The ``fusion`` recipe's model at full width, B=8 608x800 bf16
-    through ``Server``, with ``levels`` feature levels: ``warmup``
-    requests, then ``requests`` timed ones with every kernel count set to
-    0 just before and read just after (the first timed request is left out
-    of the mean); the bf16 boxes against the port's own f32 forward."""
+    through ``Server``, with ``levels`` feature levels and ``model_kw``'s
+    other ``ModelConfig`` fields: ``warmup`` requests, then ``requests``
+    timed ones with every kernel count set to 0 just before and read just
+    after (the first timed request is left out of the mean); the bf16
+    boxes against the port's own f32 forward (two-stage: ``two_stage_gate``
+    too)."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.serve import Server
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
-    tag = TAGS[fusion] + (f"-L{levels}" if levels > 1 else "")
+    tag = tag or TAGS[fusion] + (f"-L{levels}" if levels > 1 else "")
     cfg = Config(model=ModelConfig(fusion_type=fusion,
-                                   num_feature_levels=levels))
+                                   num_feature_levels=levels,
+                                   **(model_kw or {})))
     m = cfg.model
     print(f"[{tag}] {fusion} hidden={m.hidden_dim} heads={m.nheads} "
           f"enc={m.enc_layers} dec={m.dec_layers} queries={m.num_queries} "
           f"levels={m.num_feature_levels} dc5={m.dilation} "
-          f"refine={m.with_box_refine} B={BATCH} {H}x{W} bf16", flush=True)
+          f"refine={m.with_box_refine} two_stage={m.two_stage} depth="
+          f"{m.depth_backbone_type} B={BATCH} {H}x{W} bf16", flush=True)
     t0 = time.perf_counter()
     ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
     randomize(ref_model, seed=1)
@@ -1474,10 +1553,13 @@ def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1):
 
     # bf16 serve against the port's own f32 forward, same weights/inputs
     x, s = reqs[0]
-    with torch.no_grad():
+    with torch.no_grad(), proposal_replay() as rec:
         out16 = server.forward(x, s)
+    with torch.no_grad(), proposal_replay(rec.kept):
         img, mask = device_normalize(x, s)
         out32 = ref_model(img, mask)
+    gate = (two_stage_gate(out16, out32, rec.kept, tag) if m.two_stage
+            else {})
     diff = (out16["pred_boxes"].float() - out32["pred_boxes"]).abs()
     print(f"[{tag}] bf16 vs f32 boxes (normalized cxcywh): max "
           f"{float(diff.max()):.3e} mean {float(diff.mean()):.3e} "
@@ -1492,7 +1574,7 @@ def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1):
              "launches": launches, "requests": requests,
              "launches_by_levels": per_levels,
              "peak_memory_gib": peak, "box_max": float(diff.max()),
-             "box_mean": float(diff.mean()), "paths": paths},
+             "box_mean": float(diff.mean()), "paths": paths, **gate},
             server, ref_model, reqs[0], out32)
 
 
@@ -1588,14 +1670,20 @@ def small_msda_layers(fusion, layers=2):
     return 2 * layers + extra
 
 
-def phase_small_cpu_reference(fusion="LateFusion", levels=1):
-    """A small model (``levels`` feature levels) on the card (CUDA kernel)
-    against the same model on the CPU (plain MSDA), f32, padded inputs:
-    atol 1e-4 / rtol 1e-3 (TF32 off; only summation order differs); K1
-    once per MSDA layer."""
+def small_tag(fusion, levels, model_kw):
+    return " ".join([fusion, f"L={levels}",
+                     *(f"{k}={v}" for k, v in (model_kw or {}).items())])
+
+
+def phase_small_cpu_reference(fusion="LateFusion", levels=1, model_kw=None):
+    """A small model (``levels`` feature levels, ``model_kw``'s other
+    fields) on the card (CUDA kernel) against the same model on the CPU
+    (plain MSDA), f32, padded inputs: atol 1e-4 / rtol 1e-3 (TF32 off;
+    only summation order differs), two-stage ``enc_outputs`` too; K1 once
+    per MSDA layer."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
     from dfvod_tpu_torch.models import build_model
-    cfg = small_cfg(fusion, num_feature_levels=levels)
+    cfg = small_cfg(fusion, num_feature_levels=levels, **(model_kw or {}))
     cpu_model, _, _ = build_model(cfg, device="cpu", seed=3)
     randomize(cpu_model, seed=4)
     gpu_model, _, _ = build_model(cfg, device="cuda", seed=3)
@@ -1609,13 +1697,33 @@ def phase_small_cpu_reference(fusion="LateFusion", levels=1):
     want = want_launches(msda_fwd=small_msda_layers(fusion))
     check(launches == want, f"small {fusion} forward on the card launched "
                             f"{launches}, not {want}")
-    for k in ("pred_logits", "pred_boxes"):
-        err = (got[k].cpu() - ref[k]).abs()
-        ok = bool((err <= 1e-4 + 1e-3 * ref[k].abs()).all())
-        print(f"[small] {fusion} L={levels} card vs cpu {k}: max_abs_err "
-              f"{float(err.max()):.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    pairs = [(k, got[k], ref[k]) for k in ("pred_logits", "pred_boxes")]
+    if "enc_outputs" in ref:
+        check_no_valid_ties(ref["enc_outputs"]["pred_logits"],
+                            cfg.model.num_queries)
+        pairs += [(f"enc {k}", got["enc_outputs"][k], ref["enc_outputs"][k])
+                  for k in ("pred_logits", "pred_boxes")]
+    for k, g, r in pairs:
+        err = (g.cpu() - r).abs()
+        ok = bool((err <= 1e-4 + 1e-3 * r.abs()).all())
+        print(f"[small] {small_tag(fusion, levels, model_kw)} card vs cpu "
+              f"{k}: max_abs_err {float(err.max()):.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"small {fusion} model on the card disagrees with the CPU "
                   f"on {k}")
+
+
+def check_no_valid_ties(enc_logits, k, gap=1e-4):
+    """No two distinct class-0 encoder logits among each image's k + 1
+    largest lie within ``gap``: the card's and the CPU's top-k then pick
+    the same proposals in the same order (equal logits are padded or
+    out-of-band tokens, whose queries are identical).
+    ``tests/test_torch_two_stage.py`` holds its CPU comparisons to the
+    same rule."""
+    top = enc_logits[..., 0].double().sort(dim=1, descending=True).values
+    d = top[:, :k] - top[:, 1:k + 1]
+    check(not bool(((d > 0) & (d < gap)).any()),
+          "valid encoder tokens tie near the top-k; choose another seed")
 
 
 # ------------------------------------------------------ clip serving path
@@ -1842,24 +1950,26 @@ TRAIN_TAGS = {"LateFusion": "train", "Encoder_CrossFusion": "train-ecf",
 
 
 def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
-                levels=1):
+                levels=1, model_kw=None, tag=None):
     """The recipe of configs/training/LateFusion_bf16.sh (or, by
     ``fusion``, Encoder_CrossFusion.sh / Backbone_CrossFusion.sh) at full
-    width with ``levels`` feature levels: one warm-up step, then ``steps``
-    timed ones with every kernel count set to 0 just before and read just
-    after. Every trainable group
-    and the DFormer BN statistics move; a frozen ResNet-50 (LateFusion,
+    width with ``levels`` feature levels and ``model_kw``'s other model
+    fields: one warm-up step, then ``steps`` timed ones with every kernel
+    count set to 0 just before and read just after. Every trainable group
+    and the DFormer BN statistics (none with the ResNet-18 depth trunk,
+    whose BNs are frozen) move; a frozen ResNet-50 (LateFusion,
     Encoder_CrossFusion) stays bitwise unchanged, Backbone_CrossFusion's
     trains."""
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.train import create_train_state, train_step
 
-    tag = TRAIN_TAGS[fusion] + (f"-L{levels}" if levels > 1 else "")
-    cfg = train_cfg(fusion, train_dtype, levels)
+    tag = tag or TRAIN_TAGS[fusion] + (f"-L{levels}" if levels > 1 else "")
+    cfg = train_cfg(fusion, train_dtype, levels, **(model_kw or {}))
     m = cfg.model
     print(f"[{tag}] {fusion} hidden={m.hidden_dim} heads={m.nheads} "
           f"enc={m.enc_layers} dec={m.dec_layers} queries={m.num_queries} "
-          f"levels={m.num_feature_levels} "
+          f"levels={m.num_feature_levels} two_stage={m.two_stage} depth="
+          f"{m.depth_backbone_type} "
           f"dropout={m.dropout} lr={cfg.train.lr} clip="
           f"{cfg.train.clip_max_norm} B={TRAIN_BATCH} {H}x{W} "
           f"{cfg.train.train_dtype}"
@@ -1920,14 +2030,19 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
     print(f"[{tag}] launches over {steps} steps: msda_fwd {fwd}, msda_bwd "
           f"{bwd} ({n} and {n} per step; counts set to 0 before each "
           f"step, read after){by_levels}", flush=True)
+    enc_keys = [k for k in ("loss_ce_enc", "loss_bbox_enc", "loss_giou_enc")
+                if k in metrics[0]]
+    check(bool(enc_keys) == m.two_stage, f"{tag}: _enc losses {enc_keys}")
     for i, mt in enumerate(metrics):
         loss, gn = float(mt["loss"]), float(mt["grad_norm"])
         print(f"[{tag}] step {i}: loss {loss:.4f} grad_norm {gn:.4f} "
               f"loss_ce {float(mt['loss_ce']):.4f} loss_bbox "
               f"{float(mt['loss_bbox']):.4f} loss_giou "
-              f"{float(mt['loss_giou']):.4f}", flush=True)
-        check(math.isfinite(loss) and math.isfinite(gn),
-              f"non-finite loss or grad_norm at step {i}")
+              f"{float(mt['loss_giou']):.4f}"
+              + "".join(f" {k} {float(mt[k]):.4f}" for k in enc_keys),
+              flush=True)
+        check(all(math.isfinite(float(v)) for v in mt.values()),
+              f"non-finite loss, component or grad_norm at step {i}")
 
     changed = {n: not torch.equal(p.detach(), before[n])
                for n, p in model.named_parameters()}
@@ -1968,8 +2083,14 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
                    for b, (m0, v0) in zip(bns, bn_before))
     print(f"[{tag}] {trunk}; DFormer BN running statistics changed in "
           f"{bn_moved} of {len(bns)} layers", flush=True)
-    check(len(bns) == 4 and bn_moved == len(bns),
+    r18 = m.depth_backbone_type == "resnet18"
+    check(len(bns) == (0 if r18 else 4) and bn_moved == len(bns),
           "DFormer BN running statistics unchanged")
+    if r18:
+        names = [n for n in changed if n.startswith("depth_backbone.")]
+        check(len(names) == 15 and all(changed[n] for n in names),
+              f"{tag}: the ResNet-18 trunk's {len(names)} convolutions did "
+              f"not all train")
     ms = 1e3 * sum(times) / len(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{tag}] ms per step of {TRAIN_BATCH}: mean {ms:.3f} (first step "
@@ -1981,7 +2102,8 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
             "first_step_ms": first_ms, "steps_ms": [1e3 * t for t in times],
             "peak_memory_gib": peak, "launches_fwd": fwd,
             "launches_bwd": bwd, "launches_by_levels": levels_seen,
-            "paths": paths, "steps": steps}
+            "paths": paths, "steps": steps,
+            "enc_losses": {k: float(metrics[-1][k]) for k in enc_keys}}
 
 
 KERNELS = ("msda_fwd", "hat_sample_fwd", "msda_bwd", "hat_sample_bwd",
@@ -2082,7 +2204,8 @@ def check_parts(ref_parts, parts, tag):
     return worst
 
 
-def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1):
+def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1,
+                                model_kw=None):
     """One train-step loss and every gradient, a small model on the card
     (CUDA kernels) against the same model on the CPU (plain MSDA): f32, TF32
     off, the same weights, batch and generator seed, dropout 0. Loss and
@@ -2092,13 +2215,14 @@ def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1):
     6+6 layers, so all 13 MSDA layers take K5b/c forward and K2 backward
     on the card, the flat form's plain version and autograd on the CPU.
     ``fusion`` picks the model's fusion mode and ``levels`` its feature
-    levels (2+2 layers); with
+    levels (2+2 layers) and ``model_kw`` its other fields; with
     Backbone_CrossFusion the backbone trains, and its gradients are held
     in relative L2 norm within 1e-2 (``grads_close``, the video step's
     gate: ResNet-50 gradients differ by up to 5e-4 entry by entry, 9e-4 in
     relative L2, on an H100)."""
     layers = 6 if impl else 2
-    cfg = small_cfg(fusion, layers, dropout=0.0, num_feature_levels=levels)
+    cfg = small_cfg(fusion, layers, dropout=0.0, num_feature_levels=levels,
+                    **(model_kw or {}))
     n_msda = small_msda_layers(fusion, layers)
     want = (want_launches(corner_gather_fwd=n_msda, msda_bwd=n_msda) if impl
             else want_launches(msda_fwd=n_msda, msda_bwd=n_msda))
@@ -2113,7 +2237,7 @@ def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1):
     finally:
         os.environ.pop("DFVOD_MSDA_IMPL", None)
     tag = f"small train step under DFVOD_MSDA_IMPL={impl}" if impl else (
-        f"small {fusion} L={levels} train step")
+        f"small {small_tag(fusion, levels, model_kw)} train step")
     check(launches == want, f"the {tag} on the card launched {launches}, "
                             f"not {want}")
     worst = check_parts(ref_parts, parts, tag)
@@ -2142,8 +2266,9 @@ def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1):
     check(not bad, f"{tag}: {len(bad)} gradients differ: {bad[:6]}")
     norm_line = (f"; {n_trunk} backbone gradients in relative L2, worst "
                  f"{rworst:.3e} (1e-2)" if trunk else "")
-    print(f"[small-train] {'impl=' + impl if impl else fusion} L={levels} "
-          f"card vs "
+    print(f"[small-train] "
+          f"{'impl=' + impl if impl else small_tag(fusion, levels, model_kw)}"
+          f" card vs "
           f"cpu: loss {float(parts['loss']):.6f} vs "
           f"{float(ref_parts['loss']):.6f}, max component err {worst:.3e} "
           f"(atol 1e-5 rtol 1e-4); {len(grads) - n_trunk} gradients, max "
@@ -3461,6 +3586,204 @@ def phase_multi_level():
         "levels_608x800": [list(hw) for hw in LEVELS_4]}
 
 
+# ------------------ two-stage proposals and the ResNet-18 depth trunk (R18)
+TWO_STAGE = {"two_stage": True}
+RESNET18 = {"depth_backbone_type": "resnet18"}
+# the small models held card against CPU: two-stage with and without box
+# refinement, the ResNet-18 trunk with DC5 on and off
+SMALL_TWO_STAGE_R18 = (dict(TWO_STAGE), dict(TWO_STAGE, with_box_refine=False),
+                       dict(RESNET18), dict(RESNET18, dilation=False))
+
+
+def phase_two_stage_r18():
+    """Two-stage LateFusion (box refinement, DC5, 1 level: 1,900 encoder
+    tokens propose, 300 are taken) and the ResNet-18 LateFusion model, each
+    at full width: B=8 608x800 bf16 served (one warm-up, 4 timed requests,
+    13 K1 each; two-stage under ``two_stage_gate``) and a
+    LateFusion_bf16.sh-shaped B=6 step (one warm-up, 2 timed, 13 K1 + 13
+    K2 each; two-stage prints its _enc losses); two-stage at 4 levels
+    served (12 of 13 K1 at the ``enc_l4`` shape); the small models of
+    ``SMALL_TWO_STAGE_R18`` card vs CPU, forward and train step, under the
+    1-level phases' gates; then ``phase_two_stage_cli``."""
+    out = {}
+    for name, kw in (("two_stage", TWO_STAGE), ("resnet18", RESNET18)):
+        serve, server, ref_model, _, _ = phase_serve(
+            requests=4, warmup=1, model_kw=kw, tag=f"serve-{name}")
+        del server, ref_model
+        free_card()
+        train = phase_train(steps=2, model_kw=kw, tag=f"train-{name}")
+        free_card()
+        out[name] = {"serve": {k: serve[k] for k in (
+            "ms_per_batch", "frames_per_s", "peak_memory_gib", "launches",
+            "requests", "box_max", "box_mean", "enc_box_max",
+            "enc_box_mean", "enc_logit_max", "topk_slack") if k in serve},
+            "train": {k: train[k] for k in (
+                "ms_per_step", "frames_per_s", "first_step_ms",
+                "peak_memory_gib", "launches_fwd", "launches_bwd", "steps",
+                "enc_losses")}}
+    serve4, server, ref_model, _, _ = phase_serve(
+        requests=2, warmup=1, levels=4, model_kw=TWO_STAGE,
+        tag="serve-two_stage-L4")
+    check(serve4["launches_by_levels"] == {4: 12, 1: 1},
+          f"two-stage 4-level serve: K1 per forward by levels "
+          f"{serve4['launches_by_levels']}, want 12 at 4 levels, 1 at 1")
+    del server, ref_model
+    free_card()
+    out["two_stage_l4_serve"] = {k: serve4[k] for k in (
+        "ms_per_batch", "peak_memory_gib", "launches", "requests",
+        "launches_by_levels", "box_max", "box_mean", "topk_slack")}
+    for kw in SMALL_TWO_STAGE_R18:
+        phase_small_cpu_reference(model_kw=kw)
+        phase_small_train_reference(model_kw=kw)
+    out["cli"] = phase_two_stage_cli()
+    return out
+
+
+def yolo_lines(path):
+    """The numbers of a YOLO txt file's lines, each ``Hand cx cy w h prob``
+    with the box in [0, 1]."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            words = line.split()
+            check(len(words) == 6 and words[0] == "Hand",
+                  f"{path}: line {line!r}")
+            rows.append([float(v) for v in words[1:]])
+            check(all(0.0 <= v <= 1.0 for v in rows[-1]),
+                  f"{path}: {line!r} outside [0, 1]")
+    return rows
+
+
+def phase_two_stage_cli():
+    """The CLI's default depth trunk with two-stage proposals on
+    datasets/synth_rgbd: Synth_LateFusion.sh's arguments without
+    --dformer_backbone (so the ResNet-18 trunk) and with --two_stage,
+    1 epoch (30 steps of B=8) through cli.main ending with its evaluation;
+    cli.inference.main over val.json's 60 frames with its depth folder and
+    --resume on that run (one txt and one PNG per frame, every line ``Hand
+    cx cy w h prob``; one frame again at --keep_prob 0, so that lines are
+    surely there to check); cli.benchmark.main at 608x800 (3 warm-up, 10
+    timed iterations). Each launches 13 K1 per forward (13 K2 per step)."""
+    import tempfile
+    from dfvod_tpu_torch.cli import benchmark as bench_cli
+    from dfvod_tpu_torch.cli import inference as inf_cli
+    from dfvod_tpu_torch.cli import main as cli
+    from dfvod_tpu_torch.utils.checkpoint import load_checkpoint
+    module, argv = recipe_argv("Synth_LateFusion.sh", COCO_PATH=SYNTH_RGBD)
+    check("--dformer_backbone" in argv, "Synth_LateFusion.sh lost "
+          "--dformer_backbone")
+    model_argv = [a for a in argv if a != "--dformer_backbone"]
+    model_argv.append("--two_stage")
+    coco = os.path.join(SYNTH_RGBD, "coco")
+    with open(VAL_JSON) as f:
+        val_ids = sorted(im["id"] for im in json.load(f)["images"])
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "run")
+        train_argv = [*model_argv, "--epochs", "1", "--output_dir", out]
+        print(f"[two-stage-cli] python -m {module} {' '.join(train_argv)}",
+              flush=True)
+        with CliProbe() as probe:
+            t0 = time.perf_counter()
+            stats, total = counted(lambda: cli.main(train_argv))
+            wall = time.perf_counter() - t0
+        per_step = check_cli_launches(probe, total, CLI_STEP_LAUNCHES,
+                                      CLI_EVAL_LAUNCHES, "two-stage R18 CLI")
+        check_stats(stats, "two-stage R18 CLI")
+        check(len(probe.steps) == 30, f"{len(probe.steps)} steps, want 30")
+        saved = load_checkpoint(out)[0]
+        check(saved["args"]["model"]["two_stage"]
+              and saved["args"]["model"]["depth_backbone_type"] == "resnet18"
+              and "depth_backbone.layer3.block_1.conv2.weight"
+              in saved["model"]
+              and "transformer.pos_trans.weight" in saved["model"],
+              f"the CLI trained {saved['args']['model']}")
+        with open(os.path.join(out, "log.txt")) as f:
+            lines = [json.loads(x) for x in f]
+        train = {**epoch_timing(lines[0], probe.steps), "wall_s": wall,
+                 "launches_per_step": per_step,
+                 "eval_batches": len(probe.evals), "stats": stats}
+        res["train"] = train
+        print(f"[two-stage-cli] 1 epoch: {train['steps']} steps B=8 "
+              f"{train['ms_per_step']:.1f} ms/step (median after 2), loop "
+              f"waited {100 * train['loader_waited_share']:.2f}%; K1/K2 per "
+              f"step {per_step['msda_fwd']}/{per_step['msda_bwd']}; mAP_50 "
+              f"{stats['mAP_50']:.4f} over {len(probe.evals)} eval batches "
+              f"({card_line()})", flush=True)
+
+        inf_out = os.path.join(tmp, "inference")
+        inf_argv = [*model_argv, "--resume", out, "--inference_coco_path",
+                    VAL_JSON, "--coco_img_folder",
+                    os.path.join(coco, "images"), "--depth_folder",
+                    os.path.join(coco, "depth_pred"), "--output_dir",
+                    inf_out]
+        print(f"[two-stage-cli] python -m dfvod_tpu_torch.cli.inference "
+              f"{' '.join(inf_argv)}", flush=True)
+        frame_ms = []
+        infer = inf_cli.DeformableDETRInference.infer_frames
+
+        def timed_infer(engine, frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dets = infer(engine, frames)
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            return dets
+        inf_cli.DeformableDETRInference.infer_frames = timed_infer
+        try:
+            t0 = time.perf_counter()
+            results, launches = counted(lambda: inf_cli.main(inf_argv))
+            wall = time.perf_counter() - t0
+        finally:
+            inf_cli.DeformableDETRInference.infer_frames = infer
+        n = len(val_ids)
+        steady = sorted(frame_ms[1:])
+        check(launches == want_launches(msda_fwd=13 * n),
+              f"inference launched {launches}, want {13 * n} K1")
+        want = sorted(f"img_{i}.{e}" for i in val_ids for e in ("png", "txt"))
+        check(sorted(os.listdir(inf_out)) == want and len(results) == n,
+              f"inference wrote {sorted(os.listdir(inf_out))[:4]}..., want "
+              f"one txt and one png per frame of {n}")
+        kept = sum(len(yolo_lines(os.path.join(inf_out, f)))
+                   for f in want if f.endswith(".txt"))
+        # one frame with every query kept: 300 lines to check
+        one = os.path.join(inf_out, "all")
+        path = os.path.join(coco, "images", "v061_f0.jpg")
+        inf_cli.main([*model_argv, "--resume", out, "--img_path", path,
+                      "--depth_folder", os.path.join(coco, "depth_pred"),
+                      "--output_dir", one, "--keep_prob", "0"])
+        all_lines = yolo_lines(os.path.join(one, "v061_f0.txt"))
+        check(len(all_lines) == 300 and os.path.exists(
+            os.path.join(one, "v061_f0.png")),
+              f"--keep_prob 0 wrote {len(all_lines)} lines, want 300")
+        res["inference"] = {
+            "frames": n, "wall_ms_per_frame": 1e3 * wall / n,
+            "infer_ms_per_frame": steady[len(steady) // 2],
+            "first_frame_ms": frame_ms[0], "lines_kept": kept,
+            "keep_prob": 0.5, "launches": launches["msda_fwd"]}
+        print(f"[two-stage-cli] inference over val.json: {n} frames, "
+              f"{1e3 * wall / n:.1f} ms per frame of the whole call (model "
+              f"build and weights included; decode, txt and PNG), "
+              f"infer_frames {steady[len(steady) // 2]:.1f} ms (median "
+              f"after the first, {frame_ms[0]:.1f}: eval transform, "
+              f"padding, forward, softmax), {kept} lines above 0.5, 13 K1 "
+              f"per frame; one frame at --keep_prob 0: 300 lines in the "
+              f"Hand cx cy w h prob format ({card_line()})", flush=True)
+
+    bench_argv = [*model_argv, "--height", str(H), "--width", str(W),
+                  "--num_iters", "10", "--warm_iters", "3"]
+    print(f"[two-stage-cli] python -m dfvod_tpu_torch.cli.benchmark "
+          f"{' '.join(bench_argv)}", flush=True)
+    t, launches = counted(lambda: bench_cli.main(bench_argv))
+    check(launches == want_launches(msda_fwd=13 * 13),
+          f"benchmark launched {launches}, want {13 * 13} K1")
+    res["benchmark"] = {"ms": 1e3 * t, "iters": 10,
+                        "launches": launches["msda_fwd"]}
+    print(f"[two-stage-cli] benchmark CLI: {1e3 * t:.3f} ms per 608x800 f32 "
+          f"forward, 13 K1 each ({card_line()})", flush=True)
+    free_card()
+    return res
+
+
 # ------------------------------- the rest of the data layer (PNG, s2d, OID)
 OID_JOINT = os.path.join(REPO, "datasets", "oid_joint")
 CHIPRUN_OUT = os.path.join(REPO, "chiprun_out")
@@ -3849,6 +4172,7 @@ def main() -> int:
     data_cli = phase_data_cli()
     data_layer = phase_data_layer()
     multi = phase_multi_level()
+    two_r18 = phase_two_stage_r18()
 
     enc = kern["enc"]
     record = {
@@ -3881,6 +4205,13 @@ def main() -> int:
         "enc_l4": kern["enc_l4"],
         "multilevel_serve_launches": multi["serve"]["launches"],
         "multilevel_train_launches": multi["train"]["launches_fwd"],
+        **{f"{name}_{part}_launches": two_r18[name][part][key]
+           for name in ("two_stage", "resnet18")
+           for part, key in (("serve", "launches"), ("train", "launches_fwd"))},
+        "two_stage_l4_serve_launches": two_r18["two_stage_l4_serve"][
+            "launches"],
+        "cli_inference_launches": two_r18["cli"]["inference"]["launches"],
+        "cli_benchmark_launches": two_r18["cli"]["benchmark"]["launches"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -3907,6 +4238,8 @@ def main() -> int:
         "remat_train_launches": eval_ckpt["remat"]["launches_bwd"],
         "enc_l4": kern_bwd["enc_l4"],
         "multilevel_train_launches": multi["train"]["launches_bwd"],
+        **{f"{name}_train_launches": two_r18[name]["train"]["launches_bwd"]
+           for name in ("two_stage", "resnet18")},
     }
     record_hat = {
         "name": "hat_sample_fwd", "route": "cuda",
@@ -4047,6 +4380,10 @@ def main() -> int:
     for r in (record, record["decoder"], record["tdam_l5"], record["enc_oob"],
               record["cf_stage2"], record["enc_l4"], record_bwd["enc_l4"],
               multi["serve"], multi["train"], data_layer["png_decode_ms"],
+              *(two_r18[n][p] for n in ("two_stage", "resnet18")
+                for p in ("serve", "train")),
+              two_r18["two_stage_l4_serve"], *two_r18["cli"].values(),
+              two_r18["cli"]["train"]["stats"],
               data_layer["s2d"], data_layer["oid_joint"],
               data_layer["oid_joint"]["loader_ms_per_batch"],
               data_layer["oid_joint"]["transform_ms_per_batch"],
@@ -4085,6 +4422,7 @@ def main() -> int:
     print(json.dumps({"data_cli": data_cli}))
     print(json.dumps({"data_layer": data_layer}))
     print(json.dumps({"multi_level": multi}))
+    print(json.dumps({"two_stage_r18": two_r18}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
                                   record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",

@@ -105,11 +105,15 @@ class CocoDetectionDataset:
 
     ``cache_mode``: every RGB file's bytes are read into RAM once, for this
     process, and decoded from there (``torchvision_datasets/coco.py:51-58``;
-    sharing the cache across hosts waits for data parallelism, item 14)."""
+    sharing the cache across hosts waits for data parallelism, item 14).
+    ``depth_folder``: the depth maps are that folder's files of the
+    frames' names (the inference CLI's ``--depth_folder``), not the
+    ``images -> depth_pred`` substitution."""
 
     def __init__(self, img_folder: str, ann_file: str, *,
                  use_depth: bool = False, train: bool = True,
-                 cache_mode: bool = False, return_masks: bool = False):
+                 cache_mode: bool = False, return_masks: bool = False,
+                 depth_folder: Optional[str] = None):
         if return_masks:
             raise NotImplementedError(f"return_masks {_SEGMENTATION}")
         self.root = img_folder
@@ -117,6 +121,7 @@ class CocoDetectionDataset:
         self.ids = sorted(self.coco.imgs)
         self.use_depth = use_depth
         self.train = train
+        self.depth_folder = depth_folder
         self._cache: Optional[dict] = None
         if cache_mode:
             self._cache = {}
@@ -138,7 +143,12 @@ class CocoDetectionDataset:
         path = self._path(img_id)
         rgb = read_rgb(self._cache[img_id] if self._cache is not None
                        else path)
-        depth = load_depth(depth_path_for(path)) if self.use_depth else None
+        depth = None
+        if self.use_depth:
+            depth = load_depth(
+                os.path.join(self.depth_folder,
+                             self.coco.imgs[img_id]["file_name"])
+                if self.depth_folder else depth_path_for(path))
         h, w = rgb.shape[:2]
         boxes, labels = prepare_targets(self.coco.imgToAnns[img_id], h, w)
         return Sample(rgb=rgb, depth=depth, boxes=boxes, labels=labels,
@@ -157,10 +167,12 @@ class CocoVideoDataset(CocoDetectionDataset):
     def __init__(self, img_folder: str, ann_file: str, *,
                  num_ref_frames: int = 3, use_depth: bool = False,
                  train: bool = True, cache_mode: bool = False,
-                 return_masks: bool = False):
+                 return_masks: bool = False,
+                 depth_folder: Optional[str] = None):
         super().__init__(img_folder, ann_file, use_depth=use_depth,
                          train=train, cache_mode=cache_mode,
-                         return_masks=return_masks)
+                         return_masks=return_masks,
+                         depth_folder=depth_folder)
         self.num_ref_frames = num_ref_frames
 
     @staticmethod

@@ -22,6 +22,9 @@ grey, grey, grey, alpha, and a palette is expanded (to RGBA when it has a
 ``tRNS`` chunk). ``read_rgb`` follows PIL's ``convert("RGB")``: grey is
 repeated, alpha dropped, a palette expanded, 16-bit grey clipped to 255.
 The IDAT stream is inflated with the standard library's ``zlib``.
+
+``encode_png`` writes an 8-bit grey, RGB or RGBA array as a PNG (every row
+unfiltered, deflated by ``zlib``): the inference CLI's overlays.
 """
 from __future__ import annotations
 
@@ -246,3 +249,28 @@ def read_gray(src: Source) -> np.ndarray:
         raise ValueError(f"{name}: has {c} channels (expected a "
                          "single-channel image)")
     return _decode(data, name, h, w, 1)[..., 0]
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """A non-interlaced 8-bit PNG of ``arr``: (H, W) grey, (H, W, 3) RGB or
+    (H, W, 4) RGBA uint8; every row takes filter 0 (None), and the stream
+    is deflated by the standard library's ``zlib`` at level 6."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (
+            arr.ndim == 3 and arr.shape[2] not in (3, 4)):
+        raise ValueError(f"encode_png takes uint8 (H, W), (H, W, 3) or "
+                         f"(H, W, 4), not {arr.dtype} {arr.shape}")
+    h, w = arr.shape[:2]
+    ctype = {2: 0, 3: {3: 2, 4: 6}.get(arr.shape[-1])}[arr.ndim]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
+                                         0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))

@@ -39,7 +39,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
                 m.bias.zero_()
         elif isinstance(m, DeformableTransformer):
             m.level_embed.normal_(generator=generator)
-            m.query_embed.normal_(generator=generator)
+            if not m.two_stage:
+                m.query_embed.normal_(generator=generator)
 
 
 def build_model(cfg: Config, device=None, seed: int = 0):

@@ -11,8 +11,11 @@ The reference semantics the JAX package keeps are kept here too:
   counts;
 - L1 and GIoU on matched boxes; the cardinality error is logged only.
 
-The final and aux layers are matched together (``matcher.match_layers``):
-one host sync per call. Masks and two-stage ``enc_outputs`` raise.
+- two-stage: the encoder's proposals (``enc_outputs``) take the same
+  losses against binary targets, every label 0, as ``loss_*_enc``.
+
+The final and aux layers and the encoder's proposals are matched together
+(``matcher.match_layers``): one host sync per call. Masks raise.
 """
 from __future__ import annotations
 
@@ -131,17 +134,23 @@ class SetCriterion:
         if "pred_masks" in outputs or "masks" in targets:
             raise NotImplementedError("mask losses wait for the segmentation "
                                       "slice")
-        if "enc_outputs" in outputs:
-            raise NotImplementedError("two-stage enc_outputs wait for the "
-                                      "two-stage proposals slice (ROADMAP.md "
-                                      "Queue 1 item 12b)")
         num_boxes = targets["valid"].float().sum().clamp(min=1.0)
-        layers = [outputs] + list(outputs.get("aux_outputs", []))
-        assign = match_layers(layers, targets, self.loss_cfg)
+        aux_list = list(outputs.get("aux_outputs", []))
+        enc = outputs.get("enc_outputs")
+        layers = [outputs, *aux_list] + ([enc] if enc is not None else [])
+        assign = match_layers(layers, targets, self.loss_cfg,
+                              binary=[False] * (1 + len(aux_list))
+                              + [True] * (enc is not None))
         losses = self._loss_single(outputs, targets, assign[0], num_boxes)
-        for i, aux in enumerate(layers[1:]):
+        for i, aux in enumerate(aux_list):
             l_aux = self._loss_single(aux, targets, assign[i + 1], num_boxes)
             losses.update({f"{k}_{i}": v for k, v in l_aux.items()
+                           if k != "cardinality_error"})
+        if enc is not None:
+            binary = {**targets, "labels": torch.zeros_like(
+                targets["labels"])}
+            l_enc = self._loss_single(enc, binary, assign[-1], num_boxes)
+            losses.update({f"{k}_enc": v for k, v in l_enc.items()
                            if k != "cardinality_error"})
         total = sum(losses[k] * w for k, w in self.weight_dict.items()
                     if k in losses)

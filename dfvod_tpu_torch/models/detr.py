@@ -9,13 +9,20 @@
 - Encoder_CrossFusion  : ResNet-50 + DFormer; fusion layers after the
                          first four encoder layers
 
+LateFusion and Encoder_CrossFusion take the ResNet-18 depth trunk
+(``models/research.py``) in place of DFormer with
+``depth_backbone_type="resnet18"``, the CLI's default without
+``--dformer_backbone``. With ``two_stage`` the output also holds
+``enc_outputs``, every encoder token's proposal.
+
 Inputs are channels-last ``(B, H, W, 4)`` RGB-D (or ``(B, H, W, 3)`` RGB),
 or their 2x2 space-to-depth packing ``(B, H/2, W/2, 16|12)``
 (``data/device_pipeline.py::pack_s2d``), with a full-resolution
 ``(B, H, W)`` padding mask, True = pad. The JAX stems convolve the packed
 form directly (``StemConvS2D``, ``Conv3x3S2D``: the same taps reordered);
 here it is unpacked on the device and the plain stems run, which gives the
-unpacked input's result.
+unpacked input's result. The ResNet-18 depth trunk has no s2d stem in the
+JAX package, and packed input is refused with it, as there.
 
 With ``num_feature_levels`` L > 1 the levels are ResNet stages 2-4 and
 L - 3 more, each a 3x3 stride-2 ``InputProj`` of the level before
@@ -33,6 +40,10 @@ from dfvod_tpu_torch.models.backbone_dformer import DFormerBackbone
 from dfvod_tpu_torch.models.backbone_resnet import ResNet50, downsample_mask
 from dfvod_tpu_torch.models.position_encoding import (
     sine_position_embedding_rect as sine_position_embedding,
+)
+from dfvod_tpu_torch.models.research import (
+    RESNET18_CHANNELS,
+    ResNet18DepthBackbone,
 )
 from dfvod_tpu_torch.models.transformer import DeformableTransformer
 from dfvod_tpu_torch.utils.config import ModelConfig, check_supported
@@ -75,7 +86,12 @@ class DeformableDETR(nn.Module):
         else:
             self.backbone = ResNet50(dilation=cfg.dilation,
                                      return_stages=cfg.backbone_stages)
-        if self.depth_tokens:
+        self.resnet18_depth = (self.depth_tokens
+                               and cfg.depth_backbone_type == "resnet18")
+        if self.resnet18_depth:
+            self.depth_backbone = ResNet18DepthBackbone()
+            self.input_proj_depth_0 = InputProj(RESNET18_CHANNELS, d)
+        elif self.depth_tokens:
             self.depth_backbone = DFormerBackbone()
             self.input_proj_depth_0 = InputProj(DFORMER_CHANNELS, d)
         n_stages = len(cfg.backbone_stages)
@@ -102,17 +118,19 @@ class DeformableDETR(nn.Module):
             num_classes=cfg.num_classes,
             fusion=cfg.transformer_fusion,
             dpth_n_points=cfg.dpth_n_points,
-            remat=cfg.remat)
+            remat=cfg.remat,
+            two_stage=cfg.two_stage)
 
     def forward(self, images, mask):
         """images: (B, H, W, 3|4), or s2d-packed (B, H/2, W/2, 12|16);
         mask: (B, H, W) bool, True = pad."""
         cfg = self.cfg
         if images.shape[-1] in (12, 16):
-            if self.cross_fusion_backbone:
+            if self.cross_fusion_backbone or self.resnet18_depth:
                 raise ValueError("s2d-packed input needs the s2d stems "
                                  "(ResNet50 / DFormer); Backbone_CrossFusion "
-                                 "takes unpacked frames")
+                                 "and the ResNet-18 depth trunk take "
+                                 "unpacked frames")
             images = unpack_s2d(images)
         channels = 4 if cfg.use_depth else 3
         if images.shape[-1] != channels:
@@ -154,6 +172,9 @@ class DeformableDETR(nn.Module):
                 {"pred_logits": c, "pred_boxes": b}
                 for c, b in zip(t_out["outputs_class"][:-1],
                                 t_out["outputs_coord"][:-1])]
+        if cfg.two_stage:
+            out["enc_outputs"] = {"pred_logits": t_out["enc_outputs_class"],
+                                  "pred_boxes": t_out["enc_outputs_coord"]}
         out["_trunk"] = {k: t_out[k] for k in
                          ("memory", "mask_flat", "spatial_shapes",
                           "valid_ratios", "query_pos", "pos_flat",

@@ -7,8 +7,9 @@ the device. The assignment is solved on the host with
 ``scipy.optimize.linear_sum_assignment``, the JAX package's
 ``hungarian_scipy`` backend: the same optimum as its default on-device
 LAPJV. ``match_layers`` stacks the costs of every decoder layer (the final
-one and the aux ones) and copies them to the host in one transfer, so a
-train step syncs once for the matcher, not once per layer.
+one and the aux ones, and the two-stage encoder's proposals against binary
+targets) and copies them to the host in one transfer, so a train step syncs
+once for the matcher, not once per layer.
 """
 from __future__ import annotations
 
@@ -65,27 +66,38 @@ def solve(cost: np.ndarray, valid: np.ndarray) -> np.ndarray:
 
 
 @torch.no_grad()
-def match_layers(outputs_list, targets, loss_cfg):
+def match_layers(outputs_list, targets, loss_cfg, binary=()):
     """Assignments of several prediction sets against the same targets.
 
     outputs_list: dicts with pred_logits (B, Q, K) and pred_boxes (B, Q,
-    4). Returns (len(outputs_list), B, T) int64 on the predictions' device.
+    4); each may hold its own Q (the two-stage encoder's S proposals).
+    ``binary``: per entry, whether its targets are binary, every label 0,
+    as the criterion holds the encoder's proposals (``criterion.py:201-
+    207`` of the JAX package). Returns (len(outputs_list), B, T) int64 on
+    the predictions' device.
     Non-finite costs (a diverged step) are replaced as the JAX package does
     (``matcher.py:209``), so the solve always ends and the caller sees the
     non-finite loss."""
-    cost = torch.stack([
+    labels = targets["labels"]
+    costs = [
         matching_cost(o["pred_logits"].detach().float(),
-                      o["pred_boxes"].detach().float(), targets["labels"],
+                      o["pred_boxes"].detach().float(),
+                      torch.zeros_like(labels) if is_bin else labels,
                       targets["boxes"].float(), targets["valid"],
                       loss_cfg.set_cost_class, loss_cfg.set_cost_bbox,
                       loss_cfg.set_cost_giou)
-        for o in outputs_list])                              # (N, B, Q, T)
-    cost = torch.nan_to_num(cost, nan=1e9, posinf=1e9, neginf=-1e9)
-    # one device-to-host copy for the costs and the valid mask together
+        for o, is_bin in zip(outputs_list,
+                             binary or [False] * len(outputs_list))]
+    # one device-to-host copy for every cost and the valid mask together
     valid = targets["valid"]
-    host = torch.cat([cost.reshape(-1),
-                      valid.to(cost.dtype).reshape(-1)]).cpu().numpy()
-    cost_np = host[:cost.numel()].reshape(cost.shape)
-    valid_np = host[cost.numel():].reshape(valid.shape) > 0.5
-    assign = solve(cost_np, valid_np[None])
-    return torch.from_numpy(assign).to(cost.device)
+    flat = torch.cat([c.reshape(-1) for c in costs]
+                     + [valid.to(costs[0].dtype).reshape(-1)])
+    host = torch.nan_to_num(flat, nan=1e9, posinf=1e9,
+                            neginf=-1e9).cpu().numpy()
+    valid_np = host[-valid.numel():].reshape(valid.shape) > 0.5
+    assign, at = [], 0
+    for c in costs:
+        assign.append(solve(host[at:at + c.numel()].reshape(c.shape),
+                            valid_np))
+        at += c.numel()
+    return torch.from_numpy(np.stack(assign)).to(costs[0].device)

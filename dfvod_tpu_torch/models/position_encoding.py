@@ -73,3 +73,17 @@ def sine_position_embedding_rect(not_mask, num_pos_feats: int = 128,
     pos_y = torch.where(colvalid[:, None, :, None], ty[:, :, None, :], tk)
     pos_x = torch.where(rowvalid[:, :, None, None], tx[:, None, :, :], tk)
     return torch.cat([pos_y, pos_x], dim=-1)
+
+
+def proposal_pos_embed(proposals, num_pos_feats: int = 128,
+                       temperature: float = 10000.0):
+    """Sine embedding of two-stage proposal boxes (``proposal_pos_embed``
+    of the JAX package). proposals: (..., 4) unactivated, ``+inf`` where a
+    token is padded or out of the validity band (sigmoid gives 1 there).
+    Returns (..., 4 * num_pos_feats) f32: for each coordinate the DETR
+    sin/cos interleave, coordinates in order. The sigmoid and scale run in
+    the proposals' dtype and the rest in f32, as the JAX function's type
+    promotion does."""
+    pos = torch.sigmoid(proposals) * (2 * math.pi)
+    dim_t = _dim_t(num_pos_feats, temperature, proposals.device)
+    return _interleave_sincos(pos[..., None].float(), dim_t).flatten(-2)

@@ -376,8 +376,13 @@ def _apply_box_head(deltas, reference):
 def _key_frame_outputs(out_sf, B, F):
     def take(x):
         return x.reshape(B, F, *x.shape[1:])[:, 0]
-    return {"pred_logits": take(out_sf["pred_logits"]),
-            "pred_boxes": take(out_sf["pred_boxes"])}
+    out = {"pred_logits": take(out_sf["pred_logits"]),
+           "pred_boxes": take(out_sf["pred_boxes"])}
+    if "enc_outputs" in out_sf:
+        # two-stage: the key frame's encoder proposals
+        out["enc_outputs"] = {k: take(v)
+                              for k, v in out_sf["enc_outputs"].items()}
+    return out
 
 
 def _grid_reference_points(spatial_shapes, valid_ratios):

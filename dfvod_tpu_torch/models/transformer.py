@@ -12,10 +12,13 @@ Encoder-CrossFusion adapters (counterpart of
   after each of the first ``num_enc_fusion_layers`` encoder layers,
   residual add (Backbone-CrossFusion fuses in the backbone,
   ``models/backbone_crossfusion.py``, and takes ``fusion="none"`` here)
+- two-stage: every encoder token proposes a box (``enc_output`` +
+  ``enc_output_norm`` and an extra detection head), and the top
+  ``two_stage_num_proposals`` by their first class logit become the
+  decoder's queries through ``pos_trans`` + ``pos_trans_norm``, in place of
+  the learned ``query_embed`` and ``reference_points``
 
-Tokens are ``(B, S, C)``; ``spatial_shapes`` is a Python tuple. Single-stage
-only: the two-stage proposal path waits for a later slice
-(``utils/config.check_supported``).
+Tokens are ``(B, S, C)``; ``spatial_shapes`` is a Python tuple.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from dfvod_tpu_torch.models.layers import (
     remat_call,
     with_pos,
 )
+from dfvod_tpu_torch.models.position_encoding import proposal_pos_embed
 from dfvod_tpu_torch.utils.box_ops import inverse_sigmoid
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
@@ -166,7 +170,8 @@ WH_BIAS = -2.0         # single-stage box-size bias (two-stage uses 0)
 class DetectionHead(nn.Module):
     """Per-layer classification Linear + 3-layer box MLP."""
 
-    def __init__(self, d_model: int, num_classes: int):
+    def __init__(self, d_model: int, num_classes: int,
+                 wh_bias: float = WH_BIAS):
         super().__init__()
         self.class_embed = nn.Linear(d_model, num_classes)
         with torch.no_grad():
@@ -177,7 +182,7 @@ class DetectionHead(nn.Module):
         self.bbox_layers_1 = nn.Linear(d_model, d_model)
         # zero kernel + (0, 0, wh, wh) bias: boxes start near the reference
         self.bbox_layers_2 = fixed_linear(d_model, 4,
-                                          [0.0, 0.0, WH_BIAS, WH_BIAS])
+                                          [0.0, 0.0, wh_bias, wh_bias])
 
     def forward(self, x):
         h = torch.relu(self.bbox_layers_0(x))
@@ -196,9 +201,50 @@ def refine_reference(deltas, reference):
     return new_ref.detach()
 
 
+def proposal_topk(scores, k: int):
+    """Indices (B, k) of the ``k`` largest ``scores`` (B, S) per row, in
+    descending order, as ``jax.lax.top_k``. Which of two equal scores comes
+    first is left to ``torch.topk``."""
+    return torch.topk(scores, k, dim=1).indices
+
+
+def gen_encoder_output_proposals(memory, mask_flat,
+                                 spatial_shapes: SpatialShapes):
+    """The two-stage proposal of every encoder token (``_gen_encoder_
+    output_proposals`` of the JAX package): a box centred on the token's
+    pixel, normalized by its level's valid region, 0.05 * 2^level wide.
+
+    Returns (memory with padded and out-of-band tokens zeroed, proposals
+    (B, S, 4) f32 as logits). A proposal whose coordinates are not all
+    inside (0.01, 0.99), or whose token is padded, is ``+inf``."""
+    B = memory.shape[0]
+    dev = memory.device
+    proposals = []
+    cur = 0
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        mask_l = mask_flat[:, cur:cur + H * W].reshape(B, H, W)
+        valid_h = (~mask_l[:, :, 0]).to(torch.float32).sum(1)
+        valid_w = (~mask_l[:, 0, :]).to(torch.float32).sum(1)
+        gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+        gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+        grid = torch.stack([gx.expand(H, W), gy.expand(H, W)], dim=-1)
+        scale = torch.stack([valid_w, valid_h], dim=-1)[:, None, None, :]
+        grid = (grid[None] + 0.5) / scale
+        wh = torch.full_like(grid, 0.05 * (2.0 ** lvl))
+        proposals.append(torch.cat([grid, wh], dim=-1).reshape(B, -1, 4))
+        cur += H * W
+    proposals = torch.cat(proposals, dim=1)
+    valid = ((proposals > 0.01) & (proposals < 0.99)).all(-1, keepdim=True)
+    invalid = mask_flat[..., None] | ~valid
+    proposals = torch.log(proposals / (1 - proposals)).masked_fill(
+        invalid, float("inf"))
+    return memory.masked_fill(invalid, 0.0), proposals
+
+
 class DeformableTransformer(nn.Module):
-    """Full single-stage trunk. ``fusion``: 'none' | 'late' |
-    'encoder_cf'."""
+    """Full trunk, single- or two-stage. ``fusion``: 'none' | 'late' |
+    'encoder_cf'. With ``two_stage`` the decoder takes ``num_queries``
+    encoder proposals."""
 
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024,
@@ -206,7 +252,7 @@ class DeformableTransformer(nn.Module):
                  enc_n_points=4, num_queries=300, with_box_refine=False,
                  num_classes=3, fusion="none", dpth_n_points=4,
                  dpth_feature_levels=1, dropout=0.1,
-                 num_enc_fusion_layers=4, remat=False):
+                 num_enc_fusion_layers=4, remat=False, two_stage=False):
         super().__init__()
         if fusion not in ("none", "late", "encoder_cf"):
             raise ValueError(f"fusion={fusion!r} not in 'none', 'late', "
@@ -218,13 +264,21 @@ class DeformableTransformer(nn.Module):
             if fusion == "encoder_cf" else 0)
         self.num_decoder_layers = num_decoder_layers
         self.with_box_refine = with_box_refine
+        self.two_stage = two_stage
+        self.num_queries = num_queries
         # recompute the encoder layers' activations in the backward
         self.remat = remat
         self.level_embed = nn.Parameter(
             torch.zeros(num_feature_levels, d_model))
-        self.query_embed = nn.Parameter(torch.zeros(num_queries,
-                                                    d_model * 2))
-        self.reference_points = nn.Linear(d_model, 2)
+        if two_stage:
+            self.enc_output = nn.Linear(d_model, d_model)
+            self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
+            self.pos_trans = nn.Linear(d_model * 2, d_model * 2)
+            self.pos_trans_norm = nn.LayerNorm(d_model * 2, eps=1e-5)
+        else:
+            self.query_embed = nn.Parameter(torch.zeros(num_queries,
+                                                        d_model * 2))
+            self.reference_points = nn.Linear(d_model, 2)
         if fusion == "late":
             self.depth_encoder_layer = DepthFusionLayer(
                 d_model, dpth_feature_levels, n_heads, dpth_n_points,
@@ -245,12 +299,17 @@ class DeformableTransformer(nn.Module):
                                 d_model, dim_feedforward, activation,
                                 num_feature_levels, n_heads, dec_n_points,
                                 dropout))
+        # two-stage: one head more, for the encoder's proposals (the
+        # shared head serves them without box refinement), and boxes start
+        # at their proposals' size
+        num_pred = num_decoder_layers + 1 if two_stage else num_decoder_layers
+        wh_bias = 0.0 if two_stage else WH_BIAS
         if with_box_refine:
-            for i in range(num_decoder_layers):
-                self.add_module(f"head_{i}",
-                                DetectionHead(d_model, num_classes))
+            for i in range(num_pred):
+                self.add_module(f"head_{i}", DetectionHead(
+                    d_model, num_classes, wh_bias))
         else:
-            self.head_shared = DetectionHead(d_model, num_classes)
+            self.head_shared = DetectionHead(d_model, num_classes, wh_bias)
 
     def _head(self, i):
         return (getattr(self, f"head_{i}") if self.with_box_refine
@@ -261,7 +320,9 @@ class DeformableTransformer(nn.Module):
         """srcs/masks/pos_embeds: lists of (B,H,W,C)/(B,H,W)/(B,H,W,C).
 
         Returns dict: outputs_class (num_layers, B, Q, K), outputs_coord
-        (num_layers, B, Q, 4), plus the trunk state.
+        (num_layers, B, Q, 4), the trunk state and, two-stage, every
+        encoder token's enc_outputs_class (B, S, K) and enc_outputs_coord
+        (B, S, 4).
         """
         src_flat, mask_flat, pos_flat, spatial_shapes = flatten_levels(
             srcs, masks, pos_embeds, self.level_embed)
@@ -308,12 +369,31 @@ class DeformableTransformer(nn.Module):
                 output = output + fused
         memory = output
 
-        # query_embed splits as (query_pos, tgt)
-        query_pos, tgt = torch.split(self.query_embed,
-                                     self.query_embed.shape[1] // 2, dim=-1)
-        query_pos = query_pos[None].expand(B, -1, -1)
-        tgt = tgt[None].expand(B, -1, -1)
-        reference_points = torch.sigmoid(self.reference_points(query_pos))
+        if self.two_stage:
+            output_memory, proposals = gen_encoder_output_proposals(
+                memory, mask_flat, spatial_shapes)
+            output_memory = self.enc_output_norm(
+                self.enc_output(output_memory))
+            enc_logits, enc_deltas = self._head(self.num_decoder_layers)(
+                output_memory)
+            enc_coord_unact = enc_deltas + proposals
+            topk_idx = proposal_topk(enc_logits[..., 0], self.num_queries)
+            topk_coords_unact = torch.gather(
+                enc_coord_unact, 1,
+                topk_idx[..., None].expand(-1, -1, 4)).detach()
+            reference_points = torch.sigmoid(topk_coords_unact)
+            d = memory.shape[-1]
+            pos_trans_out = self.pos_trans_norm(self.pos_trans(
+                proposal_pos_embed(topk_coords_unact, d // 2
+                                   ).to(memory.dtype)))
+            query_pos, tgt = torch.split(pos_trans_out, d, dim=-1)
+        else:
+            # query_embed splits as (query_pos, tgt)
+            query_pos, tgt = torch.split(
+                self.query_embed, self.query_embed.shape[1] // 2, dim=-1)
+            query_pos = query_pos[None].expand(B, -1, -1)
+            tgt = tgt[None].expand(B, -1, -1)
+            reference_points = torch.sigmoid(self.reference_points(query_pos))
         init_reference = reference_points
 
         outputs_classes, outputs_coords = [], []
@@ -345,7 +425,7 @@ class DeformableTransformer(nn.Module):
             if self.with_box_refine:
                 reference_points = refine_reference(deltas, reference_points)
 
-        return {
+        out = {
             "outputs_class": torch.stack(outputs_classes),
             "outputs_coord": torch.stack(outputs_coords),
             "init_reference": init_reference,
@@ -359,3 +439,7 @@ class DeformableTransformer(nn.Module):
             "last_reference": reference_points,
             "last_deltas": deltas,
         }
+        if self.two_stage:
+            out["enc_outputs_class"] = enc_logits
+            out["enc_outputs_coord"] = torch.sigmoid(enc_coord_unact)
+        return out

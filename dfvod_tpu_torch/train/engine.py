@@ -71,11 +71,15 @@ def create_train_state(model: nn.Module, cfg: Config,
 
 
 def _f32(out):
-    """The criterion's inputs cast to f32 (``engine.py:148-152``)."""
+    """The criterion's inputs cast to f32 (``engine.py:148-152``): the
+    predictions, the aux layers' and the two-stage encoder's."""
     res = {k: out[k].float() for k in ("pred_logits", "pred_boxes")}
     if "aux_outputs" in out:
         res["aux_outputs"] = [{k: a[k].float() for k in a}
                               for a in out["aux_outputs"]]
+    if "enc_outputs" in out:
+        res["enc_outputs"] = {k: v.float()
+                              for k, v in out["enc_outputs"].items()}
     return res
 
 

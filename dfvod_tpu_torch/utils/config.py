@@ -192,9 +192,6 @@ def check_supported(m: ModelConfig, training: bool = False) -> None:
     configuration that serves also trains (``remat`` recomputes only
     training activations)."""
     waits = []
-    if m.two_stage:
-        waits.append("two_stage=True waits for the two-stage proposals "
-                     "slice (ROADMAP.md Queue 1 item 12b)")
     if m.masks:
         waits.append("masks=True waits for the segmentation slice")
     if m.num_feature_levels < 1 or m.num_feature_levels == 2:
@@ -210,9 +207,10 @@ def check_supported(m: ModelConfig, training: bool = False) -> None:
             "multi-level memory")
     if m.backbone != "resnet50":
         waits.append(f"backbone={m.backbone!r}: only resnet50 exists")
-    if m.use_depth and m.depth_backbone_type != "dformer":
-        waits.append(f"depth_backbone_type={m.depth_backbone_type!r} "
-                     "waits for the research-modules slice")
+    if m.use_depth and m.depth_backbone_type not in ("dformer",
+                                                     "resnet18"):
+        waits.append(f"depth_backbone_type={m.depth_backbone_type!r}: "
+                     "only dformer and resnet18 exist")
     if m.position_embedding != "sine":
         waits.append(f"position_embedding={m.position_embedding!r}: only "
                      "sine is wired in the model")

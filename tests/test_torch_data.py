@@ -504,8 +504,9 @@ def test_loader_digest_is_chip_smokes_constant_and_close_to_jax():
 
 def test_data_layer_refusals_name_their_slice(tmp_path):
     """What the data layer still refuses: a loader sharded over processes
-    (item 14), an Adam7-interlaced PNG frame, the segmentation targets;
-    and the two-stage model the CLI would build."""
+    (item 14), an Adam7-interlaced PNG frame, the segmentation targets.
+    The two-stage model the CLI would build was refused until its slice,
+    and is now supported."""
     ds = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON)
     with pytest.raises(NotImplementedError, match="item 14"):
         Loader(ds, tf.EvalTransform(), batch_size=2, world=2)
@@ -515,9 +516,8 @@ def test_data_layer_refusals_name_their_slice(tmp_path):
     (tmp_path / "adam7.png").write_bytes(bytes(png))
     with pytest.raises(ValueError, match="Adam7-interlaced PNG"):
         dataset.load_depth(str(tmp_path / "adam7.png"))
-    with pytest.raises(NotImplementedError, match="two-stage proposals"):
-        check_supported(dataclasses.replace(
-            chip_smoke.synth_recipe_cfg().model, two_stage=True))
+    check_supported(dataclasses.replace(
+        chip_smoke.synth_recipe_cfg().model, two_stage=True))
     with pytest.raises(NotImplementedError, match="segmentation slice"):
         dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, return_masks=True)
     cfg = chip_smoke.synth_recipe_cfg()

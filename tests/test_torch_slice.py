@@ -129,15 +129,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 # ids as pytest named these cases while the list began with remat, which
 # is supported now (``test_remat_serves_and_trains``)
+# a slice name of None: refused until its slice was ported, and now
+# supported; the case asserts that it is (two-stage proposals and the
+# ResNet-18 research depth trunk, both held against flax in
+# tests/test_torch_two_stage.py and tests/test_torch_research.py)
 UNSUPPORTED = [
-    pytest.param(dict(two_stage=True), "two-stage proposals slice",
-                 id="kw1-two-stage"),
+    pytest.param(dict(two_stage=True), None, id="kw1-two-stage"),
     pytest.param(dict(masks=True), "segmentation", id="kw2-segmentation"),
     # stages 2-4 give 3 levels: 2 is refused, as the JAX model fails there
     pytest.param(dict(num_feature_levels=2), "multi-level",
                  id="kw3-multi-level"),
     pytest.param(dict(fusion_type="LateFusion",
-                      depth_backbone_type="resnet18"), "research",
+                      depth_backbone_type="resnet18"), None,
                  id="kw4-research"),
 ]
 
@@ -163,6 +166,9 @@ def test_remat_serves_and_trains(training):
 @pytest.mark.parametrize("kw,slice_name", UNSUPPORTED)
 def test_unsupported_config_names_its_slice(kw, slice_name):
     # refused for serving, as ``Server`` and ``build_model`` check it
+    if slice_name is None:
+        check_supported(ModelConfig(**kw))
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         check_supported(ModelConfig(**kw))
 
@@ -170,7 +176,10 @@ def test_unsupported_config_names_its_slice(kw, slice_name):
 @pytest.mark.parametrize("kw,slice_name", UNSUPPORTED)
 def test_unsupported_config_refused_for_training(kw, slice_name):
     # every refusal holds for training too (the temporal modes serve and
-    # train)
+    # train), and what serves now trains
+    if slice_name is None:
+        check_supported(ModelConfig(**kw), training=True)
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         check_supported(ModelConfig(**kw), training=True)
 

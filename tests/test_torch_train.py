@@ -220,8 +220,11 @@ def test_criterion_raises_for_later_slices():
     tg = to_torch(make_targets(8))
     with pytest.raises(NotImplementedError, match="segmentation"):
         crit({**out, "pred_masks": torch.zeros(2, 12, 4, 4)}, tg)
-    with pytest.raises(NotImplementedError, match="two-stage"):
-        crit({**out, "enc_outputs": out}, tg)
+    # two-stage proposals are no longer refused: they add the _enc losses
+    # (``tests/test_torch_two_stage.py`` holds them against JAX's)
+    enc = {k: out[k] for k in ("pred_logits", "pred_boxes")}
+    _, parts = crit({**out, "enc_outputs": enc}, tg)
+    assert {"loss_ce_enc", "loss_bbox_enc", "loss_giou_enc"} <= set(parts)
 
 
 # -------------------------------------------------------- flax/port models
