@@ -3,7 +3,7 @@
 ``dest`` and default, so that a recipe's argument list
 (``configs/training/*.sh``) parses the same, and ``config_from_args``,
 which maps them onto the port's ``Config``. Flags whose feature waits for
-a later slice parse, and ``cli/main.py::train_loop`` refuses them with the
+a later slice parse, and the CLI (``cli/main.py``) refuses them with the
 slice's name.
 """
 from __future__ import annotations
@@ -25,8 +25,9 @@ def get_args_parser(video: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--clip_max_norm", default=0.1, type=float)
     p.add_argument("--sgd", action="store_true")
     p.add_argument("--num_devices", default=0, type=int,
-                   help="devices to train on (0 = all): the port trains "
-                        "on one; more waits for data parallelism")
+                   help="local devices to train on (0 = all), one "
+                        "process each; clip-parallel serving in "
+                        "cli.inference")
     # model (``main.py:62-118``)
     p.add_argument("--backbone", default="resnet50", type=str)
     p.add_argument("--dilation", action="store_true")

@@ -24,8 +24,14 @@ a bitmap font of this module's own (PIL's default font is not
 reproduced), and the PNG is written by ``image_io.encode_png``. With
 ``compute_dtype=bfloat16`` every weight is cast to bf16, as the JAX CLI
 casts its variables. The run is on the card unless the caller passes
-``device``; more than one device waits for data parallelism
-(``ROADMAP.md`` item 14).
+``device``.
+
+``--num_devices N`` > 1 serves clip-parallel over N processes, one per
+card (the JAX CLI's ``('clip', 'data')`` mesh with the frames sharded over
+both axes): each runs the trunk on its rows of a clip's frames
+(``serve.Server(group=...)``), and rank 0 writes the files. A forward
+whose frames do not divide over N raises the JAX sharding's divisibility
+error, a single-frame model's one frame among them.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from dfvod_tpu_torch import parallel
 from dfvod_tpu_torch.cli.flags import config_from_args, get_args_parser
 from dfvod_tpu_torch.cli.main import load_state
 from dfvod_tpu_torch.data.dataset import (
@@ -64,7 +71,7 @@ class DeformableDETRInference:
 
     def __init__(self, cfg: Config, resume: str = "",
                  spatial_weights: str = "", keep_prob: float = 0.5,
-                 device=None):
+                 device=None, group=None):
         self.cfg = cfg
         self.keep_prob = keep_prob
         self.transform = EvalTransform(short_side=cfg.data.eval_short_side,
@@ -72,7 +79,7 @@ class DeformableDETRInference:
         dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
                  else torch.float32)
         self.server = Server(cfg, device=device, dtype=dtype,
-                             seed=cfg.train.seed)
+                             seed=cfg.train.seed, group=group)
         self.frames = self.server.frames
         model = self.server.model
         if resume.endswith((".pth", ".pth.tar")):
@@ -219,17 +226,43 @@ def run_inference(*, resume: str = "", img_path: str = "",
     """Programmatic API (``inference.py:1169-1217``): the detections of
     each frame, in order, with their txt and PNG files written under
     ``output_dir`` (``img_<id>`` for a COCO json, the file's stem
-    otherwise)."""
-    if num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {num_devices}: clip-parallel serving over more "
-            "than one device waits for data parallelism (ROADMAP.md item "
-            "14)")
+    otherwise). ``num_devices`` > 1: clip-parallel over that many
+    processes (see the module's docstring)."""
     cfg = cfg or Config.from_flat(**cfg_kw)
+    kw = dict(resume=resume, img_path=img_path, img_folder=img_folder,
+              depth_folder=depth_folder,
+              inference_coco_path=inference_coco_path,
+              coco_img_folder=coco_img_folder, output_dir=output_dir,
+              keep_prob=keep_prob, save_txt=save_txt, save_img=save_img,
+              spatial_weights=spatial_weights)
+    if num_devices > 1:
+        m = cfg.model
+        parallel.check_divisible(
+            1 if m.temporal_mode == "none" else 1 + m.num_ref_frames,
+            num_devices)
+        return parallel.spawn(_serve_rank, parallel.local_devices(
+            num_devices, device), cfg, kw)
+    return _serve(cfg, device=device, **kw)
+
+
+def _serve_rank(device, cfg, kw):
+    """One rank of clip-parallel serving, in the group ``parallel.spawn``
+    formed."""
+    return _serve(cfg, device=device, group=torch.distributed.group.WORLD,
+                  **kw)
+
+
+def _serve(cfg, *, resume, img_path, img_folder, depth_folder,
+           inference_coco_path, coco_img_folder, output_dir, keep_prob,
+           save_txt, save_img, spatial_weights, device, group=None):
     engine = DeformableDETRInference(cfg, resume=resume,
                                      spatial_weights=spatial_weights,
-                                     keep_prob=keep_prob, device=device)
-    os.makedirs(output_dir, exist_ok=True)
+                                     keep_prob=keep_prob, device=device,
+                                     group=group)
+    writes = parallel.is_main_process()
+    save_txt, save_img = save_txt and writes, save_img and writes
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
 
     jobs = []  # (name, clip)
     if inference_coco_path:

@@ -16,9 +16,20 @@ and are normalized on the device. Each epoch's line of ``log.txt`` also
 holds ``timing``: the epoch's wall seconds and the loader's host seconds
 (decode, transform, collate) and the seconds the loop waited for it.
 
-Refused, naming the slice each waits for: ``--frozen_weights``
-(segmentation), ``--num_devices`` > 1 and a multi-host environment
-(``COORDINATOR_ADDRESS`` / ``DFVOD_MULTIHOST``: data parallelism, item 14).
+Data parallelism, one process per card as the reference trains
+(``main.py:439-443``): ``--num_devices N`` keeps the JAX package's meaning
+(this many local devices, 0 = all) and starts N processes on ``cuda:0 ..
+N-1`` (on the CPU, with ``device="cpu"``, N gloo processes), or launch
+with ``torchrun --nproc_per_node N -m dfvod_tpu_torch.cli.main ...``,
+whose environment the CLI joins. ``--batch_size`` is per process; each
+process loads its shard of the data and evaluates its shard of the
+validation images, merged before the summary. Rank 0 prints, logs and
+writes the checkpoints. ``COORDINATOR_ADDRESS`` / ``DFVOD_MULTIHOST`` (the
+JAX package's multi-host start) without torchrun's variables raise, naming
+them.
+
+Refused, naming the slice it waits for: ``--frozen_weights``
+(segmentation).
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from dfvod_tpu_torch import parallel
 from dfvod_tpu_torch.cli.flags import config_from_args, get_args_parser
 from dfvod_tpu_torch.data.dataset import build_dataset, make_transform
 from dfvod_tpu_torch.data.loader import Loader, to_train_batch
@@ -59,22 +71,20 @@ NAN_EXIT_CODE = 42
 HEARTBEAT_S = 120
 
 
-def check_single_process(cfg):
-    """Refuse what needs more than one process or device, or the
-    segmentation head."""
+def check_supported_run(cfg):
+    """Refuse the segmentation-only mode, and the JAX package's
+    multi-host start without torchrun's variables."""
     if cfg.model.frozen_weights:
         raise NotImplementedError(
             "--frozen_weights (segmentation-only training) waits for the "
             "segmentation slice")
-    if cfg.train.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {cfg.train.num_devices}: training on more than "
-            "one device waits for data parallelism (ROADMAP.md item 14)")
-    for var in ("COORDINATOR_ADDRESS", "DFVOD_MULTIHOST"):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var} is set: multi-host training waits for data "
-                "parallelism (ROADMAP.md item 14)")
+    if not parallel.under_torchrun():
+        for var in ("COORDINATOR_ADDRESS", "DFVOD_MULTIHOST"):
+            if os.environ.get(var):
+                raise ValueError(
+                    f"{var} is set: the port starts several hosts with "
+                    "torchrun, whose variables replace it: "
+                    f"{', '.join(parallel.dist.TORCHRUN_VARS)}")
 
 
 def load_state(model, state: dict):
@@ -177,22 +187,24 @@ def train_loop(cfg, *, video: bool = False, resume: str = "",
     """Train (or, with ``eval_only``, evaluate) ``cfg`` on ``device`` (the
     card unless given). Returns the final evaluation's stats."""
     np.random.seed(cfg.train.seed)
-    check_single_process(cfg)
-    setup_for_distributed(True)
+    setup_for_distributed(parallel.is_main_process())
     device = resolve_device(device)
     frames = (1 + cfg.model.num_ref_frames) if video else 1
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"device: {device} ({name}), frames/clip: {frames}")
+    print(f"device: {device} ({name}) x {parallel.world()} processes, "
+          f"frames/clip: {frames}")
 
     model, criterion, _ = build_model(cfg, device, seed=cfg.train.seed)
     dump_args(cfg, cfg.output_dir)
 
     train_ds = build_dataset("train", cfg, temporal=video)
     val_ds = build_dataset("val", cfg, temporal=video)
+    # each process loads its contiguous shard (``samplers.py:48-66``)
     common = dict(max_boxes=cfg.data.max_boxes, use_depth=cfg.data.use_depth,
                   seed=cfg.train.seed, pack_s2d=cfg.data.pack_s2d,
-                  num_workers=cfg.data.num_workers, device=device)
+                  num_workers=cfg.data.num_workers, device=device,
+                  rank=parallel.rank(), world=parallel.world())
     train_loader = Loader(train_ds, make_transform(True, cfg),
                           batch_size=cfg.train.batch_size, shuffle=True,
                           drop_last=True, **common)
@@ -281,6 +293,7 @@ def train_loop(cfg, *, video: bool = False, resume: str = "",
                               loss_ce=float(metrics.get("loss_ce", 0.0)),
                               loss_bbox=float(metrics.get("loss_bbox", 0.0)),
                               loss_giou=float(metrics.get("loss_giou", 0.0)))
+            logger.synchronize_between_processes()
             epoch_s = time.time() - t_epoch
 
             if cfg.output_dir:
@@ -303,9 +316,10 @@ def train_loop(cfg, *, video: bool = False, resume: str = "",
                         ckpt.save_checkpoint(
                             os.path.join(cfg.output_dir, "best"), state,
                             epoch)
-                        with open(best_meta_path, "w") as f:
-                            json.dump({"best_map50": best_map50,
-                                       "epoch": epoch}, f)
+                        if parallel.is_main_process():
+                            with open(best_meta_path, "w") as f:
+                                json.dump({"best_map50": best_map50,
+                                           "epoch": epoch}, f)
                     print(f"new best mAP_50={best_map50:.4f} @ epoch {epoch}")
             append_log(cfg.output_dir, stats)
             wandb.log(stats)
@@ -323,18 +337,43 @@ def train_loop(cfg, *, video: bool = False, resume: str = "",
         hb.stop()
 
 
+def _train_rank(device, cfg, video, kw):
+    """One rank of a run that ``main`` spawned: the train loop on its
+    device, in the group ``parallel.spawn`` formed."""
+    return train_loop(cfg, video=video, device=device, **kw)
+
+
 def main(argv=None, video: bool = False, device=None):
     parser = argparse.ArgumentParser(
         "dfvod_tpu_torch training", parents=[get_args_parser(video=video)])
     args = parser.parse_args(argv)
     cfg = config_from_args(args, video=video)
-    return train_loop(
-        cfg, video=video, resume=args.resume, start_epoch=args.start_epoch,
-        eval_only=args.eval, del_class_weights=args.del_class_weights,
-        temporal_weights=getattr(args, "transvod_temporal_weights", ""),
-        spatial_weights=getattr(args, "spatial_weights", ""),
-        wandb_enabled=not args.no_wandb, auto_resume=args.auto_resume,
-        device=device)
+    kw = dict(resume=args.resume, start_epoch=args.start_epoch,
+              eval_only=args.eval, del_class_weights=args.del_class_weights,
+              temporal_weights=getattr(args, "transvod_temporal_weights", ""),
+              spatial_weights=getattr(args, "spatial_weights", ""),
+              wandb_enabled=not args.no_wandb, auto_resume=args.auto_resume)
+    check_supported_run(cfg)        # before any process starts
+    if parallel.under_torchrun():
+        if cfg.train.num_devices > 1:
+            raise ValueError(
+                f"--num_devices {cfg.train.num_devices} under torchrun, "
+                "which starts one process per card: give --nproc_per_node "
+                "instead")
+        device = parallel.init_distributed(device=device)
+        try:
+            return train_loop(cfg, video=video, device=device, **kw)
+        finally:
+            torch.distributed.destroy_process_group()
+    devices = parallel.local_devices(cfg.train.num_devices, device)
+    if len(devices) == 1:
+        return train_loop(cfg, video=video, device=device, **kw)
+    try:
+        return parallel.spawn(_train_rank, devices, cfg, video, kw)
+    except torch.multiprocessing.ProcessExitedException as e:
+        # a rank's deliberate exit (the NaN exit on every rank) is the
+        # run's exit code
+        sys.exit(e.exit_code)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,11 @@ It replaces the reference's ``datasets/coco_eval.py``, which wraps
   interpolation; -1 where a category has no positives.
 
 The reference merges detections across processes
-(``coco_eval.py:63-66``). Here ``synchronize_between_processes`` is a
-no-op for one process; the merge over ``torch.distributed`` waits for the
-data-parallel slice and raises rather than skip it.
+(``coco_eval.py:63-66``); ``synchronize_between_processes`` does it over
+``torch.distributed`` and keeps one copy of each image's detections, as
+the reference's ``merge`` (``np.unique`` of the image ids) does. The JAX
+package's merge concatenates every process's detections, so an image that
+the padded shards give to two processes counts twice there.
 """
 from __future__ import annotations
 
@@ -135,20 +137,24 @@ class COCOEvaluator:
                     "bbox": box.tolist(), "score": float(score)})
 
     def synchronize_between_processes(self):
-        """Merge the detections of every process: nothing to merge with
-        ``torch.distributed`` uninitialized or one process, as the JAX
-        package's with ``process_count() <= 1``. More than one process
-        raises: the all-gather comes with data parallel (``ROADMAP.md``
-        Queue 1 item 14), and a merge skipped silently would score one
-        rank's images only."""
+        """Merge the detections of every process, so that each holds all
+        of them: nothing to merge without a process group or with one
+        process. An image evaluated by more than one process (the padded
+        shards of ``data/loader.py::shard_indices`` wrap the order) keeps
+        the detections of the lowest rank, once."""
         import torch.distributed as dist
         if not dist.is_available() or not dist.is_initialized() \
                 or dist.get_world_size() <= 1:
             return
-        raise NotImplementedError(
-            f"evaluating over {dist.get_world_size()} processes needs the "
-            "detections' all-gather, which waits for data parallel "
-            "(ROADMAP.md Queue 1 item 14)")
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, {"dets": self.detections,
+                                       "seen": sorted(self._seen)})
+        dets, seen = [], set()
+        for part in parts:                 # rank order
+            new = set(part["seen"]) - seen
+            dets.extend(d for d in part["dets"] if d["image_id"] in new)
+            seen |= new
+        self.detections, self._seen = dets, seen
 
     def accumulate(self):
         dt_by = defaultdict(list)

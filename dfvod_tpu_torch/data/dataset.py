@@ -20,6 +20,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from dfvod_tpu_torch import parallel
 from dfvod_tpu_torch.data.coco import COCO, CocoVID
 from dfvod_tpu_torch.data.image_io import read_image, read_rgb
 from dfvod_tpu_torch.data.transforms import (
@@ -103,16 +104,19 @@ class CocoDetectionDataset:
     ``Sample`` (a clip of length 1), the video dataset longer clips through
     the same interface.
 
-    ``cache_mode``: every RGB file's bytes are read into RAM once, for this
-    process, and decoded from there (``torchvision_datasets/coco.py:51-58``;
-    sharing the cache across hosts waits for data parallelism, item 14).
+    ``cache_mode``: the RGB files' bytes are read into RAM once and decoded
+    from there (``torchvision_datasets/coco.py:51-58``), split over the
+    processes as the JAX package splits them: this one holds every
+    ``cache_world``-th file from the ``cache_rank``-th, and reads the rest
+    from disk.
     ``depth_folder``: the depth maps are that folder's files of the
     frames' names (the inference CLI's ``--depth_folder``), not the
     ``images -> depth_pred`` substitution."""
 
     def __init__(self, img_folder: str, ann_file: str, *,
                  use_depth: bool = False, train: bool = True,
-                 cache_mode: bool = False, return_masks: bool = False,
+                 cache_mode: bool = False, cache_rank: int = 0,
+                 cache_world: int = 1, return_masks: bool = False,
                  depth_folder: Optional[str] = None):
         if return_masks:
             raise NotImplementedError(f"return_masks {_SEGMENTATION}")
@@ -125,7 +129,7 @@ class CocoDetectionDataset:
         self._cache: Optional[dict] = None
         if cache_mode:
             self._cache = {}
-            for img_id in self.ids:
+            for img_id in self.ids[cache_rank::cache_world]:
                 with open(self._path(img_id), "rb") as f:
                     self._cache[img_id] = f.read()
 
@@ -141,8 +145,8 @@ class CocoDetectionDataset:
 
     def _load_frame(self, img_id: int) -> Sample:
         path = self._path(img_id)
-        rgb = read_rgb(self._cache[img_id] if self._cache is not None
-                       else path)
+        cached = self._cache.get(img_id) if self._cache is not None else None
+        rgb = read_rgb(cached if cached is not None else path)
         depth = None
         if self.use_depth:
             depth = load_depth(
@@ -167,10 +171,12 @@ class CocoVideoDataset(CocoDetectionDataset):
     def __init__(self, img_folder: str, ann_file: str, *,
                  num_ref_frames: int = 3, use_depth: bool = False,
                  train: bool = True, cache_mode: bool = False,
+                 cache_rank: int = 0, cache_world: int = 1,
                  return_masks: bool = False,
                  depth_folder: Optional[str] = None):
         super().__init__(img_folder, ann_file, use_depth=use_depth,
                          train=train, cache_mode=cache_mode,
+                         cache_rank=cache_rank, cache_world=cache_world,
                          return_masks=return_masks,
                          depth_folder=depth_folder)
         self.num_ref_frames = num_ref_frames
@@ -211,8 +217,10 @@ def build_dataset(image_set: str, cfg, temporal: bool = False):
         img_folder = os.path.join(root, "coco", "images")
         ann_file = os.path.join(root, "coco", "annotations",
                                 f"{image_set}.json")
+    # the cache split over the processes (``main.py:249-251``)
     kw = dict(use_depth=data.use_depth, train=image_set == "train",
-              cache_mode=data.cache_mode)
+              cache_mode=data.cache_mode, cache_rank=parallel.rank(),
+              cache_world=parallel.world())
     if temporal:
         return CocoVideoDataset(img_folder, ann_file,
                                 num_ref_frames=data.num_ref_frames, **kw)

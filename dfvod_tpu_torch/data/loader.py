@@ -19,7 +19,13 @@ equal the JAX package's.
 
 With ``pack_s2d`` each batch's canvas is 2x2 space-to-depth packed on the
 host (``data/device_pipeline.py::pack_s2d``): the same bytes, (B', H/2,
-W/2, 12|16). Data parallelism (``world`` > 1) waits for item 14.
+W/2, 12|16).
+
+Data parallelism: with ``world`` > 1 each process loads its contiguous
+shard of the (shuffled) order, padded to a multiple of ``world`` by
+wrapping (``shard_indices``, the JAX package's and the reference's
+``samplers.py:48-66``). ``batch_size`` is per process, as the reference's
+per-GPU batch, and ``len`` counts this rank's batches.
 """
 from __future__ import annotations
 
@@ -75,10 +81,8 @@ class Loader:
                  rank: int = 0, world: int = 1, drop_last: bool = False,
                  prefetch: int = 2, pack_s2d: bool = False,
                  num_workers: int = 0, device=None):
-        if world != 1 or rank != 0:
-            raise NotImplementedError(
-                f"world={world}: a loader sharded over processes waits for "
-                "data parallelism (ROADMAP.md item 14)")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
         self.dataset = dataset
         self.transform = transform
         self.batch_size = batch_size

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfvod_tpu_torch.models.backbone_resnet import downsample_mask
+from dfvod_tpu_torch.parallel.dist import all_reduce_sum, world
 
 
 class BatchNorm(nn.Module):
@@ -30,7 +31,18 @@ class BatchNorm(nn.Module):
     running + momentum * batch`` with that same biased variance, as flax's
     ``nn.BatchNorm(momentum=0.9)`` does. ``F.batch_norm(training=True)``
     would update ``running_var`` with the unbiased variance instead. The
-    running statistics stay f32 whatever dtype the activations have."""
+    running statistics stay f32 whatever dtype the activations have.
+
+    With a process group of more than one rank in ``group``
+    (``set_batchnorm_group``), the statistics in training are the global
+    batch's, as in the JAX package's one program over the global batch:
+    the sum, the sum of squares and the count are all-reduced over the
+    group by an all-reduce that carries gradients (``all_reduce_sum``),
+    and the variance is flax's ``E[x^2] - E[x]^2`` (clamped at 0). Every
+    rank's running statistics then take the same update. The reference's
+    plain BN under DDP uses each card's own batch instead."""
+
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -46,7 +58,10 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        if self.group is not None and world(self.group) > 1:
+            var, mean = _global_var_mean(xf, self.group)
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
             self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                     self.momentum)
@@ -56,6 +71,28 @@ class BatchNorm(nn.Module):
         y = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
              + self.bias.float()[None, :, None, None])
         return y.to(x.dtype)
+
+
+def _global_var_mean(xf, group):
+    """(biased variance, mean) per channel of NCHW ``xf`` over every rank
+    of ``group``, differentiable through the all-reduce."""
+    C = xf.shape[1]
+    count = torch.full((1,), float(xf.numel() // C), device=xf.device)
+    stats = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)),
+                                      xf.square().sum((0, 2, 3)), count]),
+                           group=group)
+    n = stats[-1]
+    mean = stats[:C] / n
+    var = (stats[C:2 * C] / n - mean.square()).clamp(min=0.0)
+    return var, mean
+
+
+def set_batchnorm_group(model: nn.Module, group):
+    """Let every DFormer ``BatchNorm`` of ``model`` take its training
+    statistics over ``group`` (None: this process's batch only)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def _conv(in_features: int, features: int) -> nn.Conv2d:

@@ -16,15 +16,21 @@ The reference semantics the JAX package keeps are kept here too:
 
 The final and aux layers and the encoder's proposals are matched together
 (``matcher.match_layers``): one host sync per call. Masks raise.
+
+Under data parallelism (a process group of more than one rank) every rank
+divides by the global batch's box count over the ranks, all-reduced in
+each call, so every rank must call the criterion in the same step.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from dfvod_tpu_torch.models.matcher import match_layers
+from dfvod_tpu_torch.parallel.dist import world
 from dfvod_tpu_torch.utils.box_ops import (
     box_cxcywh_to_xyxy,
     elementwise_generalized_box_iou,
@@ -134,7 +140,16 @@ class SetCriterion:
         if "pred_masks" in outputs or "masks" in targets:
             raise NotImplementedError("mask losses wait for the segmentation "
                                       "slice")
-        num_boxes = targets["valid"].float().sum().clamp(min=1.0)
+        num_boxes = targets["valid"].float().sum()
+        n = world()
+        if n > 1:
+            # the global batch's mean boxes per rank (``:520-524`` of the
+            # reference): DDP's average of the ranks' gradients is then
+            # the gradient of sum(loss) / sum(num_boxes) over the global
+            # batch, as the JAX package's one program computes it
+            dist.all_reduce(num_boxes)
+            num_boxes = num_boxes / n
+        num_boxes = num_boxes.clamp(min=1.0)
         aux_list = list(outputs.get("aux_outputs", []))
         enc = outputs.get("enc_outputs")
         layers = [outputs, *aux_list] + ([enc] if enc is not None else [])

@@ -16,6 +16,15 @@ Reference quirks kept, as in the JAX package:
 - the temporal decoder gets no padding mask, ``valid_ratios[:, :1]`` and
   ``query_pos=None``.
 
+Clip-parallel serving (the JAX package's ``clip_batch_sharding``): with
+``trunk_group`` set to a process group of more than one rank, each rank
+runs the trunk on its contiguous rows of the ``B*F`` frames (a clip may
+straddle two ranks), the trunk outputs the temporal heads read are
+gathered over the group in rank order, and every rank runs the temporal
+heads on all of them, so that every rank returns the same key-frame
+detections. Forward only: the gather carries no gradient, and a forward
+that records one raises.
+
 Submodules carry the flax module names (``detr``,
 ``temporal_query_layer{1,2,3}``, ``temporal_encoder_layer``,
 ``temporal_decoder``, ``temporal_decoder{1,2,3}``, ``temp_head``,
@@ -41,8 +50,20 @@ from dfvod_tpu_torch.models.transformer import (
     DetectionHead,
 )
 from dfvod_tpu_torch.ops.roi_align import roi_align
+from dfvod_tpu_torch.parallel.dist import (
+    all_gather_rows,
+    rank,
+    shard_rows,
+    world,
+)
 from dfvod_tpu_torch.utils.box_ops import box_cxcywh_to_xyxy, inverse_sigmoid
 from dfvod_tpu_torch.utils.config import ModelConfig, check_supported
+
+
+# the trunk outputs the temporal heads read, gathered under clip-parallel
+# serving (``spatial_shapes`` is the same on every rank)
+TRUNK_GATHERED = ("memory", "pos_flat", "hs_last", "last_reference",
+                  "last_deltas", "valid_ratios")
 
 
 class TemporalQueryEncoderLayer(nn.Module):
@@ -236,6 +257,31 @@ class TemporalDeformableDETR(nn.Module):
                 self.add_module(f"temp_head_{i}",
                                 DetectionHead(d, cfg.num_classes))
 
+    trunk_group = None
+
+    def _trunk_outputs(self, images, mask):
+        """The trunk on every frame; with ``trunk_group`` of more than one
+        rank, on this rank's rows, the outputs the heads read gathered."""
+        group = self.trunk_group
+        n = world(group) if group is not None else 1
+        if n == 1:
+            return self.detr(images, mask)
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "clip-parallel training (a gather that carries gradients) "
+                "waits for a later slice; serve under torch.no_grad()")
+        r = rank(group)
+        out = self.detr(shard_rows(images, r, n), shard_rows(mask, r, n))
+        trunk = {k: all_gather_rows(out["_trunk"][k], group)
+                 for k in TRUNK_GATHERED}
+        trunk["spatial_shapes"] = out["_trunk"]["spatial_shapes"]
+        res = {k: all_gather_rows(out[k], group)
+               for k in ("pred_logits", "pred_boxes")}
+        if "enc_outputs" in out:
+            res["enc_outputs"] = {k: all_gather_rows(v, group)
+                                  for k, v in out["enc_outputs"].items()}
+        return {**res, "_trunk": trunk}
+
     def forward(self, images, mask):
         cfg = self.cfg
         F = 1 + cfg.num_ref_frames
@@ -244,7 +290,7 @@ class TemporalDeformableDETR(nn.Module):
             raise ValueError(f"{BF} frames are not whole clips of {F}")
         B = BF // F
 
-        out_sf = self.detr(images, mask)
+        out_sf = self._trunk_outputs(images, mask)
         trunk = out_sf["_trunk"]
         if cfg.fixed_pretrained_model:
             trunk = {k: v if k == "spatial_shapes" else v.detach()

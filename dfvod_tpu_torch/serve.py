@@ -10,6 +10,14 @@ With ``temporal_mode`` ``"transvod"`` or ``"transvod_pp"`` a request is
 whole clips: ``B`` clips of ``F = 1 + num_ref_frames`` frames each,
 contiguous, frame order ``[key, ref_1, ..., ref_N]``, and the detections
 are the key frames'.
+
+Clip-parallel serving of a TransVOD / TransVOD++ model (``group``, a
+process group of more than one rank; the JAX package's
+``clip_batch_sharding`` over its mesh): every rank is given the whole
+request, runs the trunk on its contiguous rows of the frames, and gathers
+what the heads read (``models/temporal.py``); a request whose frames do
+not divide over the ranks raises, as the JAX sharding does. Every rank
+returns the same detections.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 
 from dfvod_tpu_torch.data.device_pipeline import normalize_frames
 from dfvod_tpu_torch.models import build_model
+from dfvod_tpu_torch.parallel.dist import world
 from dfvod_tpu_torch.utils.config import Config
 from dfvod_tpu_torch.utils.convert import load_jax_variables
 from dfvod_tpu_torch.utils.device import as_tensor
@@ -30,21 +39,29 @@ class Server:
     model as nested dicts of numpy arrays (``utils/convert.py``), or None
     for random weights drawn from ``seed``. device: the card unless the
     caller passes one; raises when CUDA is absent and none was asked for.
+    group: a process group for clip-parallel serving of a temporal model,
+    or None.
     """
 
     def __init__(self, cfg: Config, variables=None, device=None,
-                 dtype=torch.bfloat16, seed: int = 0):
+                 dtype=torch.bfloat16, seed: int = 0, group=None):
         self.cfg = cfg
         self.dtype = dtype
         m = cfg.model
         # frames per clip; 1 for the single-frame model
         self.frames = 1 if m.temporal_mode == "none" else 1 + m.num_ref_frames
+        if group is not None and world(group) > 1 and self.frames == 1:
+            raise ValueError("clip-parallel serving splits a clip's frames "
+                             "over the ranks: a single-frame model has "
+                             "none (serve it in one process per card)")
         model, _, self.postprocess = build_model(cfg, device, seed)
         if variables is not None:
             load_jax_variables(model, variables)
         self.device = next(model.parameters()).device
         self.model = model.to(dtype=dtype,
                               memory_format=torch.channels_last)
+        if self.frames > 1:
+            self.model.trunk_group = group
 
     @torch.no_grad()
     def forward(self, images_u8, sizes):

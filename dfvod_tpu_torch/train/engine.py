@@ -16,16 +16,29 @@ model the rows are frames, B = clips * F with F = 1 + num_ref_frames, clips
 contiguous and key frame first; the model predicts for the key frames only,
 so the criterion reads the key frames' target rows, as
 ``make_train_step(frames=F)`` does (``dfvod_tpu/train/engine.py:93-96``).
+
+Data parallelism: when a process group exists (``parallel.init_distributed``)
+each process passes its own rows of the global batch, and the step is the
+JAX package's one step over the global batch: the model runs wrapped in
+``DistributedDataParallel`` (the reference's mechanism, ``main.py:439-443``),
+which averages the gradients over the ranks before the clip; the criterion
+divides by the global box count (``models/criterion.py``); with more than
+one rank the DFormer BatchNorms take the global batch's statistics
+(``models/backbone_dformer.py``); the returned metrics are the ranks'
+means, the global batch's; and dropout draws from ``seed + rank``. Without
+a process group nothing of this runs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from dfvod_tpu_torch import parallel
 from dfvod_tpu_torch.data.device_pipeline import normalize_frames
+from dfvod_tpu_torch.models.backbone_dformer import set_batchnorm_group
 from dfvod_tpu_torch.models.layers import set_dropout_generator
 from dfvod_tpu_torch.train.optim import (
     build_optimizer,
@@ -43,7 +56,10 @@ TRAIN_DTYPES = ("float32", "bfloat16")
 class TrainState:
     """What a train step carries from one step to the next. The model
     holds the parameters and the DFormer BN running statistics; dropout
-    draws from ``generator``."""
+    draws from ``generator``. Under data parallelism ``ddp`` is the
+    ``DistributedDataParallel`` wrapper the forward runs through, and
+    ``model`` stays the unwrapped module, whose names the optimizer and
+    the checkpoints use."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     labels: Dict[str, str]
@@ -51,6 +67,17 @@ class TrainState:
     cfg: Config
     steps_per_epoch: int
     step: int = 0
+    ddp: Optional[nn.Module] = None
+
+
+def unused_parameters_expected(model_cfg) -> bool:
+    """Whether a train step of this configuration leaves some trainable
+    parameter without a gradient, which DDP must then search for
+    (``find_unused_parameters``). A TransVOD / TransVOD++ step does: the
+    trunk's heads feed only the top-k of the reference frames' queries
+    (and, two-stage, the proposals' top-k), through which no gradient
+    passes. Frozen parameters (``requires_grad=False``) do not count."""
+    return model_cfg.temporal_mode != "none"
 
 
 def create_train_state(model: nn.Module, cfg: Config,
@@ -64,10 +91,22 @@ def create_train_state(model: nn.Module, cfg: Config,
                          f"{TRAIN_DTYPES}")
     optimizer, labels = build_optimizer(model, cfg.model, cfg.train)
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.train.seed + parallel.rank())
     set_dropout_generator(model, generator)
+    ddp = None
+    if parallel.initialized():
+        if parallel.world() > 1:
+            set_batchnorm_group(model, torch.distributed.group.WORLD)
+        # every buffer is a constant or a BN statistic that each rank
+        # updates from the same all-reduced batch statistics, so the ranks
+        # agree without rank 0's buffers broadcast before each forward
+        ddp = nn.parallel.DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            find_unused_parameters=unused_parameters_expected(cfg.model),
+            broadcast_buffers=False)
     return TrainState(model, optimizer, labels, generator, cfg,
-                      steps_per_epoch)
+                      steps_per_epoch, ddp=ddp)
 
 
 def _f32(out):
@@ -100,10 +139,11 @@ def forward(state: TrainState, batch):
     for k in ("labels", "boxes", "valid"):
         x = as_tensor(batch[k], device)
         targets[k] = x.reshape(x.shape[0] // F, F, *x.shape[1:])[:, 0]
-    model.train()
+    net = state.ddp if state.ddp is not None else model
+    net.train()
     bf16 = state.cfg.train.train_dtype == "bfloat16"
     with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-        out = model(images, mask)
+        out = net(images, mask)
     return _f32(out), targets
 
 
@@ -126,11 +166,12 @@ def train_step(state: TrainState, criterion, batch) -> Dict[str,
                                                               torch.Tensor]:
     """One optimizer step. Returns {loss, grad_norm, loss_ce, loss_bbox,
     loss_giou, cardinality_error, loss_ce_0, ...} as device tensors;
-    ``grad_norm`` is the global norm before clipping."""
+    ``grad_norm`` is the global norm before clipping. Under data
+    parallelism each is the mean over the ranks (the global batch's)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, parts = criterion(*forward(state, batch))
     loss.backward()
     grad_norm = apply_gradients(state)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
     metrics.update({k: v.detach() for k, v in parts.items()})
-    return metrics
+    return parallel.reduce_mean(metrics)

@@ -13,6 +13,11 @@ A batch is the train step's contract plus two keys: ``images`` uint8
 ``(B,)``. For a TransVOD / TransVOD++ model the rows are whole clips of
 ``frames`` frames, key frame first, and the key rows' ids and sizes are
 read.
+
+Under data parallelism each process evaluates its own shard of the images
+(the loader's ``rank`` / ``world``) and the evaluators merge before the
+summary, so every process returns the stats of the whole set, those of
+one process.
 """
 from __future__ import annotations
 

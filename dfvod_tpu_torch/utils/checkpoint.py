@@ -32,6 +32,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from dfvod_tpu_torch import parallel
+
 TEMPORAL_KEY_PATTERNS = ("temporal_query", "temporal_decoder",
                          "temp_bbox_embed", "temp_class_embed",
                          "dynamic_layer", "temporal", "qrf")
@@ -134,7 +136,19 @@ def save_checkpoint(output_dir: str, state, epoch: int, cfg=None,
     Retention is the JAX package's orbax policy (``max_to_keep=3,
     keep_period=keep_every``): the newest three epochs are kept, and every
     epoch divisible by ``keep_every``; the rest are deleted. Saving epochs
-    0-11 leaves {0, 5, 9, 10, 11}."""
+    0-11 leaves {0, 5, 9, 10, 11}.
+
+    Under data parallelism every process calls it: the main process writes
+    (the unwrapped model's keys, no ``module.`` prefix), and every process
+    waits at a barrier until the file is in place."""
+    path = _checkpoint_path(output_dir, epoch)
+    if parallel.is_main_process():
+        _write_checkpoint(output_dir, state, epoch, cfg, keep_every)
+    parallel.barrier()
+    return path
+
+
+def _write_checkpoint(output_dir, state, epoch, cfg, keep_every):
     os.makedirs(output_dir, exist_ok=True)
     payload = {
         "model": state.model.state_dict(),
@@ -154,7 +168,6 @@ def save_checkpoint(output_dir: str, state, epoch: int, cfg=None,
     for e in epochs:
         if e not in keep:
             os.remove(_checkpoint_path(output_dir, e))
-    return path
 
 
 def load_checkpoint(output_dir: str, state=None, epoch: Optional[int] = None,

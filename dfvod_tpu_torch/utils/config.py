@@ -104,7 +104,7 @@ class TrainConfig:
     """Optimizer/schedule config (``main.py:311-435``). ``batch_size``,
     ``num_devices``, ``profile_dir`` and ``eval_every`` are read by the CLI
     (``cli/main.py``), not by the train step, which takes the batch it is
-    given, on one device."""
+    given (this process's rows under data parallelism)."""
     lr: float = 1e-4
     lr_backbone: float = 1e-5
     lr_linear_proj_mult: float = 0.1

@@ -2,6 +2,11 @@
 ``SmoothedValue`` / ``MetricLogger`` (``util/misc.py:51-281`` of the
 reference), the output directory's ``log.txt`` (JSON lines) and
 ``args.yaml``, and optional wandb.
+
+Under data parallelism only the main process (rank 0) prints
+(``setup_for_distributed``) and writes ``log.txt`` and ``args.yaml``;
+``synchronize_between_processes`` sums the meters' counts and totals over
+the ranks.
 """
 from __future__ import annotations
 
@@ -13,10 +18,13 @@ import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
 
+import torch
+
+from dfvod_tpu_torch import parallel
+
 
 class SmoothedValue:
-    """Windowed median/avg tracker (``util/misc.py:51-122``). The port
-    trains in one process, so there is no cross-rank sync."""
+    """Windowed median/avg tracker (``util/misc.py:51-122``)."""
 
     def __init__(self, window_size: int = 20, fmt: str = "{median:.4f} "
                  "({global_avg:.4f})"):
@@ -30,6 +38,16 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self):
+        """Sum ``count`` and ``total`` over every process (the window
+        stays this process's), so ``global_avg`` is the ranks' together."""
+        if parallel.world() == 1:
+            return
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=parallel.collective_device())
+        torch.distributed.all_reduce(t)
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self):
@@ -66,6 +84,10 @@ class MetricLogger:
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
 
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
+
     def __getattr__(self, attr):
         if attr in self.meters:
             return self.meters[attr]
@@ -100,7 +122,7 @@ class MetricLogger:
 def setup_for_distributed(is_master: bool):
     """Master-only printing (``util/misc.py:385-397``): a process that is
     not the master prints only lines forced with ``print(..., force=True)``.
-    The port runs one process, which is the master."""
+    With one process, which is the master, print is left as it is."""
     import builtins
     if is_master:
         return
@@ -115,8 +137,8 @@ def setup_for_distributed(is_master: bool):
 
 def dump_args(cfg, output_dir: str):
     """``args.yaml`` dump (``main.py:648-653``) — plain key: value lines,
-    no yaml dependency."""
-    if not output_dir:
+    no yaml dependency. Written by the main process only."""
+    if not output_dir or not parallel.is_main_process():
         return
     os.makedirs(output_dir, exist_ok=True)
     lines = []
@@ -135,8 +157,9 @@ def dump_args(cfg, output_dir: str):
 
 
 def append_log(output_dir: str, stats: Dict):
-    """JSON-lines ``log.txt`` per epoch (``main.py:623-625``)."""
-    if not output_dir:
+    """JSON-lines ``log.txt`` per epoch (``main.py:623-625``), written by
+    the main process only."""
+    if not output_dir or not parallel.is_main_process():
         return
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "log.txt"), "a") as f:

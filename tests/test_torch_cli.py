@@ -321,9 +321,15 @@ def test_main_multi_fixed_pretrained_moves_only_temporal_parameters(
 # ----------------------------------------------------------------- refusals
 REFUSALS = {
     "frozen_weights": (["--frozen_weights", "x"], {}, "segmentation slice"),
-    "num_devices": (["--num_devices", "2"], {}, "item 14"),
-    "coordinator": ([], {"COORDINATOR_ADDRESS": "h:1"}, "item 14"),
-    "multihost": ([], {"DFVOD_MULTIHOST": "1"}, "item 14"),
+    # refused until data parallelism; now 2 gloo processes of 4 frames
+    # each train one epoch (one step) and evaluate their shards
+    "num_devices": (["--num_devices", "2", "--batch_size", "4"],
+                    {"OMP_NUM_THREADS": "2"}, None),
+    # the JAX package's multi-host start: the port's is torchrun's
+    "coordinator": ([], {"COORDINATOR_ADDRESS": "h:1"},
+                    "RANK, WORLD_SIZE, LOCAL_RANK"),
+    "multihost": ([], {"DFVOD_MULTIHOST": "1"},
+                  "RANK, WORLD_SIZE, LOCAL_RANK"),
     "num_feature_levels_2": (["--num_feature_levels", "2"], {},
                              "multi-level"),
     "backbone": (["--backbone", "resnet101"], {}, "only resnet50"),
@@ -345,11 +351,20 @@ def test_refused_flags_name_their_slice(name, tree, tmp_path, monkeypatch):
     if match is None:
         stats = cli.main(argv, device="cpu")
         assert set(stats) >= {"mAP", "mAP_50"}
-        line = log_lines(tmp_path / "run")[0]
-        assert line["epoch"] == 0 and all(np.isfinite(line[k])
-                                          for k in LOSS_KEYS)
+        # one line per epoch and the final evaluation's: with 2 processes
+        # rank 0 alone writes, and its checkpoint has the one-process
+        # model's keys
+        lines = log_lines(tmp_path / "run")
+        assert [set(x) & {"epoch", "eval"} for x in lines] == [{"epoch"},
+                                                               {"eval"}]
+        assert lines[0]["epoch"] == 0 and all(np.isfinite(lines[0][k])
+                                              for k in LOSS_KEYS)
+        cfg = flags.config_from_args(flags.get_args_parser().parse_args(
+            argv))
+        saved = load_checkpoint(str(tmp_path / "run"))[0]["model"]
+        assert set(saved) == set(build_model(cfg, "cpu")[0].state_dict())
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         cli.main(argv, device="cpu")
 
 

@@ -217,14 +217,33 @@ def test_cocovid_indexes_match_jax():
 def test_synchronize_is_a_no_op_for_one_process_and_raises_for_more(
         monkeypatch):
     """Uninitialized ``torch.distributed`` or one process: nothing to
-    merge. More than one: the all-gather waits for data parallel, and the
-    evaluator raises rather than score one rank's images."""
+    merge. More than one (the all-gather stood in for, two ranks whose
+    shards both hold image 242, as wrapped shards do): every rank's
+    detections in rank order, one copy of each image's, the lowest rank's.
+    The merge no longer raises since data parallelism came; the name is
+    kept. The real all-gather over two processes is in
+    ``tests/test_torch_parallel.py``."""
     import torch.distributed as dist
     ev = coco_eval.COCOEvaluator(coco.COCO(VAL_JSON))
     ev.synchronize_between_processes()
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
     ev.synchronize_between_processes()
+    assert ev.detections == [] and ev._seen == set()
+
+    def det(img, score):
+        return {"boxes": [[1.0, 2.0, 5.0, 9.0]], "scores": [score],
+                "labels": [1]}
+    ranks = [coco_eval.COCOEvaluator(coco.COCO(VAL_JSON)) for _ in "ab"]
+    ranks[0].update({241: det(241, 0.9), 242: det(242, 0.8)})
+    ranks[1].update({243: det(243, 0.7), 242: det(242, 0.6)})
+
+    def all_gather_object(out, obj, group=None):
+        out[:] = [{"dets": r.detections, "seen": sorted(r._seen)}
+                  for r in ranks]
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        ev.synchronize_between_processes()
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    ev.synchronize_between_processes()
+    assert ev._seen == {241, 242, 243}
+    assert [(d["image_id"], d["score"]) for d in ev.detections] == [
+        (241, 0.9), (242, 0.8), (243, 0.7)]

@@ -303,12 +303,23 @@ def test_video_dataset_with_still_images_and_an_id_gap_equals_jax(
 
 
 def test_cache_mode_decodes_the_same_frames():
+    """The whole cache, and rank 1's half under 2 processes (the files the
+    JAX package's rank 1 caches; the rest read from disk): the same
+    frames."""
     cached = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, use_depth=True,
                                           cache_mode=True)
     plain = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, use_depth=True)
     assert len(cached._cache) == len(plain)
     for i in (0, 17, 59):
         assert_frames_equal(cached[i], plain[i])
+    half = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, use_depth=True,
+                                        cache_mode=True, cache_rank=1,
+                                        cache_world=2)
+    ref = j_dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, cache_mode=True,
+                                         cache_rank=1, cache_world=2)
+    assert sorted(half._cache) == sorted(ref._cache) == plain.ids[1::2]
+    for i in (0, 17, 59):
+        assert_frames_equal(half[i], plain[i])
 
 
 # ----------------------------------------------------------------- loader
@@ -503,13 +514,25 @@ def test_loader_digest_is_chip_smokes_constant_and_close_to_jax():
 
 
 def test_data_layer_refusals_name_their_slice(tmp_path):
-    """What the data layer still refuses: a loader sharded over processes
-    (item 14), an Adam7-interlaced PNG frame, the segmentation targets.
-    The two-stage model the CLI would build was refused until its slice,
-    and is now supported."""
+    """What the data layer still refuses: an Adam7-interlaced PNG frame,
+    the segmentation targets. A loader sharded over processes and the
+    two-stage model the CLI would build were refused until their slices,
+    and are now supported: each rank of 2 loads its contiguous shard of
+    val.json's 60 frames (30, 4 batches of 8, the last padded from the
+    shard), as the JAX Loader with the same rank does; a rank outside the
+    world is refused."""
+    for rank in (0, 1):
+        port, jax_ = loaders(VAL_JSON, train=False, rank=rank, world=2)
+        assert len(port) == len(jax_) == 4
+        got, ref = list(port), list(jax_)
+        assert len(got) == len(ref) == 4
+        for g, r in zip(got, ref):
+            assert_batches_close(g, r)
+        ids = np.concatenate([g["image_id"] for g in got])
+        assert len(set(ids)) == 30
     ds = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Loader(ds, tf.EvalTransform(), batch_size=2, world=2)
+    with pytest.raises(ValueError, match="rank 2 outside a world of 2"):
+        Loader(ds, tf.EvalTransform(), batch_size=2, rank=2, world=2)
     png = bytearray(chip_smoke.png_bytes(image_io.read_gray(DEPTHS[0])))
     png[28] = 1                        # IHDR's interlace method: Adam7
     png[29:33] = zlib.crc32(bytes(png[12:29])).to_bytes(4, "big")

@@ -199,8 +199,9 @@ def test_bare_cli_runs_resnet18_two_stage_and_refuses_devices(tree,
                                                               tmp_path):
     """``--fusion_type LateFusion --two_stage`` without
     ``--dformer_backbone``: the ResNet-18 two-stage model on random weights
-    writes one txt and one PNG per frame; ``--num_devices 2`` names item
-    14."""
+    writes one txt and one PNG per frame; ``--num_devices 2`` raises the
+    JAX sharding's divisibility error, a single frame per forward over 2
+    processes (before any process starts)."""
     argv = [*MODEL_ARGS, "--two_stage", "--img_folder",
             str(tree / "images"), "--depth_folder", str(tree / "depth"),
             "--output_dir", str(tmp_path / "out"), "--keep_prob", "0.2"]
@@ -214,7 +215,8 @@ def test_bare_cli_runs_resnet18_two_stage_and_refuses_devices(tree,
                             for e in ("png", "txt")])
     for r in results:
         assert (r["probs"] > 0.2).all() and r["boxes_cxcywh"].shape[1] == 4
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="should be divisible by 2, but "
+                                         "it is equal to 1"):
         inference.main([*argv, "--num_devices", "2"], device="cpu")
 
 

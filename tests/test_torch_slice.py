@@ -196,6 +196,7 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dfvod_tpu')]\n"
         "assert not bad, bad\n"
+        "assert 'dfvod_tpu_torch.parallel.dist' in sys.modules\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('dfvod_tpu_torch.')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
