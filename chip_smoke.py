@@ -1715,7 +1715,8 @@ def phase_small_cpu_reference(fusion="LateFusion", levels=1, model_kw=None):
     want = want_launches(msda_fwd=small_msda_layers(fusion))
     check(launches == want, f"small {fusion} forward on the card launched "
                             f"{launches}, not {want}")
-    pairs = [(k, got[k], ref[k]) for k in ("pred_logits", "pred_boxes")]
+    pairs = [(k, got[k], ref[k]) for k in ("pred_logits", "pred_boxes")
+             + (("pred_masks",) if "pred_masks" in ref else ())]
     if "enc_outputs" in ref:
         check_no_valid_ties(ref["enc_outputs"]["pred_logits"],
                             cfg.model.num_queries)
@@ -2247,6 +2248,8 @@ def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1,
     batch = train_batch(5, B=2, max_boxes=8)
     batch["images"] = batch["images"][:, :96, :128].contiguous()
     batch["sizes"] = torch.tensor([[96, 128], [60, 84]])
+    if cfg.model.masks:
+        batch["masks"] = box_masks(batch)
     if impl:
         os.environ["DFVOD_MSDA_IMPL"] = impl
     try:
@@ -4150,14 +4153,16 @@ def dp_train_cfg():
         cfg.model, dropout=0.0))
 
 
-def fresh_state(cfg, seed=0):
+def fresh_state(cfg, seed=0, clip=None):
     """(train state, criterion) of ``cfg`` on the card, weights drawn from
-    ``seed`` and ``randomize``d, as the other train phases make them."""
+    ``seed`` and ``randomize``d, as the other train phases make them;
+    ``clip``: clip-parallel training over the process group."""
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.train import create_train_state
     model, criterion, _ = build_model(cfg, device="cpu", seed=seed)
     model = randomize(model, seed=seed + 1).to("cuda")
-    return create_train_state(model, cfg, steps_per_epoch=1000), criterion
+    return create_train_state(model, cfg, steps_per_epoch=1000,
+                              clip=clip), criterion
 
 
 def timed_steps(state, criterion, batches, want, tag):
@@ -4514,14 +4519,19 @@ def phase_data_parallel(devices=("cuda:0",) * DP_RANKS, backend="gloo",
     (d) the clip-parallel TransVOD++ serves, a clip of 4 frames straddling
     the ranks and the recipe's 2 clips of 5, f32 and bf16, against one
     process; (e) ``evaluate`` over 59 of val.json's images, each rank its
-    shard, merged: the stats of one process, exactly. Two processes share
-    one card here, so their times are no scaling number. ``devices`` /
-    ``backend``: the ranks' cards and group (``scripts/dp_multi_card.py``
-    passes one card per rank and NCCL); ``world1=False`` skips (a)."""
+    shard, merged: the stats of one process, exactly; then clip-parallel
+    training (``phase_clip_parallel``): (f) two ranks as one clip group,
+    (g) four ranks as (C, D) = (2, 2), all on ``cuda:0``. Processes that
+    share one card give no scaling number. ``devices`` / ``backend``: the
+    ranks' cards and group (``scripts/dp_multi_card.py`` passes one card
+    per rank and NCCL); ``world1=False`` skips (a), (f) and (g)."""
     import tempfile
     from dfvod_tpu_torch import parallel
     world1 = phase_ddp_world1() if world1 else None
     n = len(devices)
+    clip = {name: phase_clip_parallel(name, (devices[0],) * (C * D),
+                                      backend)
+            for name, (C, D) in CP_LAYOUTS.items()} if world1 else None
     with tempfile.TemporaryDirectory(prefix="dfvod_dp_") as tmp:
         t0 = time.perf_counter()
         plan = dp_references(tmp, n)
@@ -4565,10 +4575,437 @@ def phase_data_parallel(devices=("cuda:0",) * DP_RANKS, backend="gloo",
           f"{', '.join(devices)}; ranks sharing a card give no scaling "
           f"number) {ranks_s:.1f} s (spawn, build, steps, serves, "
           f"evaluation)", flush=True)
-    return {"world1": world1, "ranks": parts, "references_s": ref_s,
-            "ranks_s": ranks_s,
+    return {"world1": world1, "clip_parallel": clip, "ranks": parts,
+            "references_s": ref_s, "ranks_s": ranks_s,
             "one_process_serve_ms": plan["serve"]["one_process_ms"],
             "eval_images": DP_EVAL_IMAGES}
+
+
+# ------------------------------------------------ clip-parallel training
+# TransVOD++_withdepth.sh's widths with 3 reference frames: a 4-frame clip
+# straddles two ranks at 2 frames each
+CP_FRAMES = 4
+CP_LAYOUTS = {"f": (2, 1), "g": (2, 2)}       # (C, D)
+
+
+def cp_train_cfg(dropout=0.0):
+    """``TransVOD++_withdepth.sh`` (f32, the trunk trained) with 3
+    reference frames and ``dropout``."""
+    return video_train_cfg(num_ref_frames=CP_FRAMES - 1, dropout=dropout)
+
+
+def cp_batch(i, clips):
+    """Batch ``i`` of ``clips`` 4-frame clips (rows: clips contiguous, key
+    frame first), on the card."""
+    parts = [clip_train_batch(80 + clips * i + j, F=CP_FRAMES)
+             for j in range(clips)]
+    return {k: torch.cat([p[k] for p in parts]).to("cuda") for k in parts[0]}
+
+
+def cp_reference(tmp, name):
+    """The one-process f32 step on layout ``name``'s global batch (D
+    clips), written under ``tmp`` (metrics, parameters, gradients), then
+    ``DP_TIMED`` timed steps on the next batches. Returns (the file, ms
+    per step on one card)."""
+    from dfvod_tpu_torch.train import train_step
+    _, D = CP_LAYOUTS[name]
+    state, criterion = fresh_state(cp_train_cfg())
+    m = train_step(state, criterion, cp_batch(0, D))
+    path = os.path.join(tmp, f"cp_{name}.pt")
+    torch.save({"metrics": {k: float(v) for k, v in m.items()},
+                "params": {k: v.detach().cpu() for k, v in
+                           state.model.state_dict().items()},
+                "grads": {k: p.grad.cpu() for k, p in
+                          state.model.named_parameters()
+                          if p.grad is not None}}, path)
+    ms = timed_steps(state, criterion,
+                     [cp_batch(i, D) for i in range(1, 1 + DP_TIMED)],
+                     VIDEO_LAUNCHES, f"cp-{name} one process")
+    del state, criterion
+    free_card()
+    return path, ms
+
+
+def cp_rank(device, plan):
+    """One rank of clip-parallel training on layout ``plan["layout"]``
+    (C, D): its clip group's rows of the global batch
+    (``parallel.clip_group_rows``) through ``create_train_state(clip=C)``:
+    the step against the one-process step (metrics atol 1e-5 / rtol 1e-4;
+    every gradient within relative L2 1.5e-2, atol 1e-4 where it is
+    structurally zero; each tensor's update within relative L2 3e-2 over
+    the entries whose Adam step is decided), ``DP_TIMED`` timed steps,
+    then a step of a fresh state with dropout 0.2 whose loss on this rank
+    (before the ranks' mean) must be finite and bitwise its clip group's.
+    Returns every rank's results, gathered."""
+    import torch.distributed as dist
+    from dfvod_tpu_torch import parallel
+    from dfvod_tpu_torch.train import train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    C, D = plan["layout"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    check(world == C * D, f"{world} ranks for a ({C}, {D}) layout")
+    c, d = parallel.clip_layout(rank, world, C)
+    tag = f"cp-{plan['name']} rank {rank} (c={c}, d={d})"
+    ref = torch.load(plan["ref"], map_location="cuda", weights_only=True)
+    state, criterion = fresh_state(cp_train_cfg(), clip=C)
+    init = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    batches = [{k: parallel.clip_group_rows(v, C) for k, v in
+                cp_batch(i, D).items()} for i in range(1 + DP_TIMED)]
+    rows = []
+    trunk = state.model.detr.forward
+
+    def counting(images, mask):
+        rows.append(int(images.shape[0]))
+        return trunk(images, mask)
+
+    state.model.detr.forward = counting
+    m, launches = counted(lambda: train_step(state, criterion, batches[0]))
+    state.model.detr.forward = trunk
+    check(launches == VIDEO_LAUNCHES, f"{tag}: launched {launches}")
+    check(rows == [CP_FRAMES // C], f"{tag}: trunk rows {rows}")
+    worst_m = 0.0
+    for k, r in ref["metrics"].items():
+        err = abs(float(m[k]) - r)
+        worst_m = max(worst_m, err / max(abs(r), 1e-30))
+        check(err <= 1e-5 + 1e-4 * abs(r), f"{tag}: {k} {float(m[k])} vs "
+              f"one process {r}")
+    got = state.model.state_dict()
+    worst_g = worst_t = worst_u = 0.0
+    for k, p in state.model.named_parameters():
+        g = ref["grads"].get(k)
+        if g is None:
+            # DDP fills zeros for a head that it finds reachable from the
+            # outputs and that no gradient reaches
+            # (tests/test_torch_parallel.py)
+            check(p.grad is None or not bool(p.grad.any()),
+                  f"{tag}: {k} has a gradient the one-process step lacks")
+            continue
+        ok, rel = grads_close(p.grad, g, tol=1.5e-2)
+        check(ok, f"{tag}: {k} gradient relative L2 {rel:.3e}")
+        if float(g.abs().max()) >= 1e-4:
+            worst_g = max(worst_g, rel)
+            if k.startswith("detr."):
+                worst_t = max(worst_t, rel)
+        decided = g.abs() > 1e-6
+        if decided.any():
+            u = (got[k] - init[k])[decided]
+            u_ref = (ref["params"][k] - init[k])[decided]
+            rel = float((u - u_ref).norm() / u_ref.norm().clamp_min(1e-30))
+            check(rel <= 3e-2, f"{tag}: {k} update relative L2 {rel:.3e}")
+            worst_u = max(worst_u, rel)
+    del ref, init, got
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed_steps(state, criterion, batches[1:], VIDEO_LAUNCHES, tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, criterion
+    free_card()
+    state, criterion = fresh_state(cp_train_cfg(dropout=0.2), clip=C)
+    mine = {}
+
+    def recording(out, targets):
+        loss, parts = criterion(out, targets)
+        mine["loss"] = loss.detach().clone()
+        return loss, parts
+
+    m = train_step(state, recording, batches[0])
+    check_finite(m, f"{tag} dropout 0.2")
+    local = float(mine["loss"])
+    check(math.isfinite(local), f"{tag}: dropout 0.2 loss {local}")
+    res = {"rank": rank, "c": c, "d": d, "device": str(device),
+           "backend": dist.get_backend(),
+           "rows": int(batches[0]["images"].shape[0]),
+           "trunk_rows": rows[0], "launches": launches,
+           "metric_rel_err": worst_m, "grad_rel_l2": worst_g,
+           "trunk_grad_rel_l2": worst_t, "update_rel_l2": worst_u,
+           "ms_per_step": ms, "peak_memory_gib": peak,
+           "dropout_loss_bits": mine["loss"].float().cpu().view(
+               torch.int32).item(),
+           "dropout_loss": local}
+    del state, criterion
+    free_card()
+    parts = [None] * world
+    dist.all_gather_object(parts, res)
+    for p in parts:
+        same = [q for q in parts if q["d"] == p["d"]]
+        check(len({q["dropout_loss_bits"] for q in same}) == 1,
+              f"cp-{plan['name']}: clip group {p['d']} dropout-0.2 losses "
+              f"{[q['dropout_loss'] for q in same]} differ")
+    return parts
+
+
+def phase_clip_parallel(name, devices, backend="gloo"):
+    """Clip-parallel TransVOD++ training on layout ``name`` (``CP_LAYOUTS``:
+    (f) C=2, D=1, one 4-frame clip; (g) (2, 2), two clips): the
+    one-process reference on the card, then ``len(devices)`` ranks spawned
+    on ``devices`` with ``backend`` (gloo on one card here; NCCL with a
+    card per rank from ``scripts/dp_multi_card.py``), TF32 off, each run
+    through ``cp_rank``. Ranks that share a card give no scaling
+    number."""
+    import tempfile
+    from dfvod_tpu_torch import parallel
+    C, D = CP_LAYOUTS[name]
+    check(len(devices) == C * D, f"cp-{name}: {len(devices)} devices")
+    with tempfile.TemporaryDirectory(prefix="dfvod_cp_") as tmp:
+        t0 = time.perf_counter()
+        ref, one_ms = cp_reference(tmp, name)
+        plan = {"name": name, "layout": (C, D), "ref": ref}
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts = parallel.spawn(cp_rank, list(devices), plan,
+                               backend=backend, timeout_s=DP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+    card = card_line()
+    check([p["rank"] for p in parts] == list(range(C * D)),
+          f"cp-{name}: ranks {[p['rank'] for p in parts]}")
+    shared = len(set(devices)) < len(devices)
+    note = "; ranks share one card: no scaling number" if shared else ""
+    for p in parts:
+        print(f"[cp-{name}] rank {p['rank']} (c={p['c']}, d={p['d']}) of "
+              f"(C, D) = ({C}, {D}): {p['rows']} rows, trunk "
+              f"{p['trunk_rows']}; launches per step "
+              f"{ {k: v for k, v in p['launches'].items() if v} }; metrics "
+              f"rel err <= {p['metric_rel_err']:.3e}; gradients relative L2"
+              f" <= {p['grad_rel_l2']:.3e} (trunk "
+              f"{p['trunk_grad_rel_l2']:.3e}), updates <= "
+              f"{p['update_rel_l2']:.3e}; dropout 0.2 loss "
+              f"{p['dropout_loss']:.6f} (bitwise its clip group's); "
+              f"{p['ms_per_step']:.3f} ms per step, peak "
+              f"{p['peak_memory_gib']:.2f} GiB on {p['device']} ({backend}"
+              f"{note}); {card}", flush=True)
+    print(f"[cp-{name}] one process on one card, the same {D} clip(s): "
+          f"{one_ms:.3f} ms per step; reference {ref_s:.1f} s, {C * D} "
+          f"ranks {ranks_s:.1f} s; {card}", flush=True)
+    return {"layout": [C, D], "ranks": parts, "references_s": ref_s,
+            "ranks_s": ranks_s, "shared_card": shared,
+            "one_process_ms_per_step": one_ms}
+
+
+# ------------------------------------------------------------ segmentation
+SEG_BATCH = 2                 # B=2 serve and train at 608x800
+SEG_SERVE_LAUNCHES = want_launches(msda_fwd=13)
+SEG_TRAIN_LAUNCHES = want_launches(msda_fwd=13, msda_bwd=13)
+
+
+def box_masks(batch):
+    """Each valid target's box filled as its instance mask: (B, T, H, W)
+    uint8 on the batch's canvas, the boxes being normalized cxcywh of each
+    frame's content (``sizes``)."""
+    B, T = batch["valid"].shape
+    Hc, Wc = batch["images"].shape[1:3]
+    out = torch.zeros((B, T, Hc, Wc), dtype=torch.uint8)
+    for b in range(B):
+        h, w = (int(v) for v in batch["sizes"][b])
+        for t in range(T):
+            if not bool(batch["valid"][b, t]):
+                continue
+            cx, cy, bw, bh = (float(v) for v in batch["boxes"][b, t])
+            x0, x1 = int((cx - bw / 2) * w), int((cx + bw / 2) * w)
+            y0, y1 = int((cy - bh / 2) * h), int((cy + bh / 2) * h)
+            out[b, t, max(y0, 0):y1, max(x0, 0):x1] = 1
+    return out
+
+
+def seg_cfg(train_dtype="float32"):
+    """``LateFusion_bf16.sh``'s model with ``--masks`` (the mask branch on
+    the trunk) in ``train_dtype``, dropout 0."""
+    import dataclasses
+    cfg = train_cfg(train_dtype=train_dtype, masks=True)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dropout=0.0))
+
+
+def mask_iou(a, b):
+    """IoU of two boolean mask stacks, over all their pixels."""
+    inter = float((a & b).sum())
+    union = float((a | b).sum())
+    return inter / union if union else 1.0
+
+
+def phase_seg_serve(requests=3):
+    """LateFusion with ``masks`` at full width, B=2 608x800: served bf16
+    through ``Server`` (13 K1 per request; the mask branch is
+    convolutions, GroupNorm and one attention map, no hand-written kernel)
+    against the port's own f32 forward on the same weights: the boxes
+    within the serve gate; the mask logits' max and mean error and the
+    IoU of ``postprocess_segm``'s masks reported."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.models.segmentation import postprocess_segm
+    from dfvod_tpu_torch.serve import Server
+    cfg = seg_cfg()
+    ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
+    randomize(ref_model, seed=1)
+    ref_model = ref_model.to("cuda")
+    server = Server(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    server.model.load_state_dict(ref_model.state_dict())
+    reqs = [tuple(t.to("cuda") for t in frames(200 + i, B=SEG_BATCH))
+            for i in range(1 + requests)]
+    server(*reqs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for x, s in reqs[1:]:
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: server(x, s))
+        times.append(time.perf_counter() - t0)
+        check(launches == SEG_SERVE_LAUNCHES,
+              f"seg serve: launched {launches}, not {SEG_SERVE_LAUNCHES}")
+    ms = 1e3 * sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    x, s = reqs[0]
+    with torch.no_grad():
+        out16 = server.forward(x, s)
+        out32 = ref_model(*device_normalize(x, s))
+    check(out16["pred_masks"].shape == (SEG_BATCH, 300, H // 4, W // 4),
+          f"seg serve: pred_masks {tuple(out16['pred_masks'].shape)}")
+    check(bool(torch.isfinite(out32["pred_masks"]).all()
+               and torch.isfinite(out16["pred_masks"].float()).all()),
+          "seg serve: non-finite mask logits")
+    box = (out16["pred_boxes"].float() - out32["pred_boxes"]).abs()
+    check(float(box.max()) <= BOX_MAX_TOL
+          and float(box.mean()) <= BOX_MEAN_TOL,
+          f"seg serve: bf16 boxes max {float(box.max()):.3e} mean "
+          f"{float(box.mean()):.3e} against the f32 forward")
+    merr = (out16["pred_masks"].float() - out32["pred_masks"]).abs()
+    sizes = torch.tensor([[H, W]] * SEG_BATCH)
+    with torch.no_grad():
+        iou = mask_iou(postprocess_segm(out16["pred_masks"], sizes),
+                       postprocess_segm(out32["pred_masks"], sizes))
+    res = {"ms_per_request": ms, "frames_per_s": SEG_BATCH / (ms / 1e3),
+           "peak_memory_gib": peak, "launches": launches,
+           "requests": requests, "box_max": float(box.max()),
+           "box_mean": float(box.mean()),
+           "mask_logit_max_err": float(merr.max()),
+           "mask_logit_mean_err": float(merr.mean()),
+           "segm_iou_bf16_vs_f32": iou}
+    print(f"[seg-serve] LateFusion masks B={SEG_BATCH} {H}x{W} bf16: "
+          f"{ms:.3f} ms per request ({requests} requests, 13 K1 each), peak "
+          f"{peak:.2f} GiB; bf16 vs f32: boxes max {res['box_max']:.3e} "
+          f"mean {res['box_mean']:.3e} (gate {BOX_MAX_TOL} / "
+          f"{BOX_MEAN_TOL}), mask logits max {res['mask_logit_max_err']:.3e}"
+          f" mean {res['mask_logit_mean_err']:.3e}, postprocess_segm IoU "
+          f"{iou:.4f}; {card_line()}", flush=True)
+    del server, ref_model, out16, out32
+    free_card()
+    return res
+
+
+def phase_seg_train(steps=3):
+    """LateFusion with ``masks`` at full width, B=2 608x800 f32, on
+    targets with masks (each box filled): 1 + ``steps`` steps, 13 K1 + 13
+    K2 each, finite ``loss_mask`` and ``loss_dice``; ms per step and peak
+    memory."""
+    cfg = seg_cfg()
+    batches = []
+    for i in range(1 + steps):
+        b = train_batch(210 + i, B=SEG_BATCH)
+        b["masks"] = box_masks(b)
+        batches.append({k: v.to("cuda") for k, v in b.items()})
+    state, criterion = fresh_state(cfg)
+    from dfvod_tpu_torch.train import train_step
+    m, launches = counted(lambda: train_step(state, criterion, batches[0]))
+    check(launches == SEG_TRAIN_LAUNCHES, f"seg train: launched {launches}")
+    check({"loss_mask", "loss_dice"} <= set(m), f"seg train: {sorted(m)}")
+    check_finite(m, "seg train")
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed_steps(state, criterion, batches[1:], SEG_TRAIN_LAUNCHES,
+                     "seg train")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = {"ms_per_step": ms, "frames_per_s": SEG_BATCH / (ms / 1e3),
+           "peak_memory_gib": peak, "launches_fwd": launches["msda_fwd"],
+           "launches_bwd": launches["msda_bwd"], "steps": steps,
+           **{k: float(m[k]) for k in ("loss", "loss_mask", "loss_dice")}}
+    print(f"[seg-train] LateFusion masks B={SEG_BATCH} {H}x{W} f32: first "
+          f"step loss {res['loss']:.4f} loss_mask {res['loss_mask']:.4f} "
+          f"loss_dice {res['loss_dice']:.4f}; {ms:.3f} ms per step over "
+          f"{steps} steps (13 K1 + 13 K2 each), peak {peak:.2f} GiB; "
+          f"{card_line()}", flush=True)
+    del state, criterion, batches
+    free_card()
+    return res
+
+
+def phase_seg_cli():
+    """``Synth_LateFusion.sh --masks`` for 1 epoch on datasets/synth_rgbd
+    through the port's CLI (13 K1 + 13 K2 per step, 13 K1 per eval batch;
+    finite mask losses), then ``--masks --frozen_weights`` on its
+    checkpoint for 1 epoch, whose steps run no MSDA backward (the trunk is
+    frozen: 13 K1 + 0 K2), after which every parameter outside
+    ``mask_branch`` is bitwise the checkpoint's."""
+    import tempfile
+    from dfvod_tpu_torch.utils.checkpoint import load_checkpoint
+    env = {"EPOCHS": "1", "COCO_PATH": SYNTH_RGBD}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dfvod_seg_") as tmp:
+        first = os.path.join(tmp, "masks")
+        for name, extra, want in (
+                ("masks", (), SEG_TRAIN_LAUNCHES),
+                ("frozen", ("--frozen_weights", first),
+                 want_launches(msda_fwd=13))):
+            d = os.path.join(tmp, name)
+            stats, probe, wall, total, lines = run_cli(
+                "Synth_LateFusion.sh", d, env=env,
+                cli_args=("--masks", *extra))
+            check_stats(stats, f"seg-cli {name}")
+            check_cli_launches(probe, total, want, SEG_SERVE_LAUNCHES,
+                               f"seg-cli {name}")
+            epoch = lines[0]
+            check(all(math.isfinite(epoch[f"train_{k}"])
+                      for k in ("loss", "loss_mask", "loss_dice")),
+                  f"seg-cli {name}: epoch line {epoch}")
+            out[name] = {**epoch_timing(epoch, probe.steps), "wall_s": wall,
+                         "stats": stats,
+                         **{k: epoch[f"train_{k}"]
+                            for k in ("loss", "loss_mask", "loss_dice")}}
+        before = load_checkpoint(first)[0]["model"]
+        after = load_checkpoint(os.path.join(tmp, "frozen"))[0]["model"]
+        from dfvod_tpu_torch.models import build_model
+        names = [k for k, _ in build_model(
+            synth_recipe_cfg_masks(), device="cpu")[0].named_parameters()]
+        frozen = [k for k in names if not k.startswith("mask_branch.")]
+        changed = [k for k in frozen if not torch.equal(before[k], after[k])]
+        check(not changed, f"seg-cli frozen: {len(changed)} parameters "
+              f"outside mask_branch changed: {changed[:4]}")
+        moved = sum(not torch.equal(before[k], after[k]) for k in names
+                    if k.startswith("mask_branch."))
+        check(moved > 0, "seg-cli frozen: the mask branch did not move")
+        out["frozen"].update(frozen_parameters=len(frozen),
+                             mask_branch_moved=moved)
+    for name, v in out.items():
+        print(f"[seg-cli] Synth_LateFusion.sh --masks"
+              f"{' --frozen_weights' if name == 'frozen' else ''} 1 epoch: "
+              f"{v['steps']} steps, {v['ms_per_step']:.3f} ms per step "
+              f"(median), loss {v['loss']:.4f} loss_mask "
+              f"{v['loss_mask']:.4f} loss_dice {v['loss_dice']:.4f}, mAP_50 "
+              f"{v['stats']['mAP_50']:.4f}, wall {v['wall_s']:.1f} s"
+              + (f"; {v['frozen_parameters']} parameters outside "
+                 f"mask_branch bitwise unchanged, {v['mask_branch_moved']} "
+                 f"of the branch moved" if name == "frozen" else "")
+              + f"; {card_line()}", flush=True)
+    return out
+
+
+def synth_recipe_cfg_masks():
+    """``Synth_LateFusion.sh --masks``'s Config."""
+    from dfvod_tpu_torch.cli.flags import config_from_args, get_args_parser
+    module, argv = recipe_argv("Synth_LateFusion.sh", COCO_PATH=SYNTH_RGBD)
+    return config_from_args(get_args_parser().parse_args([*argv, "--masks"]))
+
+
+def phase_segmentation():
+    """Segmentation (``models/segmentation.py``, the mask losses, masks in
+    the data): the full-width serve and step, a small masked model card
+    vs CPU (forward with ``pred_masks`` and a step on targets with masks,
+    the small gates), then the CLI with ``--masks`` and
+    ``--frozen_weights``."""
+    serve = phase_seg_serve()
+    train = phase_seg_train()
+    phase_small_cpu_reference(model_kw={"masks": True})
+    small = phase_small_train_reference(model_kw={"masks": True})
+    cli = phase_seg_cli()
+    return {"serve": serve, "train": train, "small_train_launches": small,
+            "cli": cli}
 
 
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
@@ -4655,6 +5092,9 @@ def main() -> int:
     multi = phase_multi_level()
     two_r18 = phase_two_stage_r18()
     dp = phase_data_parallel()
+    seg = phase_segmentation()
+    cp_launches = {name: [p["launches"] for p in v["ranks"]]
+                   for name, v in dp["clip_parallel"].items()}
     dp_launches = {name: [p[name]["launches"] for p in dp["ranks"]]
                    for name in ("train", "video")}
     dp_serve_launches = [p["serve"]["f5_float32"]["launches"]
@@ -4706,6 +5146,10 @@ def main() -> int:
             x["msda_fwd"] for x in dp_launches["video"]],
         "dp_serve_launches_per_rank": [
             x["msda_fwd"] for x in dp_serve_launches],
+        **{f"clip_parallel_{n}_launches_per_rank": [
+            x["msda_fwd"] for x in v] for n, v in cp_launches.items()},
+        "seg_serve_launches": seg["serve"]["launches"]["msda_fwd"],
+        "seg_train_launches": seg["train"]["launches_fwd"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -4740,6 +5184,9 @@ def main() -> int:
             x["msda_bwd"] for x in dp_launches["train"]],
         "dp_video_launches_per_rank": [
             x["msda_bwd"] for x in dp_launches["video"]],
+        **{f"clip_parallel_{n}_launches_per_rank": [
+            x["msda_bwd"] for x in v] for n, v in cp_launches.items()},
+        "seg_train_launches": seg["train"]["launches_bwd"],
     }
     record_hat = {
         "name": "hat_sample_fwd", "route": "cuda",
@@ -4762,6 +5209,8 @@ def main() -> int:
             x["hat_sample_fwd"] for x in dp_launches["video"]],
         "dp_serve_launches_per_rank": [
             x["hat_sample_fwd"] for x in dp_serve_launches],
+        **{f"clip_parallel_{n}_launches_per_rank": [
+            x["hat_sample_fwd"] for x in v] for n, v in cp_launches.items()},
     }
     main_bwd = kern_hat_bwd["qrf_float32_gv"]
     record_hat_bwd = {
@@ -4783,6 +5232,8 @@ def main() -> int:
                   if k != "qrf_float32_gv"},
         "dp_video_launches_per_rank": [
             x["hat_sample_bwd"] for x in dp_launches["video"]],
+        **{f"clip_parallel_{n}_launches_per_rank": [
+            x["hat_sample_bwd"] for x in v] for n, v in cp_launches.items()},
     }
     per_request = variants["requests"]
 
@@ -4907,7 +5358,9 @@ def main() -> int:
               *(v["loader_ms_per_batch"] for v in data_cli.values()
                 if isinstance(v, dict)),
               dp["world1"], *(p[n] for p in dp["ranks"]
-                              for n in ("train", "video"))):
+                              for n in ("train", "video")),
+              *(p for v in dp["clip_parallel"].values() for p in v["ranks"]),
+              seg["serve"], seg["train"], *seg["cli"].values()):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -4932,6 +5385,7 @@ def main() -> int:
     print(json.dumps({"multi_level": multi}))
     print(json.dumps({"two_stage_r18": two_r18}))
     print(json.dumps({"data_parallel": dp}))
+    print(json.dumps({"segmentation": seg}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
                                   record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",

@@ -28,8 +28,12 @@ writes the checkpoints. ``COORDINATOR_ADDRESS`` / ``DFVOD_MULTIHOST`` (the
 JAX package's multi-host start) without torchrun's variables raise, naming
 them.
 
-Refused, naming the slice it waits for: ``--frozen_weights``
-(segmentation).
+Segmentation (``--masks``): the model gains the mask branch, the batches
+carry the instances' masks and the step adds ``loss_mask`` / ``loss_dice``.
+``--frozen_weights W`` (with ``--masks`` only, as in the reference,
+``main.py:223``) loads a detector, a port checkpoint directory or a
+reference ``.pth``, into every weight outside the mask branch and trains
+the mask branch alone (``train/optim.py``: every other parameter frozen).
 """
 from __future__ import annotations
 
@@ -72,12 +76,18 @@ HEARTBEAT_S = 120
 
 
 def check_supported_run(cfg):
-    """Refuse the segmentation-only mode, and the JAX package's
-    multi-host start without torchrun's variables."""
-    if cfg.model.frozen_weights:
-        raise NotImplementedError(
-            "--frozen_weights (segmentation-only training) waits for the "
-            "segmentation slice")
+    """Refuse ``--frozen_weights`` without ``--masks``, the panoptic
+    dataset, and the JAX package's multi-host start without torchrun's
+    variables."""
+    if cfg.model.frozen_weights and not cfg.model.masks:
+        raise ValueError("--frozen_weights: frozen training is meant for "
+                         "segmentation only (add --masks)")
+    if cfg.data.dataset_file == "coco_panoptic":
+        raise ValueError(
+            "--dataset_file coco_panoptic: the panoptic dataset "
+            "(data/panoptic.py) gives PNG id maps and segments, which the "
+            "detection loader and train step do not take (the JAX CLI and "
+            "the reference fail on it too)")
     if not parallel.under_torchrun():
         for var in ("COORDINATOR_ADDRESS", "DFVOD_MULTIHOST"):
             if os.environ.get(var):
@@ -100,19 +110,27 @@ def apply_weights(model, cfg, *, resume: str, del_class_weights: bool,
     ``main_multi.py:342-364``, in the JAX CLI's order: ``resume`` (a
     reference ``.pth``, converted, or a port checkpoint directory; the
     model's weights only, without ``class_embed`` under
-    ``del_class_weights``), then the temporal / spatial checkpoints, then
-    the DFormer pretrain into the depth stem."""
+    ``del_class_weights``), then ``--frozen_weights`` (the detector under
+    the mask branch, ``main.py:452-453``: every key but the mask branch's),
+    then the temporal / spatial checkpoints, then the DFormer pretrain into
+    the depth stem."""
     video = cfg.model.temporal_mode != "none"
+
+    def weights_of(path):
+        if path.endswith((".pth", ".pth.tar")):
+            return convert_reference_state_dict(
+                load_torch_state_dict(path), cfg.model.with_box_refine,
+                video=video)[0]
+        return ckpt.load_checkpoint(path)[0]["model"]
+
     if resume:
-        if resume.endswith((".pth", ".pth.tar")):
-            weights, _ = convert_reference_state_dict(
-                load_torch_state_dict(resume), cfg.model.with_box_refine,
-                video=video)
-        else:
-            weights = ckpt.load_checkpoint(resume)[0]["model"]
+        weights = weights_of(resume)
         if del_class_weights:
             weights = ckpt.drop_keys(weights, "class_embed")
         load_state(model, weights)
+    if cfg.model.frozen_weights:
+        load_state(model, ckpt.drop_keys(weights_of(cfg.model.frozen_weights),
+                                         "mask_branch"))
     if temporal_weights or spatial_weights:
         t = (ckpt.load_checkpoint(temporal_weights)[0]["model"]
              if temporal_weights else None)
@@ -292,7 +310,9 @@ def train_loop(cfg, *, video: bool = False, resume: str = "",
                               grad_norm=float(metrics["grad_norm"]),
                               loss_ce=float(metrics.get("loss_ce", 0.0)),
                               loss_bbox=float(metrics.get("loss_bbox", 0.0)),
-                              loss_giou=float(metrics.get("loss_giou", 0.0)))
+                              loss_giou=float(metrics.get("loss_giou", 0.0)),
+                              **{k: float(metrics[k]) for k in
+                                 ("loss_mask", "loss_dice") if k in metrics})
             logger.synchronize_between_processes()
             epoch_s = time.time() - t_epoch
 

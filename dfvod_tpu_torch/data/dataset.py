@@ -10,8 +10,10 @@ nearest +-num_ref_frames ids without the key frame, eval = one-sided stride
 frame).
 
 Frames are decoded by the port's JPEG decoder (``data/image_io.py``).
-Segmentation masks (``return_masks``) and ``coco_panoptic`` wait for the
-segmentation slice.
+With ``return_masks`` (``--masks``) each frame also carries its
+instances' masks, rasterized from the COCO ``segmentation``
+(``data/masks.py``) and filtered with the boxes; ``dataset_file
+coco_panoptic`` builds the panoptic dataset (``data/panoptic.py``).
 """
 from __future__ import annotations
 
@@ -23,13 +25,12 @@ import numpy as np
 from dfvod_tpu_torch import parallel
 from dfvod_tpu_torch.data.coco import COCO, CocoVID
 from dfvod_tpu_torch.data.image_io import read_image, read_rgb
+from dfvod_tpu_torch.data.masks import rasterize_segmentation
 from dfvod_tpu_torch.data.transforms import (
     EvalTransform,
     Sample,
     TrainTransform,
 )
-
-_SEGMENTATION = "waits for the segmentation slice"
 
 
 def load_depth(path) -> np.ndarray:
@@ -54,10 +55,12 @@ def depth_path_for(image_path: str) -> str:
     return image_path.replace("images", "depth_pred")
 
 
-def prepare_targets(anns: List[dict], h: int, w: int):
-    """``ConvertCocoPolysToMask`` without masks (``vid_single.py:65-127``):
-    xywh -> xyxy, clamp to the image, drop crowd and degenerate boxes.
-    Returns (boxes (T, 4) float32, labels (T,) int64)."""
+def prepare_targets(anns: List[dict], h: int, w: int,
+                    return_masks: bool = False):
+    """``ConvertCocoPolysToMask`` (``vid_single.py:65-127``): xywh ->
+    xyxy, clamp to the image, drop crowd and degenerate boxes. Returns
+    (boxes (T, 4) float32, labels (T,) int64), and with ``return_masks``
+    the kept instances' masks (T, h, w) uint8 {0, 1} as a third."""
     anns = [a for a in anns if a.get("iscrowd", 0) == 0]
     boxes = np.array([a["bbox"] for a in anns], np.float32).reshape(-1, 4)
     boxes[:, 2:] += boxes[:, :2]
@@ -65,7 +68,13 @@ def prepare_targets(anns: List[dict], h: int, w: int):
     boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
     labels = np.array([a["category_id"] for a in anns], np.int64)
     keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
-    return boxes[keep], labels[keep]
+    if not return_masks:
+        return boxes[keep], labels[keep]
+    masks = np.zeros((len(anns), h, w), np.uint8)
+    for i, a in enumerate(anns):
+        if keep[i]:
+            masks[i] = rasterize_segmentation(a["segmentation"], h, w)
+    return boxes[keep], labels[keep], masks[keep]
 
 
 def ref_ids(coco, img_id: int, num_ref_frames: int, *,
@@ -111,15 +120,15 @@ class CocoDetectionDataset:
     from disk.
     ``depth_folder``: the depth maps are that folder's files of the
     frames' names (the inference CLI's ``--depth_folder``), not the
-    ``images -> depth_pred`` substitution."""
+    ``images -> depth_pred`` substitution.
+    ``return_masks``: each ``Sample`` carries its instances' masks."""
 
     def __init__(self, img_folder: str, ann_file: str, *,
                  use_depth: bool = False, train: bool = True,
                  cache_mode: bool = False, cache_rank: int = 0,
                  cache_world: int = 1, return_masks: bool = False,
                  depth_folder: Optional[str] = None):
-        if return_masks:
-            raise NotImplementedError(f"return_masks {_SEGMENTATION}")
+        self.return_masks = return_masks
         self.root = img_folder
         self.coco = self._index(ann_file)
         self.ids = sorted(self.coco.imgs)
@@ -154,9 +163,11 @@ class CocoDetectionDataset:
                              self.coco.imgs[img_id]["file_name"])
                 if self.depth_folder else depth_path_for(path))
         h, w = rgb.shape[:2]
-        boxes, labels = prepare_targets(self.coco.imgToAnns[img_id], h, w)
+        boxes, labels, *masks = prepare_targets(
+            self.coco.imgToAnns[img_id], h, w, self.return_masks)
         return Sample(rgb=rgb, depth=depth, boxes=boxes, labels=labels,
-                      image_id=img_id, orig_size=(h, w))
+                      image_id=img_id, orig_size=(h, w),
+                      masks=masks[0] if masks else None)
 
     def __getitem__(self, index: int) -> List[Sample]:
         return [self._load_frame(self.ids[index])]
@@ -202,13 +213,16 @@ def build_dataset(image_set: str, cfg, temporal: bool = False):
     """``datasets/__init__.py:28-42``: the reference's path layout under
     ``coco_path``; a ``dataset_file`` starting with ``coco`` selects the
     plain-COCO layout (``train2017/`` +
-    ``annotations/instances_train2017.json``)."""
+    ``annotations/instances_train2017.json``), except ``coco_panoptic``,
+    which routes to the panoptic dataset (``datasets/__init__.py:31-34``).
+    ``cfg.model.masks`` makes the datasets return masks."""
     data = cfg.data
     root = data.coco_path
     if data.dataset_file == "coco_panoptic":
-        raise NotImplementedError(f"coco_panoptic {_SEGMENTATION}")
-    if cfg.model.masks:
-        raise NotImplementedError(f"masks {_SEGMENTATION}")
+        from dfvod_tpu_torch.data.panoptic import build_panoptic
+        return build_panoptic(image_set, root,
+                              data.coco_panoptic_path or root,
+                              return_masks=cfg.model.masks)
     if data.dataset_file.startswith("coco"):
         img_folder = os.path.join(root, f"{image_set}2017")
         ann_file = os.path.join(root, "annotations",
@@ -220,7 +234,7 @@ def build_dataset(image_set: str, cfg, temporal: bool = False):
     # the cache split over the processes (``main.py:249-251``)
     kw = dict(use_depth=data.use_depth, train=image_set == "train",
               cache_mode=data.cache_mode, cache_rank=parallel.rank(),
-              cache_world=parallel.world())
+              cache_world=parallel.world(), return_masks=cfg.model.masks)
     if temporal:
         return CocoVideoDataset(img_folder, ann_file,
                                 num_ref_frames=data.num_ref_frames, **kw)

@@ -9,6 +9,9 @@ which releases the GIL, so the threads run beside the train step. With a
 device with ``non_blocking=True``: the copy overlaps what the device is
 still running, as the JAX package's ``device_put`` of the next batch does.
 
+With masks in the samples (``--masks``), a batch holds ``masks`` (B', T,
+H, W) uint8 on the batch's canvas.
+
 Clips of (1 + N) frames are split into frame rows, so a batch holds
 ``batch_size * (1 + num_ref_frames)`` rows, key frame first within each
 clip (``util/misc_multi.py:304-340`` of the reference).
@@ -264,8 +267,12 @@ class Loader:
 def to_train_batch(sample: dict) -> dict:
     """A loader batch as the train step and ``evaluate`` take it
     (``dfvod_tpu/cli/main.py::to_batch`` with the device-preprocess keys):
-    images uint8, sizes, labels, boxes, valid, orig_size, image_id."""
-    return {"images": sample["image"], "sizes": sample["size"],
-            "labels": sample["labels"], "boxes": sample["boxes"],
-            "valid": sample["valid"], "orig_size": sample["orig_size"],
-            "image_id": sample["image_id"]}
+    images uint8, sizes, labels, boxes, valid, orig_size, image_id, and
+    masks when the batch has them (``--masks``)."""
+    batch = {"images": sample["image"], "sizes": sample["size"],
+             "labels": sample["labels"], "boxes": sample["boxes"],
+             "valid": sample["valid"], "orig_size": sample["orig_size"],
+             "image_id": sample["image_id"]}
+    if "masks" in sample:
+        batch["masks"] = sample["masks"]
+    return batch

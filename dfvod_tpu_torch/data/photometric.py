@@ -137,8 +137,9 @@ def _iou_xyxy(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 class MinIoURandomCrop:
     """``transforms_multi.py:254-312``: a crop whose IoU with every box
     reaches a threshold drawn from ``min_ious`` and that holds every box
-    centre; boxes are clipped and shifted. The first frame's boxes decide
-    the crop of the whole clip."""
+    centre; boxes are clipped and shifted, and instance masks cropped (the
+    JAX package leaves them whole, ROADMAP.md known differences). The
+    first frame's boxes decide the crop of the whole clip."""
     min_ious: Sequence[float] = (0.1, 0.3, 0.5, 0.7, 0.9)
     min_crop_size: float = 0.3
     max_tries: int = 50
@@ -180,6 +181,8 @@ class MinIoURandomCrop:
                     f, rgb=f.rgb[y0:y1, x0:x1],
                     depth=(f.depth[y0:y1, x0:x1]
                            if f.depth is not None else None),
+                    masks=(f.masks[:, y0:y1, x0:x1]
+                           if f.masks is not None else None),
                     boxes=b, orig_size=(y1 - y0, x1 - x0)))
             return out
         return frames

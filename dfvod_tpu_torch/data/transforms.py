@@ -14,7 +14,10 @@ train step and ``eval_forward`` normalize on the device
 set. Every resize goes through the port's host library
 (``data/native.py``). ``strong_aug`` puts the photometric distortion and
 ``MinIoURandomCrop`` (``data/photometric.py``) before the flip and resize.
-The segmentation masks wait for a later slice.
+Instance masks (``Sample.masks``, with ``--masks``) follow every geometric
+step: the crop, the flip, the resize (nearest, torch's legacy
+``interpolate(mode="nearest")`` index map, as the reference resizes them)
+and the padding, where ``pad_u8`` gives (max_boxes, ph, pw) uint8.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ class Sample:
     labels: np.ndarray                  # (T,) int64
     image_id: int = 0
     orig_size: Tuple[int, int] = (0, 0)  # (H, W)
+    masks: Optional[np.ndarray] = None  # (T, H, W) uint8 {0, 1}
 
 
 def resize_short_side(h: int, w: int, short: int, max_size: int
@@ -57,6 +61,21 @@ def resize_short_side(h: int, w: int, short: int, max_size: int
     return int(short * h / w), short
 
 
+def _resize_masks(masks: Optional[np.ndarray], nh: int, nw: int
+                  ) -> Optional[np.ndarray]:
+    """An instance-mask stack resized by nearest neighbour with torch's
+    legacy ``interpolate(mode="nearest")`` index map, ``src = floor(dst *
+    in / out)`` (``transforms_single.py`` of the reference)."""
+    if masks is None:
+        return None
+    _, h, w = masks.shape
+    if (h, w) == (nh, nw):
+        return masks
+    ri = np.minimum((np.arange(nh) * (h / nh)).astype(np.int64), h - 1)
+    ci = np.minimum((np.arange(nw) * (w / nw)).astype(np.int64), w - 1)
+    return masks[:, ri][:, :, ci]
+
+
 def _resize(sample: Sample, short: int, max_size: int) -> Sample:
     h, w = sample.rgb.shape[:2]
     nh, nw = resize_short_side(h, w, short, max_size)
@@ -69,7 +88,7 @@ def _resize(sample: Sample, short: int, max_size: int) -> Sample:
                                     np.float32)
     return dataclasses.replace(
         sample, rgb=native.resize_bilinear_u8(sample.rgb, nh, nw),
-        depth=depth, boxes=boxes)
+        depth=depth, boxes=boxes, masks=_resize_masks(sample.masks, nh, nw))
 
 
 def _hflip(sample: Sample) -> Sample:
@@ -77,8 +96,9 @@ def _hflip(sample: Sample) -> Sample:
     depth = sample.depth[:, ::-1] if sample.depth is not None else None
     boxes = sample.boxes.copy()
     boxes[:, [0, 2]] = w - sample.boxes[:, [2, 0]]
+    masks = sample.masks[:, :, ::-1] if sample.masks is not None else None
     return dataclasses.replace(sample, rgb=sample.rgb[:, ::-1], depth=depth,
-                               boxes=boxes)
+                               boxes=boxes, masks=masks)
 
 
 def bucket_shape(h: int, w: int, bucket_step: int = 128,
@@ -95,7 +115,9 @@ def pad_u8(sample: Sample, pad_hw: Tuple[int, int], use_depth: bool,
     """The frame written into the top-left of a zeroed (ph, pw, C) uint8
     canvas (``out_img``, a slice of the batch canvas, or a new one), and
     its targets: labels (T,), boxes (T, 4) cxcywh normalized by the
-    unpadded size, valid (T,), image_id, size and orig_size (h, w)."""
+    unpadded size, valid (T,), image_id, size and orig_size (h, w); with
+    the sample's masks, ``masks`` (T, ph, pw) uint8, the padding slots
+    empty."""
     h, w = sample.rgb.shape[:2]
     ph, pw = pad_hw
     if ph < h or pw < w:
@@ -120,10 +142,14 @@ def pad_u8(sample: Sample, pad_hw: Tuple[int, int], use_depth: bool,
         boxes[:n] = cxcywh / np.array([w, h, w, h], np.float32)
         labels[:n] = sample.labels[:n]
         valid[:n] = True
-    return {"image": out, "labels": labels, "boxes": boxes, "valid": valid,
-            "image_id": sample.image_id,
-            "size": np.array([h, w], np.int64),
-            "orig_size": np.array(sample.orig_size, np.int64)}
+    ret = {"image": out, "labels": labels, "boxes": boxes, "valid": valid,
+           "image_id": sample.image_id,
+           "size": np.array([h, w], np.int64),
+           "orig_size": np.array(sample.orig_size, np.int64)}
+    if sample.masks is not None:
+        ret["masks"] = np.zeros((max_boxes, ph, pw), np.uint8)
+        ret["masks"][:n, :h, :w] = sample.masks[:n]
+    return ret
 
 
 @dataclasses.dataclass

@@ -14,8 +14,14 @@ The reference semantics the JAX package keeps are kept here too:
 - two-stage: the encoder's proposals (``enc_outputs``) take the same
   losses against binary targets, every label 0, as ``loss_*_enc``.
 
+- masks (``pred_masks`` in the outputs and ``masks`` in the targets):
+  ``loss_mask`` (sigmoid focal, alpha ``focal_alpha``) and ``loss_dice`` on
+  the last decoder layer's matched queries only, the predictions resized
+  bilinearly to the target masks' size (``criterion.py:92-130`` of the
+  JAX package).
+
 The final and aux layers and the encoder's proposals are matched together
-(``matcher.match_layers``): one host sync per call. Masks raise.
+(``matcher.match_layers``): one host sync per call.
 
 Under data parallelism (a process group of more than one rank) every rank
 divides by the global batch's box count over the ranks, all-reduced in
@@ -30,6 +36,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from dfvod_tpu_torch.models.matcher import match_layers
+from dfvod_tpu_torch.models.segmentation import resize_bilinear
 from dfvod_tpu_torch.parallel.dist import world
 from dfvod_tpu_torch.utils.box_ops import (
     box_cxcywh_to_xyxy,
@@ -136,10 +143,31 @@ class SetCriterion:
         return {"loss_ce": loss_ce, "loss_bbox": loss_bbox,
                 "loss_giou": loss_giou, "cardinality_error": card_err}
 
+    def _loss_masks(self, pred_masks, targets, assign, num_boxes):
+        """Focal and dice on the matched queries' masks, each a pixel mean
+        (focal) or a whole-mask ratio (dice), over num_boxes. The JAX
+        package computes every target slot and zeroes the invalid ones;
+        here only the valid slots are resized and scored (the same sums,
+        without the (B, T, H, W) f32 tensors of the empty slots)."""
+        valid = targets["valid"]                             # (B, T)
+        Hm, Wm = targets["masks"].shape[-2:]
+        src = torch.gather(pred_masks, 1, assign[:, :, None, None].expand(
+            -1, -1, *pred_masks.shape[-2:]))[valid]          # (N, h, w)
+        s = resize_bilinear(src, (Hm, Wm)).flatten(1)
+        t = targets["masks"][valid].float().flatten(1)
+        p = torch.sigmoid(s)
+        ce = _bce_with_logits(s, t)
+        p_t = p * t + (1 - p) * (1 - t)
+        a = self.loss_cfg.focal_alpha
+        a_t = a * t + (1 - a) * (1 - t)
+        focal = (a_t * ce * (1 - p_t) ** 2).mean(1)
+        num = 2 * (p * t).sum(1)
+        den = p.sum(1) + t.sum(1)
+        dice = 1 - (num + 1) / (den + 1)
+        return {"loss_mask": focal.sum() / num_boxes,
+                "loss_dice": dice.sum() / num_boxes}
+
     def __call__(self, outputs: Dict, targets: Dict):
-        if "pred_masks" in outputs or "masks" in targets:
-            raise NotImplementedError("mask losses wait for the segmentation "
-                                      "slice")
         num_boxes = targets["valid"].float().sum()
         n = world()
         if n > 1:
@@ -157,6 +185,9 @@ class SetCriterion:
                               binary=[False] * (1 + len(aux_list))
                               + [True] * (enc is not None))
         losses = self._loss_single(outputs, targets, assign[0], num_boxes)
+        if "pred_masks" in outputs and "masks" in targets:
+            losses.update(self._loss_masks(outputs["pred_masks"], targets,
+                                           assign[0], num_boxes))
         for i, aux in enumerate(aux_list):
             l_aux = self._loss_single(aux, targets, assign[i + 1], num_boxes)
             losses.update({f"{k}_{i}": v for k, v in l_aux.items()

@@ -28,6 +28,11 @@ With ``num_feature_levels`` L > 1 the levels are ResNet stages 2-4 and
 L - 3 more, each a 3x3 stride-2 ``InputProj`` of the level before
 (``deformable_detr_single.py:271-281`` of the reference); the depth stream
 stays one level.
+
+With ``masks`` the output also holds ``pred_masks`` (B, Q, H/4, W/4), the
+mask branch's logits (``models/segmentation.py``); the backbone then also
+returns ResNet stages 1-3, its laterals. Backbone_CrossFusion fuses those
+stages and refuses masks (``ModelConfig``).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from dfvod_tpu_torch.models.research import (
     RESNET18_CHANNELS,
     ResNet18DepthBackbone,
 )
+from dfvod_tpu_torch.models.segmentation import LATERAL_STAGES, MaskBranch
 from dfvod_tpu_torch.models.transformer import DeformableTransformer
 from dfvod_tpu_torch.utils.config import ModelConfig, check_supported
 
@@ -85,7 +91,7 @@ class DeformableDETR(nn.Module):
                 return_stages=cfg.backbone_stages, dropout=cfg.dropout)
         else:
             self.backbone = ResNet50(dilation=cfg.dilation,
-                                     return_stages=cfg.backbone_stages)
+                                     return_stages=cfg.all_backbone_stages)
         self.resnet18_depth = (self.depth_tokens
                                and cfg.depth_backbone_type == "resnet18")
         if self.resnet18_depth:
@@ -120,6 +126,8 @@ class DeformableDETR(nn.Module):
             dpth_n_points=cfg.dpth_n_points,
             remat=cfg.remat,
             two_stage=cfg.two_stage)
+        if cfg.masks:
+            self.mask_branch = MaskBranch(hidden_dim=d, num_heads=cfg.nheads)
 
     def forward(self, images, mask):
         """images: (B, H, W, 3|4), or s2d-packed (B, H/2, W/2, 12|16);
@@ -175,6 +183,16 @@ class DeformableDETR(nn.Module):
         if cfg.two_stage:
             out["enc_outputs"] = {"pred_logits": t_out["enc_outputs_class"],
                                   "pred_boxes": t_out["enc_outputs_coord"]}
+        if cfg.masks:
+            # the DETRsegm branch (``deformable_detr_single.py:680-681`` of
+            # the reference) on the trunk: each query's attention over the
+            # level-0 memory map, upsampled through ResNet layers 3, 2, 1
+            H1, W1 = t_out["spatial_shapes"][0]
+            mem_map = t_out["memory"][:, :H1 * W1].reshape(
+                -1, H1, W1, cfg.hidden_dim)
+            out["pred_masks"] = self.mask_branch(
+                t_out["hs_last"], mem_map, masks[0],
+                [stage_outs[s] for s in LATERAL_STAGES])
         out["_trunk"] = {k: t_out[k] for k in
                          ("memory", "mask_flat", "spatial_shapes",
                           "valid_ratios", "query_pos", "pos_flat",

@@ -16,14 +16,16 @@ Reference quirks kept, as in the JAX package:
 - the temporal decoder gets no padding mask, ``valid_ratios[:, :1]`` and
   ``query_pos=None``.
 
-Clip-parallel serving (the JAX package's ``clip_batch_sharding``): with
-``trunk_group`` set to a process group of more than one rank, each rank
-runs the trunk on its contiguous rows of the ``B*F`` frames (a clip may
-straddle two ranks), the trunk outputs the temporal heads read are
-gathered over the group in rank order, and every rank runs the temporal
-heads on all of them, so that every rank returns the same key-frame
-detections. Forward only: the gather carries no gradient, and a forward
-that records one raises.
+Clip-parallel serving and training (the JAX package's
+``clip_batch_sharding``): with ``trunk_group`` set to a process group of
+more than one rank, each rank runs the trunk on its contiguous rows of the
+``B*F`` frames (a clip may straddle two ranks), the trunk outputs the
+temporal heads read are gathered over the group in rank order, and every
+rank runs the temporal heads on all of them, so that every rank returns
+the same key-frame outputs. A forward that records a gradient gathers
+through ``parallel.gather_rows``, whose backward sums the heads' gradients
+over the group before each rank takes its rows back
+(``train/engine.py::create_train_state(clip=...)``).
 
 Submodules carry the flax module names (``detr``,
 ``temporal_query_layer{1,2,3}``, ``temporal_encoder_layer``,
@@ -52,6 +54,7 @@ from dfvod_tpu_torch.models.transformer import (
 from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.parallel.dist import (
     all_gather_rows,
+    gather_rows,
     rank,
     shard_rows,
     world,
@@ -266,19 +269,17 @@ class TemporalDeformableDETR(nn.Module):
         n = world(group) if group is not None else 1
         if n == 1:
             return self.detr(images, mask)
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "clip-parallel training (a gather that carries gradients) "
-                "waits for a later slice; serve under torch.no_grad()")
+        # training gathers with a gradient (summed over the group in the
+        # backward); serving without
+        gather = gather_rows if torch.is_grad_enabled() else all_gather_rows
         r = rank(group)
         out = self.detr(shard_rows(images, r, n), shard_rows(mask, r, n))
-        trunk = {k: all_gather_rows(out["_trunk"][k], group)
-                 for k in TRUNK_GATHERED}
+        trunk = {k: gather(out["_trunk"][k], group) for k in TRUNK_GATHERED}
         trunk["spatial_shapes"] = out["_trunk"]["spatial_shapes"]
-        res = {k: all_gather_rows(out[k], group)
+        res = {k: gather(out[k], group)
                for k in ("pred_logits", "pred_boxes")}
         if "enc_outputs" in out:
-            res["enc_outputs"] = {k: all_gather_rows(v, group)
+            res["enc_outputs"] = {k: gather(v, group)
                                   for k, v in out["enc_outputs"].items()}
         return {**res, "_trunk": trunk}
 

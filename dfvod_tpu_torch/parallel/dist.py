@@ -8,7 +8,9 @@ reference does (``util/misc.py:441-479``): ``init_distributed`` joins a
 caller names a backend), each process takes its contiguous rows of the
 global batch (``shard_rows``, the counterpart of ``shard_batch``), and the
 helpers below do by hand what XLA does: all-reduce (``reduce_mean``, the
-reference's ``reduce_dict``) and the gather of rows in rank order.
+reference's ``reduce_dict``) and the gather of rows in rank order, forward
+only (``all_gather_rows``, serving) or with a gradient (``gather_rows``,
+clip-parallel training, whose backward is a reduce-scatter).
 
 Without a process group every helper is the one-process identity: rank 0
 of a world of 1, no collective.
@@ -160,6 +162,50 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def reduce_scatter_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over every rank of ``group``, and this rank's rows of
+    the sum (the rows split as ``shard_rows`` splits them): a
+    reduce-scatter under NCCL; under gloo, which has none, an all-reduce
+    and a slice (gloo's all-reduce takes CUDA tensors too)."""
+    n = world(group)
+    if n == 1:
+        return x
+    check_divisible(x.shape[0], n)
+    x = x.contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+    # gloo sums f32 and f64; other float types go through f32
+    y = x.clone() if x.dtype in (torch.float32, torch.float64) else x.float()
+    dist.all_reduce(y, group=group)
+    return shard_rows(y, rank(group), n).to(x.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``all_gather_rows`` with a gradient. Every rank of the group reads
+    the gathered rows, so the gradient reaching a rank's rows is the sum
+    of every rank's output gradient at those rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_rows(grad, ctx.group), None
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along rows in rank order, as
+    ``all_gather_rows``, differentiable: the backward sums the output
+    gradient over the group and returns this rank's rows (clip-parallel
+    training, where each rank of a clip group runs the temporal heads on
+    the gathered trunk outputs)."""
+    return _GatherRows.apply(x, group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group; its gradient is the sum of the ranks' output
     gradients, as each rank's output is the same sum."""
@@ -203,14 +249,37 @@ def make_groups(clip: int):
     (clip group, data group): the ranks of its column (one per clip slot)
     and of its row. Every process must call it, in the same order."""
     n = world()
-    if n % clip:
-        raise ValueError(f"{n} devices not divisible by clip={clip}")
+    c, d = clip_layout(rank(), n, clip)
     grid = np.arange(n).reshape(clip, n // clip)
-    clip_groups = [dist.new_group(grid[:, d].tolist())
-                   for d in range(n // clip)]
-    data_groups = [dist.new_group(grid[c].tolist()) for c in range(clip)]
-    c, d = divmod(rank(), n // clip)
+    clip_groups = [dist.new_group(grid[:, j].tolist())
+                   for j in range(n // clip)]
+    data_groups = [dist.new_group(grid[i].tolist()) for i in range(clip)]
     return clip_groups[d], data_groups[c]
+
+
+def clip_layout(rank_: int, world_size: int, clip: int):
+    """(c, d) of ``rank_`` on the ``(clip, world // clip)`` layout of
+    ``make_groups``: rank = c * D + d with D = world // clip. Its clip
+    group is column d (the ranks that share a clip's rows), and c is its
+    rank within that group."""
+    if clip < 1 or world_size % clip:
+        raise ValueError(f"{world_size} devices not divisible by "
+                         f"clip={clip}")
+    return divmod(rank_, world_size // clip)
+
+
+def clip_group_rows(x, clip: int, rank_: Optional[int] = None,
+                    world_size: Optional[int] = None):
+    """The rows of the global batch ``x`` that this rank passes to a
+    clip-parallel train step: its clip group d's contiguous share,
+    ``shard_rows(x, d, D)``, which every rank of the group passes alike
+    (the model then runs its c-th share of them through the trunk). Not
+    ``shard_rows(x, rank, world)``: a clip group holds whole clips.
+    ``rank_`` / ``world_size`` default to this process's."""
+    rank_ = rank() if rank_ is None else rank_
+    world_size = world() if world_size is None else world_size
+    _, d = clip_layout(rank_, world_size, clip)
+    return shard_rows(x, d, world_size // clip)
 
 
 def local_devices(n: int, device=None):

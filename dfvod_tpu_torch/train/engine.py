@@ -27,6 +27,22 @@ one rank the DFormer BatchNorms take the global batch's statistics
 (``models/backbone_dformer.py``); the returned metrics are the ranks'
 means, the global batch's; and dropout draws from ``seed + rank``. Without
 a process group nothing of this runs.
+
+Clip-parallel training of a TransVOD / TransVOD++ model
+(``create_train_state(..., clip=C)``, the JAX package's
+``make_train_step(frames=F)`` on a ``('clip', 'data')`` mesh under
+``clip_batch_sharding``): the C·D ranks form D clip groups of C ranks
+(``parallel.make_groups``; rank = c·D + d). Every rank of clip group d
+passes the same rows, the group's share of the global batch
+(``parallel.clip_group_rows(batch, C)``: whole clips), and its trunk runs
+its c-th share of them; the temporal heads run on the gathered trunk
+outputs on every rank of the group. DDP averages over all C·D ranks, the
+gather's backward sums the heads' gradients over the clip group, and the
+step equals the one-process step over the global batch. The heads'
+dropout draws from ``seed + d``, the same masks on every rank of a clip
+group (the C replicas stay one model); the trunk's from ``seed + rank``.
+With ``--masks`` (``ModelConfig.masks``) the batch carries ``masks`` (B,
+T, H, W) and the criterion adds ``loss_mask`` / ``loss_dice``.
 """
 from __future__ import annotations
 
@@ -68,6 +84,10 @@ class TrainState:
     steps_per_epoch: int
     step: int = 0
     ddp: Optional[nn.Module] = None
+    # clip-parallel training: the temporal heads' dropout generator,
+    # seeded ``head_seed`` (``seed + d``)
+    head_generator: Optional[torch.Generator] = None
+    head_seed: Optional[int] = None
 
 
 def unused_parameters_expected(model_cfg) -> bool:
@@ -81,10 +101,17 @@ def unused_parameters_expected(model_cfg) -> bool:
 
 
 def create_train_state(model: nn.Module, cfg: Config,
-                       steps_per_epoch: int = 1000) -> TrainState:
+                       steps_per_epoch: int = 1000,
+                       clip: Optional[int] = None) -> TrainState:
     """The optimizer over ``model``'s parameters (frozen ones get
     ``requires_grad=False``), its labels, and a dropout generator on the
-    model's device seeded from ``cfg.train.seed``."""
+    model's device seeded from ``cfg.train.seed``.
+
+    ``clip``: clip-parallel training of a temporal model over the process
+    group, ``clip`` ranks to a clip group (see the module's docstring).
+    Every process calls it in the same order (it forms the groups). It
+    raises without a process group, for a single-frame model, and unless
+    ``clip`` divides the world."""
     check_supported(cfg.model, training=True)
     if cfg.train.train_dtype not in TRAIN_DTYPES:
         raise ValueError(f"train_dtype {cfg.train.train_dtype!r} not in "
@@ -94,6 +121,23 @@ def create_train_state(model: nn.Module, cfg: Config,
     generator = torch.Generator(device=device).manual_seed(
         cfg.train.seed + parallel.rank())
     set_dropout_generator(model, generator)
+    head_generator = head_seed = None
+    if clip is not None:
+        if cfg.model.temporal_mode == "none":
+            raise ValueError("clip-parallel training splits a clip's frames "
+                             "over the ranks: a single-frame model has "
+                             "none (train it data-parallel)")
+        if not parallel.initialized():
+            raise ValueError("clip-parallel training needs a process group "
+                             "(parallel.init_distributed)")
+        _, d = parallel.clip_layout(parallel.rank(), parallel.world(), clip)
+        model.trunk_group = parallel.make_groups(clip)[0]
+        head_seed = cfg.train.seed + d
+        head_generator = torch.Generator(device=device).manual_seed(
+            head_seed)
+        for name, child in model.named_children():
+            if name != "detr":
+                set_dropout_generator(child, head_generator)
     ddp = None
     if parallel.initialized():
         if parallel.world() > 1:
@@ -106,13 +150,16 @@ def create_train_state(model: nn.Module, cfg: Config,
             find_unused_parameters=unused_parameters_expected(cfg.model),
             broadcast_buffers=False)
     return TrainState(model, optimizer, labels, generator, cfg,
-                      steps_per_epoch, ddp=ddp)
+                      steps_per_epoch, ddp=ddp,
+                      head_generator=head_generator, head_seed=head_seed)
 
 
 def _f32(out):
     """The criterion's inputs cast to f32 (``engine.py:148-152``): the
-    predictions, the aux layers' and the two-stage encoder's."""
-    res = {k: out[k].float() for k in ("pred_logits", "pred_boxes")}
+    predictions (with the mask logits), the aux layers' and the two-stage
+    encoder's."""
+    res = {k: out[k].float() for k in ("pred_logits", "pred_boxes")
+           + (("pred_masks",) if "pred_masks" in out else ())}
     if "aux_outputs" in out:
         res["aux_outputs"] = [{k: a[k].float() for k in a}
                               for a in out["aux_outputs"]]
@@ -136,7 +183,8 @@ def forward(state: TrainState, batch):
     # batch rows per prediction: the clip's frames, key frame first
     F = 1 if m.temporal_mode == "none" else 1 + m.num_ref_frames
     targets = {}
-    for k in ("labels", "boxes", "valid"):
+    for k in ("labels", "boxes", "valid") + (
+            ("masks",) if "masks" in batch else ()):
         x = as_tensor(batch[k], device)
         targets[k] = x.reshape(x.shape[0] // F, F, *x.shape[1:])[:, 0]
     net = state.ddp if state.ddp is not None else model

@@ -34,9 +34,13 @@ import torch
 
 from dfvod_tpu_torch import parallel
 
+# the JAX package's patterns, which carry the reference's head names
+# (``temp_class_embed`` / ``temp_bbox_embed``), and ``temp_head``, the name
+# both packages give those heads (``temp_head``, ``temp_head_{i}``): without
+# it a TransVOD checkpoint's temporal heads would keep the base weights
 TEMPORAL_KEY_PATTERNS = ("temporal_query", "temporal_decoder",
                          "temp_bbox_embed", "temp_class_embed",
-                         "dynamic_layer", "temporal", "qrf")
+                         "dynamic_layer", "temporal", "qrf", "temp_head")
 
 
 # ---------------------------------------------------------------------------
@@ -138,17 +142,38 @@ def save_checkpoint(output_dir: str, state, epoch: int, cfg=None,
     epoch divisible by ``keep_every``; the rest are deleted. Saving epochs
     0-11 leaves {0, 5, 9, 10, 11}.
 
-    Under data parallelism every process calls it: the main process writes
+    Under data parallelism every process calls it: every rank's dropout
+    state is gathered (``generators``, and ``head_generators`` under
+    clip-parallel training, one entry per rank), the main process writes
     (the unwrapped model's keys, no ``module.`` prefix), and every process
     waits at a barrier until the file is in place."""
     path = _checkpoint_path(output_dir, epoch)
+    gens = _gather_generator_states(state)
     if parallel.is_main_process():
-        _write_checkpoint(output_dir, state, epoch, cfg, keep_every)
+        _write_checkpoint(output_dir, state, epoch, cfg, keep_every, gens)
     parallel.barrier()
     return path
 
 
-def _write_checkpoint(output_dir, state, epoch, cfg, keep_every):
+def _gather_generator_states(state) -> dict:
+    """Every rank's dropout generator states, in rank order; nothing in
+    one process, whose ``generator`` entry is its own."""
+    if parallel.world() == 1:
+        return {}
+
+    def gather(gen):
+        # a generator's state is a byte tensor of one length per device
+        # type, so the ranks' states stack as rows
+        mine = gen.get_state()[None].to(parallel.collective_device())
+        return [g.clone() for g in parallel.all_gather_rows(mine).cpu()]
+
+    out = {"generators": gather(state.generator)}
+    if state.head_generator is not None:
+        out["head_generators"] = gather(state.head_generator)
+    return out
+
+
+def _write_checkpoint(output_dir, state, epoch, cfg, keep_every, gens):
     os.makedirs(output_dir, exist_ok=True)
     payload = {
         "model": state.model.state_dict(),
@@ -156,6 +181,7 @@ def _write_checkpoint(output_dir, state, epoch, cfg, keep_every):
         "step": int(state.step),
         "epoch": int(epoch),
         "generator": state.generator.get_state(),
+        **gens,
         # a plain dict, so that torch.load(weights_only=True) reads it
         "args": dataclasses.asdict(cfg if cfg is not None else state.cfg),
     }
@@ -181,7 +207,11 @@ def load_checkpoint(output_dir: str, state=None, epoch: Optional[int] = None,
     optimizer, step and generator stay fresh. ``weights_only=False`` is
     auto-resume: the model, the optimizer state, ``state.step`` and the
     dropout generator's state, so that the next step draws the masks an
-    unbroken run would. Tensors load onto the model's device."""
+    unbroken run would: rank r takes rank r's saved state. A checkpoint
+    saved by another number of processes (one written before the states
+    were gathered counts as one) re-seeds every rank's dropout from
+    ``seed + rank``, the rule at the start of a run, and the main process
+    says so. Tensors load onto the model's device."""
     epochs = saved_epochs(output_dir)
     if epoch is None:
         if not epochs:
@@ -200,9 +230,32 @@ def load_checkpoint(output_dir: str, state=None, epoch: Optional[int] = None,
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
-    # a generator's state is a CPU byte tensor, whatever map_location did
-    state.generator.set_state(ckpt["generator"].cpu())
+    _restore_generators(state, ckpt)
     return state, epoch
+
+
+def _restore_generators(state, ckpt):
+    """This rank's saved dropout states, or the start's seeds when the
+    checkpoint's world differs (the heads' too when it holds none of
+    theirs)."""
+    saved = ckpt.get("generators", [ckpt["generator"]])
+    r, n = parallel.rank(), parallel.world()
+    heads = ckpt.get("head_generators")
+    if len(saved) != n:
+        if parallel.is_main_process():
+            print(f"[checkpoint] dropout states of {len(saved)} processes, "
+                  f"this run has {n}: re-seeding dropout from seed + rank")
+        state.generator.manual_seed(state.cfg.train.seed + r)
+        heads = None
+    else:
+        # a generator's state is a CPU byte tensor, whatever map_location
+        # did
+        state.generator.set_state(saved[r].cpu().contiguous())
+    if state.head_generator is not None:
+        if heads is None:
+            state.head_generator.manual_seed(state.head_seed)
+        else:
+            state.head_generator.set_state(heads[r].cpu().contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,14 @@ class ModelConfig:
         # layer2/3/4 for multi-level, layer4 only otherwise
         return (2, 3, 4) if self.num_feature_levels > 1 else (4,)
 
+    @property
+    def all_backbone_stages(self) -> Tuple[int, ...]:
+        """The stages the backbone computes: the transformer's levels and,
+        with ``masks``, the mask head's laterals (layers 1-3)."""
+        if self.masks:
+            return tuple(sorted(set(self.backbone_stages) | {1, 2, 3}))
+        return self.backbone_stages
+
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
@@ -192,8 +200,6 @@ def check_supported(m: ModelConfig, training: bool = False) -> None:
     configuration that serves also trains (``remat`` recomputes only
     training activations)."""
     waits = []
-    if m.masks:
-        waits.append("masks=True waits for the segmentation slice")
     if m.num_feature_levels < 1 or m.num_feature_levels == 2:
         waits.append(
             f"num_feature_levels={m.num_feature_levels}: a multi-level model "

@@ -8,6 +8,11 @@ with more than one GPU:
    TransVOD++ step on a clip per rank against one process's step on the
    same global batch, the clip-parallel TransVOD++ serves against one
    process's forward, the evaluation merge against one process's stats;
+   with 4 or more cards, clip-parallel TransVOD++ training as (C, D) =
+   (2, 2) (``chip_smoke.phase_clip_parallel("g")``), one rank per card:
+   the step against one process's, the ms per step per rank beside one
+   process's on one card (the gather's backward is NCCL's
+   reduce-scatter there);
 2. throughput: the ``LateFusion_bf16.sh`` step (B=6 per process, bf16,
    608x800) in one process on ``cuda:0``, then on N ranks, each its own
    batches: ms per step per rank and the frames per second of all ranks
@@ -137,6 +142,13 @@ def main():
     res = {"cards": n, "card": card}
     res["phase"] = cs.phase_data_parallel(devices=devices, backend="nccl",
                                           world1=False)
+    if n >= 4:
+        res["clip_parallel"] = cs.phase_clip_parallel(
+            "g", devices[:4], backend="nccl")
+    else:
+        print(f"[dp-cards] {n} cards: the (2, 2) clip-parallel step needs "
+              "4, not run", flush=True)
+    cs.free_card()
     one = throughput_steps(80)
     cs.free_card()
     ranks = parallel.spawn(throughput_rank, devices, timeout_s=900)
@@ -163,7 +175,7 @@ def main():
     with open(a.out, "w") as f:
         json.dump(res, f)
     print(json.dumps({"dp_multi_card": {k: res[k] for k in (
-        "cards", "card", "throughput")}}))
+        "cards", "card", "throughput", "clip_parallel") if k in res}}))
 
 
 if __name__ == "__main__":

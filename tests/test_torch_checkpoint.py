@@ -74,7 +74,7 @@ def assert_same_state(got, want):
         assert torch.equal(got[k], torch.as_tensor(np.array(want[k]))), k
 
 
-PATTERNS = [("class_embed",), ("mask_branch",), ckpt.TEMPORAL_KEY_PATTERNS,
+PATTERNS = [("class_embed",), ("mask_branch",), j_ckpt.TEMPORAL_KEY_PATTERNS,
             ("transformer/head_0", "qrf_dynamic_layer1/inst_interact"),
             ("/bias",)]
 
@@ -85,7 +85,10 @@ PATTERNS = [("class_embed",), ("mask_branch",), ckpt.TEMPORAL_KEY_PATTERNS,
 def test_drop_and_select_keys_match_jax(video_params, patterns):
     """The same weights survive ``drop_keys`` and ``select_keys`` in both
     packages, and the two split the weights between them."""
-    assert j_ckpt.TEMPORAL_KEY_PATTERNS == ckpt.TEMPORAL_KEY_PATTERNS
+    # the port's temporal patterns are JAX's and ``temp_head`` (ROADMAP.md
+    # Queue 3, known differences)
+    assert ckpt.TEMPORAL_KEY_PATTERNS == j_ckpt.TEMPORAL_KEY_PATTERNS + (
+        "temp_head",)
     state = as_port(video_params)
     dropped = ckpt.drop_keys(state, *patterns)
     selected = ckpt.select_keys(state, *patterns)
@@ -141,31 +144,38 @@ def test_merge_matching_reports_and_casts_like_jax(video_params):
 def test_merge_temporal_weights_nests_a_single_frame_checkpoint(
         video_params):
     """A single-frame spatial checkpoint under a TransVOD++ model nests
-    under ``detr.``; the temporal heads come from the temporal checkpoint;
-    as JAX's ``merge_temporal_weights``."""
+    under ``detr.``; the temporal heads, ``temp_head_{i}`` included, come
+    from the temporal checkpoint, as the reference's
+    ``--transvod_temporal_weights`` loads them. Every other key equals
+    JAX's ``merge_temporal_weights``, which keeps the heads at the base
+    weights: no pattern of the JAX package names its (and the port's)
+    head modules (ROADMAP.md Queue 3, known differences)."""
     spatial = flax_params(3)
     temporal = flax_params(4, **VIDEO)
     want = j_ckpt.merge_temporal_weights(video_params, temporal, spatial)
     got = ckpt.merge_temporal_weights(as_port(video_params),
                                       as_port(temporal), as_port(spatial))
-    assert_same_state(got, flat_params(jax.tree_util.tree_map(np.asarray,
-                                                              want)))
     sp, tp = as_port(spatial), as_port(temporal)
+    heads = sorted(k for k in got if k.startswith("temp_head"))
+    assert len(heads) == 3 * 8 and all(
+        k.startswith(("temp_head_0.", "temp_head_1.", "temp_head_2."))
+        for k in heads)
+    want = flat_params(jax.tree_util.tree_map(np.asarray, want))
+    assert_same_state({k: v for k, v in got.items() if k not in heads},
+                      {k: v for k, v in want.items() if k not in heads})
+    for k in heads:
+        assert torch.equal(got[k], tp[k]), k
+        assert not torch.equal(got[k], torch.as_tensor(want[k])), k
     assert torch.equal(got["detr.transformer.query_embed"],
                        sp["transformer.query_embed"])
     assert torch.equal(got["temporal_decoder1.layers_0.norm1.weight"],
                        tp["temporal_decoder1.layers_0.norm1.weight"])
-    # as in JAX, no temporal pattern names the heads' port (and flax)
-    # modules, ``temp_head_{i}``: they keep the base weights (ROADMAP.md
-    # Queue 3)
     base = as_port(video_params)
     for k, v in got.items():
         if not k.startswith("detr."):
             src = tp if ckpt.select_keys(
                 {k: v}, *ckpt.TEMPORAL_KEY_PATTERNS) else base
             assert torch.equal(v, src[k]), k
-    assert torch.equal(got["temp_head_0.class_embed.weight"],
-                       base["temp_head_0.class_embed.weight"])
 
 
 # ------------------------------------------------------------ persistence

@@ -514,9 +514,9 @@ def test_loader_digest_is_chip_smokes_constant_and_close_to_jax():
 
 
 def test_data_layer_refusals_name_their_slice(tmp_path):
-    """What the data layer still refuses: an Adam7-interlaced PNG frame,
-    the segmentation targets. A loader sharded over processes and the
-    two-stage model the CLI would build were refused until their slices,
+    """What the data layer still refuses: an Adam7-interlaced PNG frame.
+    A loader sharded over processes, the two-stage model the CLI would
+    build and the segmentation targets were refused until their slices,
     and are now supported: each rank of 2 loads its contiguous shard of
     val.json's 60 frames (30, 4 batches of 8, the last padded from the
     shard), as the JAX Loader with the same rank does; a rank outside the
@@ -541,13 +541,18 @@ def test_data_layer_refusals_name_their_slice(tmp_path):
         dataset.load_depth(str(tmp_path / "adam7.png"))
     check_supported(dataclasses.replace(
         chip_smoke.synth_recipe_cfg().model, two_stage=True))
-    with pytest.raises(NotImplementedError, match="segmentation slice"):
-        dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, return_masks=True)
+    # the segmentation targets were refused until their slice; now the
+    # samples carry masks (``tests/test_torch_masks_data.py`` holds them
+    # against JAX's), and ``coco_panoptic`` routes to the panoptic
+    # dataset, whose files this tree lacks
+    ds = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON, return_masks=True)
+    sample = ds[0][0]
+    assert sample.masks.shape == (len(sample.boxes), *sample.rgb.shape[:2])
     cfg = chip_smoke.synth_recipe_cfg()
-    for data, model in ((dict(dataset_file="coco_panoptic"), {}),
-                        ({}, dict(masks=True))):
-        bad = dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, **data),
-            model=dataclasses.replace(cfg.model, **model))
-        with pytest.raises(NotImplementedError, match="segmentation slice"):
-            dataset.build_dataset("val", bad)
+    masked = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, masks=True))
+    assert dataset.build_dataset("val", masked).return_masks
+    panoptic = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, dataset_file="coco_panoptic"))
+    with pytest.raises(FileNotFoundError, match="panoptic_val2017.json"):
+        dataset.build_dataset("val", panoptic)

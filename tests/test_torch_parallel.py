@@ -22,7 +22,12 @@ video tolerances; the evaluation merge over 5 images (an odd count) equal
 to one process, and the JAX merge's double count of the wrapped image;
 clip-parallel serving of a clip straddling the ranks against the JAX
 forward; a checkpoint written by 2 ranks loading into one process; the
-helpers and the ``('clip', 'data')`` layout of ``make_mesh``.
+helpers and the ``('clip', 'data')`` layout of ``make_mesh``; the
+differentiable gather's backward; an auto-resume with dropout on each
+rank's own dropout state; clip-parallel TransVOD++ training with the trunk
+trained, the 2 ranks one clip group, against the port's one-process step
+and ``make_train_step(frames=4)``; the clip-parallel row and group
+arithmetic for (C, D) = (2, 2) and (4, 1) without a process.
 """
 import copy
 import os
@@ -87,6 +92,9 @@ SINGLE = dict(SMALL, num_queries=12, depth_backbone_type="dformer")
 # ranks
 VIDEO = dict(SMALL, num_queries=30, temporal_mode="transvod_pp",
              num_ref_frames=3, fixed_pretrained_model=True)
+# clip-parallel training: the same model with the trunk trained (the
+# recipe's default), one 4-frame clip over a clip group of both ranks
+VIDEO_CLIP = dict(VIDEO, fixed_pretrained_model=False)
 F_VIDEO = 4
 EVAL_IMAGES = 5
 
@@ -134,12 +142,16 @@ def cases():
     sf_batch = frames_and_targets(0, 4)
     video_batch = frames_and_targets(1, 2 * F_VIDEO)
     out, models = {}, {}
+    clip_batch = frames_and_targets(3, F_VIDEO)
     for name, kw, batch, seed in (("single_frame", SINGLE, sf_batch, 11),
-                                  ("video", VIDEO, video_batch, 31)):
+                                  ("video", VIDEO, video_batch, 31),
+                                  ("video_clip", VIDEO_CLIP, clip_batch, 41)):
         model, criterion, variables = flax_init(kw, batch, seed)
         models[name] = (model, criterion)
         out[name] = {"model": kw, "train": TRAIN, "variables": variables,
                      "batch": batch}
+    out["single_frame"]["resume_batches"] = [frames_and_targets(5, 4),
+                                             frames_and_targets(6, 4)]
     serve = frames_and_targets(2, F_VIDEO)
     out["serve"] = {"model": VIDEO, "variables": out["video"]["variables"],
                     "images": serve["images"], "sizes": serve["sizes"]}
@@ -244,17 +256,21 @@ def flax_serve(cases):
 def refs(cases, launch):
     """The references, computed in threads while the ranks run (XLA
     compiles without the interpreter lock): the JAX step and the port's
-    one-process step of each case, and the JAX forward of the served
-    clip."""
-    with ThreadPoolExecutor(5) as pool:
+    one-process step of each training case, and the JAX forward of the
+    served clip."""
+    with ThreadPoolExecutor(7) as pool:
         jobs = {"jax_single_frame": pool.submit(jax_step, cases,
                                                 "single_frame"),
                 "jax_video": pool.submit(jax_step, cases, "video",
                                          frames=F_VIDEO),
                 "flax_serve": pool.submit(flax_serve, cases),
+                "jax_video_clip": pool.submit(jax_step, cases,
+                                              "video_clip", frames=F_VIDEO),
                 "port_single_frame": pool.submit(port_step, cases,
                                                  "single_frame"),
-                "port_video": pool.submit(port_step, cases, "video")}
+                "port_video": pool.submit(port_step, cases, "video"),
+                "port_video_clip": pool.submit(port_step, cases,
+                                               "video_clip")}
         return {k: f.result() for k, f in jobs.items()}
 
 
@@ -557,3 +573,189 @@ def test_checkpoint_from_two_ranks_loads_into_one_process(ranks, cases):
         **SINGLE)), device="cpu")[0], copy.deepcopy(variables))
     for k, v in want.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
+
+
+# ------------------------------------------------- clip-parallel training
+@pytest.mark.parametrize("clip,world", [(2, 4), (4, 4)],
+                         ids=["C2_D2", "C4_D1"])
+def test_clip_layout_rows_and_groups(clip, world):
+    """Rank r = c * D + d sits at (c, d) of ``make_mesh``'s (clip, data)
+    layout; every rank of clip group d passes the same rows, group d's
+    contiguous share of the global batch, which holds whole clips, and
+    the groups' rows together are the batch in order."""
+    D = world // clip
+    mesh = np.arange(world).reshape(clip, D)
+    x = torch.arange(8 * D).reshape(8 * D, 1)       # 2 clips of 4 per group
+    per_group = {}
+    for r in range(world):
+        c, d = parallel.clip_layout(r, world, clip)
+        assert mesh[c, d] == r
+        rows = parallel.clip_group_rows(x, clip, r, world)
+        assert torch.equal(rows, x[8 * d:8 * (d + 1)])
+        per_group.setdefault(d, []).append(rows)
+    assert len(per_group) == D
+    for d, rows in per_group.items():
+        assert len(rows) == clip
+        assert all(torch.equal(r, rows[0]) for r in rows)
+    assert torch.equal(torch.cat([per_group[d][0] for d in range(D)]), x)
+    with pytest.raises(ValueError, match="not divisible by clip=3"):
+        parallel.clip_layout(0, world, 3)
+
+
+def test_clip_parallel_state_refuses_what_it_cannot_train():
+    """A single-frame model has no clip to split, and without a process
+    group there is no clip group: both raise."""
+    for kw, msg in ((SINGLE, "single-frame model"),
+                    (VIDEO_CLIP, "needs a process group")):
+        cfg = Config(model=ModelConfig(**kw), train=TrainConfig(**TRAIN))
+        model = build_model(cfg, device="cpu")[0]
+        with pytest.raises(ValueError, match=msg):
+            create_train_state(model, cfg, steps_per_epoch=1, clip=2)
+
+
+def test_gather_rows_backward_sums_over_the_group(ranks):
+    """``gather_rows`` forwards as ``all_gather_rows``; each rank weighs
+    the 4 gathered rows with ``arange(12) * (rank + 1)``, so the gradient
+    of a rank's 2 rows is its rows of ``arange(12) * 3`` (f32, and bf16
+    through gloo's f32 sum). ``reduce_scatter_rows`` gives each rank its
+    rows of the sum."""
+    res, _ = ranks
+    w = torch.arange(12.0).reshape(4, 3) * 3
+    for r in range(2):
+        h = res[r]["helpers"]
+        for dtype in (torch.float32, torch.bfloat16):
+            y, grad = h[f"gather_grad_{dtype}"]
+            assert y.dtype == grad.dtype == dtype
+            assert torch.equal(y.float(), torch.tensor(
+                [0.0, 0.0, 1.0, 1.0])[:, None].expand(4, 3))
+            assert torch.equal(grad.float(), w[2 * r:2 * r + 2])
+        want = torch.arange(8.0).reshape(4, 2) * 3
+        assert torch.equal(h["reduce_scatter"], want[2 * r:2 * r + 2])
+
+
+def test_resume_restores_each_ranks_dropout_state(ranks):
+    """Dropout 0.1 over 2 ranks: a step, ``save_checkpoint``, a fresh
+    state from another seed, ``load_checkpoint(weights_only=False)`` and a
+    step equal two steps in a row, bitwise on every rank: the parameters
+    and the generator's next draws (each rank's own state comes back, not
+    rank 0's)."""
+    res, _ = ranks
+    draws = []
+    for r in range(2):
+        got = res[r]["resume"]
+        assert got["resumed"]["step"] == got["unbroken"]["step"] == 2
+        assert torch.equal(got["resumed"]["draw"], got["unbroken"]["draw"])
+        for k, v in got["unbroken"]["params"].items():
+            assert torch.equal(got["resumed"]["params"][k], v), (r, k)
+        draws.append(got["unbroken"]["draw"])
+    assert not torch.equal(draws[0], draws[1])
+
+
+def test_a_checkpoint_of_another_world_reseeds_dropout(ranks, capsys):
+    """The 2 ranks' checkpoint holds both dropout states; one process
+    loading it re-seeds from ``seed + 0``, as a run starts, and says so.
+    The weights load all the same."""
+    res, tmp = ranks
+    saved = torch.load(tmp / "resume" / "checkpoint0000.pth",
+                       weights_only=True)
+    assert len(saved["generators"]) == 2
+    assert torch.equal(saved["generators"][0], saved["generator"])
+    cfg = Config(model=ModelConfig(**dict(SINGLE, dropout=0.1)),
+                 train=TrainConfig(**dict(TRAIN, seed=9)))
+    model = build_model(cfg, device="cpu")[0]
+    state = create_train_state(model, cfg, steps_per_epoch=2)
+    torch.rand(5, generator=state.generator)
+    load_checkpoint(str(tmp / "resume"), state, weights_only=False)
+    assert "dropout states of 2 processes, this run has 1" in \
+        capsys.readouterr().out
+    assert torch.equal(state.generator.get_state(),
+                       torch.Generator().manual_seed(9).get_state())
+    for k, v in saved["model"].items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_clip_parallel_step_equals_the_one_process_step(ranks, refs):
+    """TransVOD++ with the trunk trained, one 4-frame clip, both ranks one
+    clip group (each trunk 2 frames), against the port's one-process step
+    on the clip: metrics within 1e-6 relative, every gradient within 1e-5
+    of its tensor's largest entry plus 1e-9 (the trunk's gradients too,
+    which come out half as large if the gather's backward does not sum
+    over the group), the DFormer BN statistics (global over the clip's 4
+    frames) within 1e-6; both ranks hold the same parameters. A parameter
+    the one-process step leaves without a gradient (the trunk's last class
+    head, read only through the top-k) is without one here too, or zero:
+    DDP finds it reachable from the key frame's single-frame outputs,
+    which now pass through the gather, and fills zeros."""
+    res, _ = ranks
+    pm, pstate, pgrads = refs["port_video_clip"]
+    got = res[0]["clip"][0.0]
+    assert got["rows"] == F_VIDEO and got["trunk_rows"] == [2]
+    assert got["clip_group"] == [0, 1] and got["head_seed"] == 42
+    for k in pm:
+        np.testing.assert_allclose(got["metrics"][k], pm[k], rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    trunk = 0
+    for k, g in pgrads.items():
+        if g is None:
+            assert got["grads"][k] is None or not got["grads"][k].any(), k
+            continue
+        scale = float(g.abs().max())
+        assert_close(got["grads"][k], g.numpy(), 1e-5 * scale + 1e-9, 0,
+                     err_msg=k)
+        trunk += k.startswith("detr.") and scale > 0
+    assert trunk > 50, trunk
+    running = [k for k in pstate if "running" in k]
+    assert running
+    for k in running:
+        assert_close(got["state"][k], pstate[k].numpy(), 1e-6, 1e-6,
+                     err_msg=k)
+    for k, v in got["state"].items():
+        assert torch.equal(v, res[1]["clip"][0.0]["state"][k]), k
+
+
+def test_clip_parallel_step_equals_jax(ranks, refs):
+    """The same step against ``make_train_step(frames=4)`` on the clip,
+    the trunk trained: loss, components and grad_norm within atol 1e-4 /
+    rtol 1e-3; each tensor's update over the entries whose Adam step is
+    decided within relative L2 3e-2 (the video gates), the trunk's
+    included; the BN statistics within atol 1e-5 / rtol 1e-4."""
+    res, _ = ranks
+    jm, jparams, jstats, init = refs["jax_video_clip"]
+    pgrads = refs["port_video_clip"][2]
+    got = res[0]["clip"][0.0]
+    for k in jm:
+        np.testing.assert_allclose(got["metrics"][k], jm[k], **TOL,
+                                   err_msg=k)
+    init = flat_params(init["params"])
+    checked = trunk = 0
+    for k, g in pgrads.items():
+        if g is None:
+            continue
+        decided = (g.abs() > 1e-6).numpy()
+        if decided.any():
+            rel = rel_l2((got["state"][k].numpy() - init[k])[decided],
+                         (jparams[k] - init[k])[decided])
+            assert rel <= UPDATE_L2, (k, rel)
+            checked += 1
+            trunk += k.startswith("detr.")
+    assert checked > 100 and trunk > 50, (checked, trunk)
+    for k, v in jstats.items():
+        assert_close(got["state"][k], v, 1e-5, 1e-4, err_msg=k)
+
+
+def test_clip_parallel_dropout_is_one_model_on_the_clip_group(ranks):
+    """Dropout 0.1: the temporal heads draw from ``seed + d``, the same
+    masks on both ranks of the clip group, so each rank's own loss and
+    temporal outputs are bitwise the other's, finite, and differ from the
+    dropout-0 step's; the parameters stay equal."""
+    res, _ = ranks
+    a, b = res[0]["clip"][0.1], res[1]["clip"][0.1]
+    assert torch.equal(a["loss"], b["loss"])
+    assert torch.isfinite(a["loss"])
+    assert a["metrics"] == b["metrics"]
+    for k in ("pred_logits", "pred_boxes"):
+        assert torch.equal(a["out"][k], b["out"][k]), k
+    assert not torch.equal(a["out"]["pred_logits"],
+                           res[0]["clip"][0.0]["out"]["pred_logits"])
+    for k, v in a["state"].items():
+        assert torch.equal(v, b["state"][k]), k

@@ -130,12 +130,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 # ids as pytest named these cases while the list began with remat, which
 # is supported now (``test_remat_serves_and_trains``)
 # a slice name of None: refused until its slice was ported, and now
-# supported; the case asserts that it is (two-stage proposals and the
-# ResNet-18 research depth trunk, both held against flax in
-# tests/test_torch_two_stage.py and tests/test_torch_research.py)
+# supported; the case asserts that it is (two-stage proposals, the
+# segmentation branch and the ResNet-18 research depth trunk, held against
+# flax in tests/test_torch_two_stage.py, tests/test_torch_segmentation.py
+# and tests/test_torch_research.py)
 UNSUPPORTED = [
     pytest.param(dict(two_stage=True), None, id="kw1-two-stage"),
-    pytest.param(dict(masks=True), "segmentation", id="kw2-segmentation"),
+    pytest.param(dict(masks=True), None, id="kw2-segmentation"),
     # stages 2-4 give 3 levels: 2 is refused, as the JAX model fails there
     pytest.param(dict(num_feature_levels=2), "multi-level",
                  id="kw3-multi-level"),

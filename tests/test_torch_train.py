@@ -218,8 +218,15 @@ def test_criterion_raises_for_later_slices():
     crit = SetCriterion(3, LossConfig(), dec_layers=2)
     out = to_torch(make_outputs(7))
     tg = to_torch(make_targets(8))
-    with pytest.raises(NotImplementedError, match="segmentation"):
-        crit({**out, "pred_masks": torch.zeros(2, 12, 4, 4)}, tg)
+    # mask logits were refused until the segmentation slice; now, as in
+    # JAX, they add loss_mask / loss_dice when the targets carry masks
+    # (``tests/test_torch_segmentation.py`` holds them against JAX's)
+    masked = {**out, "pred_masks": torch.zeros(2, 12, 4, 4)}
+    _, parts = crit(masked, tg)
+    assert "loss_mask" not in parts
+    T = tg["valid"].shape[1]
+    _, parts = crit(masked, {**tg, "masks": torch.ones(2, T, 8, 8)})
+    assert {"loss_mask", "loss_dice"} <= set(parts)
     # two-stage proposals are no longer refused: they add the _enc losses
     # (``tests/test_torch_two_stage.py`` holds them against JAX's)
     enc = {k: out[k] for k in ("pred_logits", "pred_boxes")}

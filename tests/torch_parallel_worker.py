@@ -20,7 +20,15 @@ dataset dict) each rank runs, in one group:
 5. clip-parallel serving: ``Server(group=...)`` on a clip whose frames
    straddle the ranks, with the rows each rank's trunk ran;
 6. ``save_checkpoint`` from both ranks, with the ``torch.save`` calls
-   each rank made.
+   each rank made;
+7. auto-resume with dropout 0.1: two single-frame steps in a row, against
+   one step, ``save_checkpoint``, a fresh state from another seed,
+   ``load_checkpoint(weights_only=False)`` and one step: the parameters
+   and the next draw of each rank's dropout generator;
+8. clip-parallel TransVOD++ training, the trunk trained: both ranks one
+   clip group (``create_train_state(clip=2)``), each passing the whole
+   4-frame clip, its trunk running 2 frames; then a step with dropout 0.1,
+   with each rank's own loss and temporal outputs.
 
 It writes ``OUT_DIR/rank{RANK}.pt`` and prints ``TORCH_PARALLEL_OK``.
 """
@@ -74,6 +82,16 @@ def helpers(rank, world):
         Server(Config(), device="cpu", group=dist.group.WORLD)
     except ValueError as e:
         out["single_frame_server"] = str(e)
+    # the differentiable gather: each rank weighs the gathered rows with
+    # its own weights, so the backward must sum both ranks' weights
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((2, 3), float(rank), dtype=dtype, requires_grad=True)
+        y = parallel.gather_rows(x)
+        w = torch.arange(12, dtype=dtype).reshape(4, 3) * (rank + 1)
+        (y * w).sum().backward()
+        out[f"gather_grad_{dtype}"] = (y.detach(), x.grad)
+    out["reduce_scatter"] = parallel.reduce_scatter_rows(
+        torch.arange(8.0).reshape(4, 2) * (rank + 1))
     return out
 
 
@@ -98,6 +116,89 @@ def train_case(case, rank, world):
         "grads": {k: None if p.grad is None else p.grad.clone()
                   for k, p in model.named_parameters()},
     }
+
+
+def clip_case(case, rank, world):
+    """Clip-parallel training, the world one clip group: every rank
+    passes its clip group's rows (here the whole clip). A step in f32 with
+    dropout 0 as the case says, then one of dropout 0.1 on a fresh state,
+    with this rank's loss before the ranks' mean and the temporal heads'
+    outputs."""
+    res = {}
+    for dropout in (case["model"]["dropout"], 0.1):
+        cfg = Config(model=ModelConfig(**dict(case["model"],
+                                              dropout=dropout)),
+                     train=TrainConfig(**case["train"]))
+        model, criterion, _ = build_model(cfg, device="cpu")
+        load_jax_variables(model, copy.deepcopy(case["variables"]))
+        state = create_train_state(model, cfg, steps_per_epoch=1, clip=2)
+        batch = {k: parallel.clip_group_rows(v, 2)
+                 for k, v in case["batch"].items()}
+        rows, seen = [], {}
+        trunk = model.detr.forward
+
+        def counting(images, mask):
+            rows.append(int(images.shape[0]))
+            return trunk(images, mask)
+
+        model.detr.forward = counting
+
+        def recording(out, targets):
+            seen["out"] = {k: out[k].detach().clone()
+                           for k in ("pred_logits", "pred_boxes")}
+            loss, parts = criterion(out, targets)
+            seen["loss"] = loss.detach().clone()
+            return loss, parts
+
+        metrics = train_step(state, recording, batch)
+        res[dropout] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "rows": int(batch["images"].shape[0]), "trunk_rows": rows,
+            "clip_group": dist.get_process_group_ranks(model.trunk_group),
+            "head_seed": state.head_seed, **seen,
+            "state": {k: v.detach().clone()
+                      for k, v in model.state_dict().items()},
+            "grads": {k: None if p.grad is None else p.grad.clone()
+                      for k, p in model.named_parameters()},
+        }
+    return res
+
+
+def resume_case(case, rank, world, out_dir):
+    """Dropout 0.1: two steps in a row against a step, a checkpoint, a
+    fresh state from another seed restored from it and a step. Each
+    returns the parameters and the next 64 draws of its generator."""
+    cfg = Config(model=ModelConfig(**dict(case["model"], dropout=0.1)),
+                 train=TrainConfig(**case["train"]))
+
+    def state_for(seed):
+        c = Config(model=cfg.model, train=TrainConfig(**dict(
+            case["train"], seed=seed)))
+        model, criterion, _ = build_model(c, device="cpu")
+        load_jax_variables(model, copy.deepcopy(case["variables"]))
+        return create_train_state(model, c, steps_per_epoch=2), criterion
+
+    halves = [{k: parallel.shard_rows(v, rank, world)
+               for k, v in b.items()} for b in case["resume_batches"]]
+
+    def result(state):
+        return {"params": {k: v.detach().clone() for k, v in
+                           state.model.state_dict().items()},
+                "draw": torch.rand(64, generator=state.generator),
+                "step": state.step}
+
+    state, criterion = state_for(42)
+    for b in halves:
+        train_step(state, criterion, b)
+    unbroken = result(state)
+    state, criterion = state_for(42)
+    train_step(state, criterion, halves[0])
+    path = os.path.join(out_dir, "resume")
+    ckpt.save_checkpoint(path, state, 0)
+    fresh, criterion = state_for(7)
+    ckpt.load_checkpoint(path, fresh, weights_only=False)
+    train_step(fresh, criterion, halves[1])
+    return {"unbroken": unbroken, "resumed": result(fresh)}
 
 
 def eval_case(case, rank, world):
@@ -193,7 +294,10 @@ def main():
            "video": train_case(cases["video"], rank, world),
            "eval": eval_case(cases["eval"], rank, world),
            "serve": serve_case(cases["serve"]),
-           "ckpt": ckpt_case(cases["single_frame"], out_dir)}
+           "ckpt": ckpt_case(cases["single_frame"], out_dir),
+           "resume": resume_case(cases["single_frame"], rank, world,
+                                 out_dir),
+           "clip": clip_case(cases["video_clip"], rank, world)}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
     print("TORCH_PARALLEL_OK", flush=True)
