@@ -176,12 +176,42 @@ Phases, each on lines of its own:
    evaluation merge over 59 of val.json's images, the stats of one
    process exactly; each rank's K1-K4 launches per step and request, ms
    per step and request and peak memory per rank (two ranks share one
-   card: no scaling number);
-15. the card line, JSON lines of the train, video-train, clip-serve,
+   card: no scaling number); then clip-parallel TransVOD++ training,
+   (f) 2 ranks as one clip group and (g) 4 as (2, 2), against one
+   process (``phase_clip_parallel``);
+15. segmentation (``phase_segmentation``): the ``masks`` LateFusion
+   served B=2 bf16 against its f32 forward and trained B=2 f32 at
+   608x800, a small masked model card vs CPU, ``Synth_LateFusion.sh
+   --masks`` and ``--frozen_weights`` 1 epoch each;
+16. W8A8 int8 serving (``phase_int8``, ``ops/quant.py``): each int8
+   product of the serve (value_proj 15,200x256 -> 256, FFN 2,400x256 ->
+   1024, 1x1 c256, 3x3 c128 stride 2, 3x3 c512 dilation 2) card vs CPU
+   within 1e-6 of max|CPU|, an int8 GEMM kernel seen by ``torch.profiler``,
+   ms beside the bf16 library call; the small LateFusion model in int8
+   card vs CPU, layer by layer on the same inputs and, with the
+   transformer's seams, the boxes within 1e-2; the full-width B=8
+   608x800 serve through ``Server`` in bf16, then int8 at every seam, at
+   the JAX bench's selective seams and at every seam with
+   ``fused_stages``: ms per request over 5 after a warm-up, peak memory,
+   13 K1 (and 3 K6) per request, boxes against the f32 forward within
+   5e-2, and a request after the context bitwise the bf16 serve's;
+17. integrated gradients (``phase_attribution``): the full-width
+   LateFusion f32 model, B=1 608x800, 50 steps (676 K1 and 650 K2 per
+   call), ms, peak memory, |delta| beside score(x) - score(0); a small
+   model's IG card vs CPU within 1e-4 + 1e-3 |CPU|;
+18. the offline tools on the host (``phase_tools``): mean/std of
+   synth_rgbd's frames and depth maps, val.json's boxes through YOLO txt
+   files and ``yolo_to_coco`` (within 1e-3 px), ``yolo_eval`` of the
+   ground truth against itself (ap50 1.0) and of the inference CLI's txt
+   files of step 13, an Adam7, a 1-bit, a 4-bit palette and a 16-bit RGB
+   PNG at 608x800 decoded as their 8-bit non-interlaced copies, the plot
+   modules imported without matplotlib;
+19. the card line, JSON lines of the train, video-train, clip-serve,
    serve-variant, fusion-mode, evaluation/checkpoint, data/CLI,
-   data-layer, multi-level, two-stage/ResNet-18 and data-parallel phases,
-   a JSON line of the kernels and the serving path, and the final line
-   ``{"ok": true, "device": {...}}``.
+   data-layer, multi-level, two-stage/ResNet-18, data-parallel,
+   segmentation, int8, attribution and tools phases, a JSON line of the
+   kernels and the serving path, and the final line ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase raises, exits non-zero and never prints the final line.
 Without a CUDA device, or without the repo around it, the script fails.
@@ -194,6 +224,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -3212,10 +3243,19 @@ def decode_digest(read_rgb, read_gray, root=SYNTH_RGBD):
 PNG_FILTERS = (0, 1, 2, 3, 4)      # None, Sub, Up, Average, Paeth
 
 
-def png_bytes(arr, filters=PNG_FILTERS, chunk=1 << 16):
-    """A non-interlaced PNG of ``arr`` written with the standard library's
-    ``zlib``: (H, W) uint8 or uint16 grey, (H, W, 2) grey + alpha, (H, W,
-    3) RGB or (H, W, 4) RGBA uint8. Row y takes filter
+# Adam7's passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def png_bytes(arr, filters=PNG_FILTERS, chunk=1 << 16, depth=None,
+              palette=None, interlace=False):
+    """A PNG of ``arr`` written with the standard library's ``zlib``: (H,
+    W) grey, (H, W, 2) grey + alpha, (H, W, 3) RGB or (H, W, 4) RGBA, 16-bit
+    samples for a uint16 ``arr``; ``depth`` 1, 2 or 4 packs (H, W) samples
+    below ``2 ** depth``; with ``palette`` ((N, 3) uint8) ``arr`` holds
+    palette indices. ``interlace`` writes Adam7's seven passes, each a
+    reduced image. Row y of each image or pass takes filter
     ``filters[y % len(filters)]``; the IDAT stream is split into chunks of
     ``chunk`` bytes."""
     import struct
@@ -3223,35 +3263,51 @@ def png_bytes(arr, filters=PNG_FILTERS, chunk=1 << 16):
     import numpy as np
     arr = np.asarray(arr)
     channels = 1 if arr.ndim == 2 else arr.shape[2]
-    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
-    depth = 16 if arr.dtype == np.uint16 else 8
+    ctype = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[channels]
+    depth = depth or (16 if arr.dtype == np.uint16 else 8)
     h, w = arr.shape[:2]
-    raw = (arr.astype(">u2") if depth == 16 else arr).reshape(h, -1).view(
-        np.uint8).astype(np.int32)
-    bpp = channels * depth // 8
-    rows = []
-    for y in range(h):
-        x = raw[y]
-        up = raw[y - 1] if y else np.zeros_like(x)
-        left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
-        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
-        f = filters[y % len(filters)]
-        if f == 0:
-            pred = 0
-        elif f == 1:
-            pred = left
-        elif f == 2:
-            pred = up
-        elif f == 3:
-            pred = (left + up) >> 1
+    bpp = max(1, channels * depth // 8)
+
+    def filtered(sub):
+        ph, pw = sub.shape[:2]
+        if depth < 8:
+            per = 8 // depth
+            v = np.zeros((ph, -(-pw // per) * per), np.int64)
+            v[:, :pw] = sub.reshape(ph, pw)
+            shifts = np.arange(8 - depth, -1, -depth)
+            raw = (v.reshape(ph, -1, per) << shifts).sum(-1).astype(np.int32)
         else:
-            p = left + up - ul
-            pa, pb, pc = abs(p - left), abs(p - up), abs(p - ul)
-            pred = np.where((pa <= pb) & (pa <= pc), left,
-                            np.where(pb <= pc, up, ul))
-        rows.append(bytes([f]) + ((x - pred) & 255).astype(np.uint8)
-                    .tobytes())
-    data = zlib.compress(b"".join(rows), 6)
+            raw = np.ascontiguousarray(
+                sub.astype(">u2") if depth == 16 else sub.astype(np.uint8)
+            ).reshape(ph, -1).view(np.uint8).astype(np.int32)
+        rows = []
+        for y in range(ph):
+            x = raw[y]
+            up = raw[y - 1] if y else np.zeros_like(x)
+            left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+            ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+            f = filters[y % len(filters)]
+            if f == 0:
+                pred = 0
+            elif f == 1:
+                pred = left
+            elif f == 2:
+                pred = up
+            elif f == 3:
+                pred = (left + up) >> 1
+            else:
+                p = left + up - ul
+                pa, pb, pc = abs(p - left), abs(p - up), abs(p - ul)
+                pred = np.where((pa <= pb) & (pa <= pc), left,
+                                np.where(pb <= pc, up, ul))
+            rows.append(bytes([f]) + ((x - pred) & 255).astype(np.uint8)
+                        .tobytes())
+        return b"".join(rows)
+
+    subs = ([arr[r0::rs, c0::cs] for r0, c0, rs, cs in ADAM7]
+            if interlace else [arr])
+    data = zlib.compress(b"".join(filtered(sub) for sub in subs
+                                  if sub.size), 6)
 
     def part(kind, payload):
         return (struct.pack(">I", len(payload)) + kind + payload
@@ -3259,10 +3315,12 @@ def png_bytes(arr, filters=PNG_FILTERS, chunk=1 << 16):
 
     idat = b"".join(part(b"IDAT", data[i:i + chunk])
                     for i in range(0, max(len(data), 1), chunk))
+    plte = (part(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+            if palette is not None else b"")
     return (b"\x89PNG\r\n\x1a\n"
             + part(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
-                                        0))
-            + idat + part(b"IEND", b""))
+                                        int(interlace)))
+            + plte + idat + part(b"IEND", b""))
 
 
 def synth_recipe_cfg(root=SYNTH_RGBD):
@@ -3622,7 +3680,7 @@ SMALL_TWO_STAGE_R18 = (dict(TWO_STAGE), dict(TWO_STAGE, with_box_refine=False),
                        dict(RESNET18), dict(RESNET18, dilation=False))
 
 
-def phase_two_stage_r18():
+def phase_two_stage_r18(txt_dir=None):
     """Two-stage LateFusion (box refinement, DC5, 1 level: 1,900 encoder
     tokens propose, 300 are taken) and the ResNet-18 LateFusion model, each
     at full width: B=8 608x800 bf16 served (one warm-up, 4 timed requests,
@@ -3662,7 +3720,7 @@ def phase_two_stage_r18():
     for kw in SMALL_TWO_STAGE_R18:
         phase_small_cpu_reference(model_kw=kw)
         phase_small_train_reference(model_kw=kw)
-    out["cli"] = phase_two_stage_cli()
+    out["cli"] = phase_two_stage_cli(txt_dir)
     return out
 
 
@@ -3681,7 +3739,7 @@ def yolo_lines(path):
     return rows
 
 
-def phase_two_stage_cli():
+def phase_two_stage_cli(txt_dir=None):
     """The CLI's default depth trunk with two-stage proposals on
     datasets/synth_rgbd: Synth_LateFusion.sh's arguments without
     --dformer_backbone (so the ResNet-18 trunk) and with --two_stage,
@@ -3690,7 +3748,10 @@ def phase_two_stage_cli():
     --resume on that run (one txt and one PNG per frame, every line ``Hand
     cx cy w h prob``; one frame again at --keep_prob 0, so that lines are
     surely there to check); cli.benchmark.main at 608x800 (3 warm-up, 10
-    timed iterations). Each launches 13 K1 per forward (13 K2 per step)."""
+    timed iterations). Each launches 13 K1 per forward (13 K2 per step).
+    With ``txt_dir``, the inference's txt files are copied there, the
+    --keep_prob 0 frame's in place of its own (``phase_tools`` scores
+    them)."""
     import tempfile
     from dfvod_tpu_torch.cli import benchmark as bench_cli
     from dfvod_tpu_torch.cli import inference as inf_cli
@@ -3703,7 +3764,8 @@ def phase_two_stage_cli():
     model_argv.append("--two_stage")
     coco = os.path.join(SYNTH_RGBD, "coco")
     with open(VAL_JSON) as f:
-        val_ids = sorted(im["id"] for im in json.load(f)["images"])
+        val_images = json.load(f)["images"]
+    val_ids = sorted(im["id"] for im in val_images)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "run")
@@ -3772,6 +3834,11 @@ def phase_two_stage_cli():
               f"one txt and one png per frame of {n}")
         kept = sum(len(yolo_lines(os.path.join(inf_out, f)))
                    for f in want if f.endswith(".txt"))
+        if txt_dir is not None:
+            os.makedirs(txt_dir, exist_ok=True)
+            for f in want:
+                if f.endswith(".txt"):
+                    shutil.copy(os.path.join(inf_out, f), txt_dir)
         # one frame with every query kept: 300 lines to check
         one = os.path.join(inf_out, "all")
         path = os.path.join(coco, "images", "v061_f0.jpg")
@@ -3782,6 +3849,13 @@ def phase_two_stage_cli():
         check(len(all_lines) == 300 and os.path.exists(
             os.path.join(one, "v061_f0.png")),
               f"--keep_prob 0 wrote {len(all_lines)} lines, want 300")
+        if txt_dir is not None:
+            # the frame's every query, under the name of its --keep_prob
+            # 0.5 file, so that yolo_eval matches predicted lines
+            img_id = next(im["id"] for im in val_images
+                          if im["file_name"] == "v061_f0.jpg")
+            shutil.copy(os.path.join(one, "v061_f0.txt"),
+                        os.path.join(txt_dir, f"img_{img_id}.txt"))
         res["inference"] = {
             "frames": n, "wall_ms_per_frame": 1e3 * wall / n,
             "infer_ms_per_frame": steady[len(steady) // 2],
@@ -5008,6 +5082,561 @@ def phase_segmentation():
             "cli": cli}
 
 
+# ---------------------------------- int8 serving, attribution, offline tools
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor cores
+# the JAX bench's "selective" seams (scripts/bench_int8_serving.py:169-175)
+INT8_SELECTIVE = ("ffn", "proj", "conv3x3_c128", "conv3x3_c512")
+# the int8 products of the B=8 608x800 serve: (kind, x shape, out
+# features, kernel, stride, dilation); value_proj over the encoder's
+# 8 x 1900 tokens, the decoder FFN's first linear over 8 x 300 queries,
+# layer1's 1x1 c256, layer2's first 3x3 (c128, stride 2), layer4's 3x3
+# (c512, DC5 dilation 2)
+INT8_PRODUCTS = {
+    "value_proj": ("dense", (BATCH * 1900, 256), 256, 1, 1, 1),
+    "ffn_linear1": ("dense", (BATCH * 300, 256), 1024, 1, 1, 1),
+    "conv1x1_c256": ("conv", (BATCH, 256, 152, 200), 64, 1, 1, 1),
+    "conv3x3_c128_s2": ("conv", (BATCH, 128, 152, 200), 128, 3, 2, 1),
+    "conv3x3_c512_d2": ("conv", (BATCH, 512, 38, 50), 512, 3, 1, 2),
+}
+
+
+def int8_kernels(fn, tries=3):
+    """(every CUDA kernel name ``torch.profiler`` records in one call of
+    ``fn``, the int8 GEMMs among them). The int8 GEMMs are the kernels
+    that the call's ``aten::_int_mm`` ops launched, whatever cuBLASLt
+    names them; where the profiler links no kernel to an op, those whose
+    names say int8 GEMM. The call is profiled again, up to ``tries``
+    times, while neither shows one (CUPTI can drop a session's kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        names = sorted({k.name for e in events for k in e.kernels})
+        gemm = sorted({k.name for e in events if e.name == "aten::_int_mm"
+                       for k in e.kernels})
+        if not gemm:
+            gemm = [n for n in names
+                    if any(k in n.lower() for k in ("gemm", "xmma",
+                                                    "cutlass", "imma"))
+                    and any(k in n.lower() for k in ("s8", "i8", "int8",
+                                                    "imma"))]
+        if gemm:
+            break
+    return names, gemm
+
+
+def int8_product(name, gen):
+    """(int8 call, bf16 library call, the work's bytes and int8 operations)
+    of one ``INT8_PRODUCTS`` entry on bf16 inputs drawn from ``gen``; each
+    call takes a device, moves the inputs there once, and returns a
+    function of no arguments."""
+    from dfvod_tpu_torch.ops import quant
+    kind, shape, n_out, k, stride, dil = INT8_PRODUCTS[name]
+    x = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    if kind == "dense":
+        w = (torch.randn(shape[-1], n_out, generator=gen) * 0.05).to(
+            torch.bfloat16)
+        b = (torch.randn(n_out, generator=gen) * 0.01).to(torch.bfloat16)
+
+        def run(dev):
+            xd, wd, bd = x.to(dev), w.to(dev), b.to(dev)
+            return lambda: quant.dense_int8(xd, wd, bd)
+
+        def lib(dev):
+            xd, wd, bd = x.to(dev), w.t().contiguous().to(dev), b.to(dev)
+            return lambda: torch.nn.functional.linear(xd, wd, bd)
+        rows = shape[0]
+        work = (nbytes(x, w, b) + rows * n_out * 2, 2 * rows * shape[-1]
+                * n_out)
+        return run, lib, work
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(n_out, shape[1], k, k, generator=gen) * 0.05).to(
+        torch.bfloat16)
+    pad = dil * (k - 1) // 2
+    args = ((stride, stride), ((pad, pad), (pad, pad)), (dil, dil))
+
+    def run(dev):
+        xd, wd = x.to(dev), w.to(dev)
+        return lambda: quant.conv_int8(xd, wd, *args)
+
+    def lib(dev):
+        xd, wd = x.to(dev), w.to(dev)
+        return lambda: torch.nn.functional.conv2d(
+            xd, wd, stride=stride, padding=pad, dilation=dil)
+    ho = (shape[2] + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    wo = (shape[3] + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    rows = shape[0] * ho * wo
+    work = (nbytes(x, w) + rows * n_out * 2, 2 * rows * k * k * shape[1]
+            * n_out)
+    return run, lib, work
+
+
+def phase_int8_products():
+    """Each int8 product of the serve (``INT8_PRODUCTS``), W8A8 through
+    ``ops/quant.py`` on the card and on the CPU from the same bf16 inputs:
+    within 1e-6 of max|CPU| (the int32 sums are exact); ``torch.profiler``
+    must show an int8 GEMM kernel in the card's call; ms on the card beside
+    the bf16 library call (``F.linear`` / ``F.conv2d``) and the bound at
+    the int8 tensor-core rate."""
+    gen = torch.Generator().manual_seed(17)
+    out, seen = {}, {}
+    for name in INT8_PRODUCTS:
+        run, lib, (nb, ops) = int8_product(name, gen)
+        ref = run("cpu")().float()
+        card = run("cuda")
+        err = float((card().float().cpu() - ref).abs().max())
+        tol = 1e-6 * float(ref.abs().max())
+        names, gemm = int8_kernels(card)
+        ms = cuda_ms(card, iters=10)
+        lib_ms = cuda_ms(lib("cuda"), iters=10)
+        bound_ms, bound_by = bound(nb, ops, INT8_OPS_PER_S)
+        ok = err <= tol and bool(gemm)
+        print(f"[int8] {name} {INT8_PRODUCTS[name][1]} -> "
+              f"{INT8_PRODUCTS[name][2]}: card vs cpu max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}); int8 GEMM kernels {gemm}; "
+              f"{ms:.4f} ms (quantize, im2col, int8 GEMM, dequantize) vs "
+              f"bf16 library {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"({bound_by}); {'ok' if ok else 'FAIL'} ({card_line()})",
+              flush=True)
+        if not gemm:
+            print(f"[int8] {name}: the profiled call's kernels {names}",
+                  flush=True)
+        out[name] = {"max_abs_err": err, "tol": tol, "ms": ms,
+                     "bf16_library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "gemm_kernels": gemm}
+        seen[name] = names
+        del card, ref
+        free_card()
+    for name, r in out.items():
+        check(r["max_abs_err"] <= r["tol"], f"int8 {name}: card disagrees "
+              f"with the CPU by {r['max_abs_err']} > {r['tol']}")
+        check(r["gemm_kernels"], f"int8 {name}: no int8 GEMM kernel among "
+              f"{seen[name]}")
+    return out
+
+
+def int8_layer_calls(model):
+    """Forward hooks that record (name, module, input, output) of every
+    ``Bottleneck`` and ``QLinear`` call of ``model``: (calls, remove)."""
+    from dfvod_tpu_torch.models.backbone_resnet import Bottleneck
+    from dfvod_tpu_torch.models.layers import QLinear
+    calls, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, (Bottleneck, QLinear)):
+            hooks.append(m.register_forward_hook(
+                lambda m, i, o, name=name: calls.append((name, m, i[0], o))))
+
+    def remove():
+        for h in hooks:
+            h.remove()
+    return calls, remove
+
+
+def phase_small_int8_reference():
+    """The small LateFusion model of ``phase_small_cpu_reference`` in int8
+    (f32), card against CPU, with the transformer's seams (``proj``,
+    ``ffn``) and with every seam: the boxes within 1e-2, each quantized
+    layer of the card's forward against the CPU layer on the card's own
+    input (a ``Bottleneck`` within 1e-2 relative, a ``QLinear`` within
+    1e-6 of max|CPU|), each int8 forward within 5e-2 of its f32 one."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.models.layers import QLinear
+    from dfvod_tpu_torch.ops import quant
+    cfg = small_cfg()
+    cpu_model, _, _ = build_model(cfg, device="cpu", seed=3)
+    randomize(cpu_model, seed=4)
+    gpu_model, _, _ = build_model(cfg, device="cuda", seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    cpu_model.eval()
+    gpu_model.eval()
+    cpu_mods = dict(cpu_model.named_modules())
+    x, s = frames(5, B=2)
+    x, s = x[:, :96, :128].contiguous(), torch.tensor([[96, 128], [60, 84]])
+    res = {}
+    with torch.no_grad():
+        f32 = gpu_model(*device_normalize(x.cuda(), s.cuda()))
+        for name, seams in (("transformer", ("proj", "ffn")), ("all", None)):
+            calls, remove = int8_layer_calls(gpu_model)
+            try:
+                with quant.int8_mode(seams=seams):
+                    ref = cpu_model(*device_normalize(x, s))
+                    got, launches = counted(lambda: gpu_model(
+                        *device_normalize(x.cuda(), s.cuda())))
+            finally:
+                remove()
+            check(launches == want_launches(msda_fwd=small_msda_layers(
+                "LateFusion")), f"small int8 forward launched {launches}")
+            worst = {"blocks": 0.0, "linears": 0.0}
+            n = {"blocks": 0, "linears": 0}
+            with quant.int8_mode(seams=seams):
+                for lname, m, inp, y in calls:
+                    if isinstance(m, QLinear) and not quant.enabled(m.tag):
+                        continue
+                    r = cpu_mods[lname](inp.cpu())
+                    err = float((y.cpu() - r).abs().max())
+                    scale = float(r.abs().max())
+                    kind = "linears" if isinstance(m, QLinear) else "blocks"
+                    n[kind] += 1
+                    worst[kind] = max(worst[kind], err / scale)
+                    check(err <= (1e-6 if kind == "linears" else 1e-2)
+                          * scale, f"small int8 {lname}: card vs cpu "
+                                   f"{err} of {scale}")
+            gap = float((got["pred_boxes"].cpu() - ref["pred_boxes"]).abs()
+                        .max())
+            drift = float((got["pred_boxes"] - f32["pred_boxes"]).abs()
+                          .max())
+            print(f"[small-int8] LateFusion seams={name}: {n['blocks']} "
+                  f"bottlenecks, {n['linears']} QLinear card vs cpu on the "
+                  f"same inputs: worst relative {worst['blocks']:.3e} / "
+                  f"{worst['linears']:.3e}; boxes card vs cpu "
+                  f"{gap:.3e} (gated 1e-2); int8 vs f32 {drift:.3e}",
+                  flush=True)
+            check(drift <= BOX_MAX_TOL, f"small int8 {name}: drift {drift}")
+            check(gap <= 1e-2, f"small int8 {name}: boxes card vs cpu {gap}")
+            res[name] = {"box_gap": gap, "drift": drift, "layers": n,
+                         "worst_block_rel": worst["blocks"],
+                         "worst_linear_rel": worst["linears"]}
+    free_card()
+    return res
+
+
+def phase_int8_serve(requests=5):
+    """W8A8 serving at full width: ``ModelConfig(fusion_type="LateFusion")``
+    (seeded weights, ``randomize``d), B=8 608x800 bf16 through ``Server``:
+    the bf16 serve, then under ``quant.int8_mode`` every seam, the JAX
+    bench's selective seams and every seam with ``fused_stages``; each one
+    warm-up request (the weights are quantized there once) and
+    ``requests`` timed ones, counts set to 0 just before and read just
+    after (13 K1 per request, and 3 K6 with ``fused_stages``), peak memory,
+    and the boxes against the port's f32 forward (max gated at 5e-2, the
+    JAX package's ``test_serving_forward_drift`` bound; mean printed). A
+    failing variant's drift is printed by seam family. After the context
+    a request is bitwise the bf16 serve's."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.ops import quant
+    from dfvod_tpu_torch.serve import Server
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    cfg = Config(model=ModelConfig(fusion_type="LateFusion"))
+    ref_model, _, _ = build_model(cfg, device="cpu", seed=0)
+    randomize(ref_model, seed=1)
+    ref_model = ref_model.to("cuda").eval()
+    server = Server(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    server.model.load_state_dict(ref_model.state_dict())
+    x, s = (t.to("cuda") for t in frames(0))
+    with torch.no_grad():
+        out32 = ref_model(*device_normalize(x, s))
+        bf16_before = server.forward(x, s)["pred_boxes"].clone()
+    del ref_model
+    free_card()
+
+    def serve(variant, seams=None, fused=False, int8=True):
+        server.model.backbone.fused_stages = fused
+        try:
+            with quant.int8_mode(on=int8, seams=seams):
+                server(x, s)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+
+                def run():
+                    for _ in range(requests):
+                        t0 = time.perf_counter()
+                        server(x, s)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                _, counts = counted(run)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                with torch.no_grad():
+                    out = server.forward(x, s)
+        finally:
+            server.model.backbone.fused_stages = False
+        diff = (out["pred_boxes"].float() - out32["pred_boxes"]).abs()
+        ms = 1e3 * sum(times) / len(times)
+        want = want_launches(msda_fwd=13 * requests,
+                             fused_bottleneck=3 * requests if fused else 0)
+        print(f"[int8-serve] {variant}: ms per batch of {BATCH} {ms:.3f} "
+              f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), peak "
+              f"{peak:.2f} GiB, per request msda_fwd "
+              f"{counts['msda_fwd'] / requests:g} fused_bottleneck "
+              f"{counts['fused_bottleneck'] / requests:g}; boxes vs the f32 "
+              f"forward max {float(diff.max()):.3e} mean "
+              f"{float(diff.mean()):.3e} ({card_line()})", flush=True)
+        check(counts == want, f"int8 serve {variant}: launches {counts}, "
+                              f"want {want}")
+        if float(diff.max()) > BOX_MAX_TOL:
+            for fam in ("ffn", "proj", "conv1x1*", "conv3x3*"):
+                with torch.no_grad(), quant.int8_mode(seams=(fam,)):
+                    d = (server.forward(x, s)["pred_boxes"].float()
+                         - out32["pred_boxes"]).abs()
+                print(f"[int8-serve] {variant} failed: seams ({fam},) "
+                      f"alone drift max {float(d.max()):.3e}", flush=True)
+        check(float(diff.max()) <= BOX_MAX_TOL,
+              f"int8 serve {variant}: boxes {float(diff.max())} from f32")
+        return {"ms_per_batch": ms, "frames_per_s": BATCH / (ms / 1e3),
+                "peak_memory_gib": peak, "launches": counts["msda_fwd"],
+                "fused_launches": counts["fused_bottleneck"],
+                "requests": requests, "box_max": float(diff.max()),
+                "box_mean": float(diff.mean())}
+
+    res = {"bf16": serve("bf16", int8=False),
+           "all": serve("int8 every seam"),
+           "selective": serve(f"int8 {'+'.join(INT8_SELECTIVE)}",
+                              INT8_SELECTIVE),
+           "all_fused": serve("int8 every seam, fused_stages", fused=True)}
+    with torch.no_grad():
+        after = server.forward(x, s)["pred_boxes"]
+    check(torch.equal(after, bf16_before),
+          "a request after int8_mode differs from the bf16 serve's")
+    del server
+    free_card()
+    return res
+
+
+def phase_int8():
+    """``phase_int8_products``, ``phase_small_int8_reference``,
+    ``phase_int8_serve``."""
+    return {"products": phase_int8_products(),
+            "small": phase_small_int8_reference(),
+            "serve": phase_int8_serve()}
+
+
+def hand_score(model, mask):
+    """JAX's test score: the summed class-1 sigmoid of every query."""
+    def score(z):
+        return torch.sigmoid(model(z, mask)["pred_logits"])[..., 1].sum()
+    return score
+
+
+def phase_attribution(n_steps=50):
+    """Integrated gradients (``utils/attribution.py``) at full width: the
+    LateFusion f32 model (seeded weights, eval), B=1 608x800, zero
+    baseline, ``n_steps`` steps of ``hand_score``: ms per call, peak
+    memory, |delta| beside score(x) - score(0), the launches (counts set
+    to 0 just before the call, read just after: 13 K1 per step and per
+    score call, 13 K2 per step), a finite attribution; then a small
+    model's IG (4 steps) card against CPU, within 1e-4 + 1e-3 |CPU| (TF32
+    off) and delta within 1e-4."""
+    from dfvod_tpu_torch.data.device_pipeline import device_normalize
+    from dfvod_tpu_torch.models import build_model
+    from dfvod_tpu_torch.utils.attribution import integrated_gradients
+    from dfvod_tpu_torch.utils.config import Config, ModelConfig
+    cfg = Config(model=ModelConfig(fusion_type="LateFusion"))
+    model, _, _ = build_model(cfg, device="cpu", seed=0)
+    randomize(model, seed=1)
+    model = model.to("cuda").eval()
+    gen = torch.Generator().manual_seed(21)
+    u8 = torch.randint(0, 256, (1, H, W, 4), generator=gen,
+                       dtype=torch.uint8)
+    img, mask = device_normalize(u8.cuda(), torch.tensor([[H, W]]).cuda())
+    score = hand_score(model, mask)
+    integrated_gradients(score, img, n_steps=1)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (attr, delta), launches = counted(
+        lambda: integrated_gradients(score, img, n_steps=n_steps))
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        rise = float(score(img) - score(torch.zeros_like(img)))
+    want = want_launches(msda_fwd=13 * (n_steps + 2), msda_bwd=13 * n_steps)
+    res = {"ms_per_call": ms, "ms_per_step": ms / n_steps, "n_steps": n_steps,
+           "peak_memory_gib": peak, "delta": float(delta),
+           "score_rise": rise, "attribution_sum": float(attr.sum()),
+           "launches": launches["msda_fwd"],
+           "launches_bwd": launches["msda_bwd"]}
+    print(f"[ig] LateFusion f32 B=1 {H}x{W}, {n_steps} steps: {ms:.1f} ms "
+          f"per call ({ms / n_steps:.2f} per step), peak {peak:.2f} GiB; "
+          f"score(x) - score(0) {rise:.5f}, attribution sum "
+          f"{float(attr.sum()):.5f}, |delta| {abs(float(delta)):.3e}; "
+          f"launches K1 {launches['msda_fwd']} K2 {launches['msda_bwd']} "
+          f"({card_line()})", flush=True)
+    check(launches == want, f"IG launched {launches}, want {want}")
+    check(attr.shape == img.shape and bool(torch.isfinite(attr).all())
+          and math.isfinite(float(delta)), "IG: non-finite attribution")
+    del model, attr
+    free_card()
+
+    small = small_cfg()
+    cpu_model, _, _ = build_model(small, device="cpu", seed=3)
+    randomize(cpu_model, seed=4)
+    gpu_model, _, _ = build_model(small, device="cuda", seed=3)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    u8 = u8[:, :96, :128].contiguous()
+    s = torch.tensor([[96, 128]])
+    out = []
+    for m, dev in ((cpu_model.eval(), "cpu"), (gpu_model.eval(), "cuda")):
+        x, mk = device_normalize(u8.to(dev), s.to(dev))
+        out.append(integrated_gradients(hand_score(m, mk), x, n_steps=4))
+    (ra, rd), (ga, gd) = out
+    err = (ga.cpu() - ra).abs()
+    ok = bool((err <= 1e-4 + 1e-3 * ra.abs()).all())
+    derr = abs(float(gd) - float(rd))
+    print(f"[ig] small LateFusion IG (4 steps) card vs cpu: attribution "
+          f"max_abs_err {float(err.max()):.3e} (max |cpu| "
+          f"{float(ra.abs().max()):.3e}), delta {float(gd):.3e} vs "
+          f"{float(rd):.3e} {'ok' if ok and derr <= 1e-4 else 'FAIL'}",
+          flush=True)
+    check(ok and derr <= 1e-4, "small IG: card disagrees with the CPU")
+    res["small_max_abs_err"] = float(err.max())
+    free_card()
+    return res
+
+
+def phase_tools(txt_dir):
+    """The offline tools and the PNG formats they read, on the host of the
+    card machine (no PIL there): ``calculate_mean_std`` over synth_rgbd's
+    frames and (``--grayscale``) depth maps; val.json's boxes written as
+    YOLO txt files and converted back by ``yolo_to_coco`` (within 1e-3 px);
+    ``yolo_eval`` of those files against themselves (ap50 1.0) and of
+    ``phase_two_stage_cli``'s inference txt files in ``txt_dir`` (ap50
+    printed, every ground-truth box counted, the --keep_prob 0 frame's 300
+    predicted boxes at least); an Adam7 RGB, a 1-bit grey, a
+    4-bit palette and a 16-bit RGB PNG at 608x800, each decoded equal to
+    the same image written non-interlaced at 8 bits by ``encode_png``; the
+    plot modules imported without matplotlib."""
+    import importlib
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    from dfvod_tpu_torch.data import image_io
+    from dfvod_tpu_torch.tools import calculate_mean_std, yolo_eval
+    from dfvod_tpu_torch.tools import yolo_to_coco
+    res = {}
+    coco_dir = os.path.join(SYNTH_RGBD, "coco")
+    for name, sub, gray in (("rgb", "images", False),
+                            ("depth", "depth_pred", True)):
+        t0 = time.perf_counter()
+        mean, std = calculate_mean_std.compute_mean_std(
+            os.path.join(coco_dir, sub), gray)
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = len(os.listdir(os.path.join(coco_dir, sub)))
+        print(f"[tools] calculate_mean_std {sub}"
+              f"{' --grayscale' if gray else ''} over {n} files: mean "
+              f"{mean.tolist()} std {std.tolist()}, {ms:.1f} ms", flush=True)
+        check(np.isfinite(mean).all() and ((mean > 0) & (mean < 1)).all()
+              and (std > 0).all(), f"mean/std of {sub}: {mean} {std}")
+        res[f"mean_std_{name}"] = {"mean": mean.tolist(), "std": std.tolist(),
+                                   "ms": ms, "files": n}
+
+    with open(VAL_JSON) as f:
+        val = json.load(f)
+    anns = {}
+    for a in val["annotations"]:
+        anns.setdefault(a["image_id"], []).append(a)
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, lbl_dir, gt_dir = (os.path.join(tmp, d) for d in (
+            "images", "labels", "gt"))
+        for d in (img_dir, lbl_dir, gt_dir):
+            os.makedirs(d)
+        for im in val["images"]:
+            shutil.copy(os.path.join(coco_dir, "images", im["file_name"]),
+                        img_dir)
+            w, h = im["width"], im["height"]
+            rows = [((x + bw / 2) / w, (y + bh / 2) / h, bw / w, bh / h)
+                    for x, y, bw, bh in (a["bbox"]
+                                         for a in anns.get(im["id"], []))]
+            cats = [a["category_id"] - 1 for a in anns.get(im["id"], [])]
+            stem = os.path.splitext(im["file_name"])[0]
+            with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
+                f.writelines(f"{c} {' '.join(map(repr, r))}\n"
+                             for c, r in zip(cats, rows))
+            with open(os.path.join(gt_dir, f"img_{im['id']}.txt"),
+                      "w") as f:
+                f.writelines(f"Hand {' '.join(map(repr, r))}\n"
+                             for r in rows)
+        t0 = time.perf_counter()
+        conv = yolo_to_coco.yolo_folder_to_coco(
+            img_dir, lbl_dir, [c["name"] for c in val["categories"]])
+        conv_ms = 1e3 * (time.perf_counter() - t0)
+        by_name = {im["file_name"]: im for im in val["images"]}
+        conv_anns = {}
+        for a in conv["annotations"]:
+            conv_anns.setdefault(a["image_id"], []).append(a)
+        worst = 0.0
+        check(len(conv["images"]) == len(val["images"])
+              and len(conv["annotations"]) == len(val["annotations"]),
+              f"yolo_to_coco: {len(conv['images'])} images, "
+              f"{len(conv['annotations'])} boxes")
+        for im in conv["images"]:
+            ref = by_name[im["file_name"]]
+            check((im["width"], im["height"]) == (ref["width"],
+                                                  ref["height"]),
+                  f"yolo_to_coco size of {im['file_name']}")
+            got = conv_anns.get(im["id"], [])
+            want = anns.get(ref["id"], [])
+            check(len(got) == len(want)
+                  and all(g["category_id"] == r["category_id"]
+                          for g, r in zip(got, want)),
+                  f"yolo_to_coco boxes of {im['file_name']}")
+            for g, r in zip(got, want):
+                worst = max(worst, max(abs(a - b) for a, b in
+                                       zip(g["bbox"], r["bbox"])))
+        check(worst <= 1e-3, f"yolo_to_coco boxes {worst} px from val.json")
+        self_stats = yolo_eval.evaluate_yolo_dirs(gt_dir, gt_dir)
+        inf_stats = yolo_eval.evaluate_yolo_dirs(gt_dir, txt_dir)
+        print(f"[tools] yolo_to_coco over val.json's {len(val['images'])} "
+              f"frames: {len(conv['annotations'])} boxes, worst {worst:.3e} "
+              f"px from val.json, {conv_ms:.1f} ms; yolo_eval GT vs GT ap50 "
+              f"{self_stats['ap50']}; the inference CLI's txt files "
+              f"(phase_two_stage_cli, 1-epoch checkpoint): {inf_stats}",
+              flush=True)
+        check(self_stats["ap50"] == 1.0, f"yolo_eval GT vs GT {self_stats}")
+        check(inf_stats["num_gt"] == len(val["annotations"]),
+              f"yolo_eval counted {inf_stats['num_gt']} ground-truth boxes")
+        check(inf_stats["num_pred"] >= 300, f"yolo_eval scored "
+              f"{inf_stats['num_pred']} predicted boxes, want the --keep_prob"
+              f" 0 frame's 300 at least")
+        res["yolo_to_coco"] = {"boxes": len(conv["annotations"]),
+                               "worst_px": worst, "ms": conv_ms}
+        res["yolo_eval_self"] = self_stats
+        res["yolo_eval_inference"] = inf_stats
+    shutil.rmtree(txt_dir, ignore_errors=True)
+
+    rng = np.random.default_rng(9)
+    rgb = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    bits = rng.integers(0, 2, (H, W), dtype=np.uint8)
+    idx = rng.integers(0, 16, (H, W), dtype=np.uint8)
+    pal = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    wide = rng.integers(0, 65536, (H, W, 3), dtype=np.uint16)
+    cases = {"adam7_rgb": (png_bytes(rgb, interlace=True), rgb),
+             "grey1": (png_bytes(bits, depth=1), bits * 255),
+             "palette4": (png_bytes(idx, depth=4, palette=pal), pal[idx]),
+             "rgb16": (png_bytes(wide), (wide >> 8).astype(np.uint8))}
+    image_io.read_rgb(image_io.encode_png(rgb))     # builds the library
+    png_ms = {}
+    for name, (data, eight) in cases.items():
+        t0 = time.perf_counter()
+        got = image_io.read_rgb(data)
+        png_ms[name] = 1e3 * (time.perf_counter() - t0)
+        plain = image_io.read_rgb(image_io.encode_png(eight))
+        same = bool(np.array_equal(got, plain))
+        if name == "rgb16":
+            same &= bool(np.array_equal(image_io.read_image(data), wide))
+        print(f"[tools] PNG {name} {H}x{W}: decoded equal to the 8-bit "
+              f"non-interlaced file {same}, {png_ms[name]:.2f} host ms",
+              flush=True)
+        check(same, f"PNG {name} decodes unlike its 8-bit plain copy")
+    res["png_decode_ms"] = png_ms
+
+    installed = importlib.util.find_spec("matplotlib") is not None
+    for mod in ("dfvod_tpu_torch.utils.visualization",
+                "dfvod_tpu_torch.utils.attribution"):
+        importlib.import_module(mod)
+    loaded = "matplotlib" in sys.modules
+    print(f"[tools] utils.visualization and utils.attribution imported; "
+          f"matplotlib installed {installed}, loaded {loaded}", flush=True)
+    check(not loaded, "the plot modules imported matplotlib")
+    res["matplotlib_installed"] = installed
+    return res
+
+
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
            "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck")
 
@@ -5090,9 +5719,14 @@ def main() -> int:
     data_cli = phase_data_cli()
     data_layer = phase_data_layer()
     multi = phase_multi_level()
-    two_r18 = phase_two_stage_r18()
+    txt_dir = tempfile.mkdtemp(prefix="chip_smoke_inference_")
+    two_r18 = phase_two_stage_r18(txt_dir)
     dp = phase_data_parallel()
     seg = phase_segmentation()
+    int8 = phase_int8()
+    ig = phase_attribution()
+    tools = phase_tools(txt_dir)
+    int8_serve = int8["serve"]
     cp_launches = {name: [p["launches"] for p in v["ranks"]]
                    for name, v in dp["clip_parallel"].items()}
     dp_launches = {name: [p[name]["launches"] for p in dp["ranks"]]
@@ -5150,6 +5784,10 @@ def main() -> int:
             x["msda_fwd"] for x in v] for n, v in cp_launches.items()},
         "seg_serve_launches": seg["serve"]["launches"]["msda_fwd"],
         "seg_train_launches": seg["train"]["launches_fwd"],
+        **{f"int8_{v}_serve_launches": int8_serve[v]["launches"]
+           for v in ("all", "selective", "all_fused")},
+        "int8_serve_requests": int8_serve["all"]["requests"],
+        "ig_launches": ig["launches"], "ig_steps": ig["n_steps"],
     }
     enc = kern_bwd["enc"]
     record_bwd = {
@@ -5187,6 +5825,7 @@ def main() -> int:
         **{f"clip_parallel_{n}_launches_per_rank": [
             x["msda_bwd"] for x in v] for n, v in cp_launches.items()},
         "seg_train_launches": seg["train"]["launches_bwd"],
+        "ig_launches": ig["launches_bwd"], "ig_steps": ig["n_steps"],
     }
     record_hat = {
         "name": "hat_sample_fwd", "route": "cuda",
@@ -5308,6 +5947,9 @@ def main() -> int:
         "replaces": "dfvod_tpu/ops/fused_bottleneck.py:114",
         "launches": variant_launches("unset", "fused_bottleneck"),
         "paths": variants["unset"]["paths"]["fused_bottleneck"],
+        "int8_all_fused_serve_launches": int8_serve["all_fused"][
+            "fused_launches"],
+        "int8_serve_requests": int8_serve["all_fused"]["requests"],
         "paths_kernel_phase": kern_fused["paths"],
         **{k: kern_fused[k] for k in ("max_abs_err", "relative_l2",
                                       "relative_l2_f64",
@@ -5360,7 +6002,11 @@ def main() -> int:
               dp["world1"], *(p[n] for p in dp["ranks"]
                               for n in ("train", "video")),
               *(p for v in dp["clip_parallel"].values() for p in v["ranks"]),
-              seg["serve"], seg["train"], *seg["cli"].values()):
+              seg["serve"], seg["train"], *seg["cli"].values(),
+              *int8["products"].values(), *int8["small"].values(),
+              *int8_serve.values(), ig, tools["yolo_to_coco"],
+              tools["png_decode_ms"], tools["mean_std_rgb"],
+              tools["mean_std_depth"]):
         for k, v in r.items():
             check(not isinstance(v, float) or math.isfinite(v),
                   f"non-finite {k}")
@@ -5386,6 +6032,9 @@ def main() -> int:
     print(json.dumps({"two_stage_r18": two_r18}))
     print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"segmentation": seg}))
+    print(json.dumps({"int8": int8}))
+    print(json.dumps({"attribution": ig}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": [record, record_bwd, record_hat,
                                   record_hat_bwd, *new_records],
                       "serve": {k: serve[k] for k in ("ms_per_batch",

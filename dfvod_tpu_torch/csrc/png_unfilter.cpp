@@ -4,9 +4,10 @@
 // The reader inflates the IDAT stream with Python's zlib and passes the
 // result here: h rows, each a filter-type byte and `row_bytes` filtered
 // bytes (PNG 1.2 section 6 and 9: None, Sub, Up, Average, Paeth; `bpp` is
-// the bytes of one pixel, at least 1). The rows are rebuilt in place of
-// the output, `h * row_bytes` bytes of raw samples. Non-interlaced images
-// only: the reader refuses Adam7 before it gets here.
+// the bytes of one pixel, at least 1, as for 1/2/4-bit samples). The rows
+// are rebuilt in place of the output, `h * row_bytes` bytes of raw
+// samples. An Adam7-interlaced image comes here one pass at a time, each
+// pass a reduced image of its own rows.
 
 #include <cstdint>
 #include <cstdlib>

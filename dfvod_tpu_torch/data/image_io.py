@@ -10,21 +10,27 @@ routines, so it gives their bits. Neither PIL nor cv2 is used here (the
 card machine has neither). The library is built at first use
 (``ops/build.py::load_host``); a failed build raises.
 
-Each reader takes a path or the file's ``bytes``. Unsupported files
-(JPEG: progressive, arithmetic-coded, 12-bit, lossless, CMYK; PNG:
-Adam7-interlaced, 1/2/4-bit samples, 16-bit colour) and truncated or
-corrupt ones raise ``ValueError`` naming what they are.
+Each reader takes a path or the file's ``bytes``. Unsupported JPEGs
+(progressive, arithmetic-coded, 12-bit, lossless, CMYK) and truncated or
+corrupt files raise ``ValueError`` naming what they are.
 
-PNG (non-interlaced; colour types 0, 2, 3, 4, 6 at 8 bits, type 0 at 16
-bits): ``read_image`` gives the samples as ``cv2.imread(IMREAD_UNCHANGED)``
-does, in RGB(A) order: a 16-bit grey map stays uint16, grey + alpha becomes
-grey, grey, grey, alpha, and a palette is expanded (to RGBA when it has a
-``tRNS`` chunk). ``read_rgb`` follows PIL's ``convert("RGB")``: grey is
-repeated, alpha dropped, a palette expanded, 16-bit grey clipped to 255.
-The IDAT stream is inflated with the standard library's ``zlib``.
+PNG: every colour type at every bit depth the format allows (grey at 1, 2,
+4, 8 and 16 bits, palette at 1, 2, 4 and 8, RGB, grey + alpha and RGBA at
+8 and 16), non-interlaced or Adam7-interlaced (each of the seven passes
+unfiltered on its own, then scattered into the image). ``read_image``
+gives the samples as ``cv2.imread(IMREAD_UNCHANGED)`` does, in RGB(A)
+order: 1/2/4-bit grey scaled to 8 bits (x255, x85, x17), 16-bit samples
+kept as uint16, grey + alpha as grey, grey, grey, alpha, and a palette
+expanded (to RGBA when it has a ``tRNS`` chunk). ``read_rgb`` follows
+PIL's ``convert("RGB")``: grey is repeated, alpha dropped, a palette
+expanded, 16-bit grey clipped to 255, and other 16-bit samples cut to
+their high byte. The IDAT stream is inflated with the standard library's
+``zlib``. ``image_size`` reads a JPEG's or PNG's size from its header
+alone, as ``PIL.Image.open(...).size`` does.
 
 ``encode_png`` writes an 8-bit grey, RGB or RGBA array as a PNG (every row
-unfiltered, deflated by ``zlib``): the inference CLI's overlays.
+unfiltered, deflated by ``zlib``): the inference CLI's overlays and the
+depth maps of ``tools/rgb2d.py``.
 """
 from __future__ import annotations
 
@@ -78,9 +84,13 @@ def _png_lib() -> ctypes.CDLL:
     return lib
 
 
-# PNG colour type -> (name, samples per pixel)
-_PNG_TYPES = {0: ("grey", 1), 2: ("RGB", 3), 3: ("palette", 1),
-              4: ("grey + alpha", 2), 6: ("RGBA", 4)}
+# PNG colour type -> (name, samples per pixel, the bit depths allowed)
+_PNG_TYPES = {0: ("grey", 1, (1, 2, 4, 8, 16)), 2: ("RGB", 3, (8, 16)),
+              3: ("palette", 1, (1, 2, 4, 8)),
+              4: ("grey + alpha", 2, (8, 16)), 6: ("RGBA", 4, (8, 16))}
+# Adam7's passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _png_chunks(data: bytes, name: str):
@@ -104,24 +114,56 @@ def _png_chunks(data: bytes, name: str):
         pos = end + 4
 
 
+def _png_passes(h: int, w: int, interlace: int):
+    """(first row, first column, row step, column step, rows, columns) of
+    each non-empty pass: the whole image, or Adam7's seven."""
+    passes = ((0, 0, 1, 1),) if not interlace else _ADAM7
+    out = []
+    for r0, c0, rs, cs in passes:
+        ph, pw = -(-(h - r0) // rs), -(-(w - c0) // cs)
+        if ph > 0 and pw > 0:
+            out.append((r0, c0, rs, cs, ph, pw))
+    return out
+
+
+def _png_unfilter(raw: bytes, ph: int, pw: int, channels: int, depth: int,
+                  name: str, first_row: int):
+    """One pass's filtered rows -> (ph, pw, channels) samples, uint8 (1/2/4
+    bits unpacked, most significant first; not yet scaled) or uint16.
+    ``first_row``: the rows of the passes before it, for messages."""
+    row = (pw * channels * depth + 7) // 8
+    out = np.empty((ph, row), np.uint8)
+    code = _png_lib().png_unfilter(
+        raw, len(raw), ph, row, max(1, channels * depth // 8),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if code:
+        raise ValueError(f"{name}: PNG row {first_row + code - 2} has an "
+                         "unknown filter type")
+    if depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+            ph, -1)[:, :pw]
+    elif depth == 16:
+        out = out.view(">u2").astype(np.uint16)
+    return out.reshape(ph, pw, channels)
+
+
 def _read_png(data: bytes, name: str):
-    """(samples (H, W, C) uint8 or uint16, colour type, palette (N, 3) or
-    None, palette alpha (N,) or None)."""
+    """(samples (H, W, C) uint8 or uint16, colour type, bit depth, palette
+    (N, 3) or None, palette alpha (N,) or None)."""
     chunks = list(_png_chunks(data, name))
     if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
         raise ValueError(f"{name}: PNG without an IHDR chunk")
     w, h, depth, ctype, comp, filt, interlace = struct.unpack(
         ">IIBBBBB", chunks[0][1])
-    if ctype not in _PNG_TYPES or comp or filt:
+    if ctype not in _PNG_TYPES or comp or filt or interlace > 1:
         raise ValueError(f"{name}: PNG with colour type {ctype}, "
-                         f"compression {comp}, filter method {filt}")
-    kind, channels = _PNG_TYPES[ctype]
-    if interlace:
-        raise ValueError(f"{name}: Adam7-interlaced PNG ({kind}, {depth}-bit)"
-                         " is not decoded; only non-interlaced PNG is")
-    if depth != 8 and not (depth == 16 and ctype == 0):
-        raise ValueError(f"{name}: {depth}-bit {kind} PNG is not decoded; "
-                         "8-bit samples are, and 16-bit grey")
+                         f"compression {comp}, filter method {filt}, "
+                         f"interlace method {interlace}")
+    kind, channels, depths = _PNG_TYPES[ctype]
+    if depth not in depths:
+        raise ValueError(f"{name}: {depth}-bit {kind} PNG (the format "
+                         f"allows {', '.join(map(str, depths))} bits)")
     if not (0 < h < 1 << 16 and 0 < w < 1 << 16):
         raise ValueError(f"{name}: PNG of {w}x{h} pixels")
     palette = alpha = None
@@ -139,21 +181,21 @@ def _read_png(data: bytes, name: str):
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{name}: corrupt PNG image data ({e})") from None
-    nbytes = depth // 8
-    row = w * channels * nbytes
-    out = np.empty((h, row), np.uint8)
-    code = _png_lib().png_unfilter(
-        raw, len(raw), h, row, channels * nbytes,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
-    if code == 1:
+    passes = _png_passes(h, w, interlace)
+    sizes = [ph * (1 + (pw * channels * depth + 7) // 8)
+             for *_, ph, pw in passes]
+    if len(raw) != sum(sizes):
         raise ValueError(f"{name}: PNG image data of {len(raw)} bytes, not "
-                         f"{h * (row + 1)}")
-    if code:
-        raise ValueError(f"{name}: PNG row {code - 2} has an unknown filter "
-                         "type")
-    if nbytes == 2:
-        out = out.view(">u2").astype(np.uint16)
-    return out.reshape(h, w, channels), ctype, palette, alpha
+                         f"{sum(sizes)}")
+    out = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = rows = 0
+    for (r0, c0, rs, cs, ph, pw), n in zip(passes, sizes):
+        out[r0::rs, c0::cs] = _png_unfilter(raw[pos:pos + n], ph, pw,
+                                            channels, depth, name, rows)
+        pos, rows = pos + n, rows + ph
+    if ctype == 0 and depth < 8:
+        out *= 255 // ((1 << depth) - 1)
+    return out, ctype, depth, palette, alpha
 
 
 def _png_palette(samples, palette, alpha, name, with_alpha):
@@ -169,7 +211,7 @@ def _png_palette(samples, palette, alpha, name, with_alpha):
 
 
 def _png_image(data: bytes, name: str) -> np.ndarray:
-    samples, ctype, palette, alpha = _read_png(data, name)
+    samples, ctype, _, palette, alpha = _read_png(data, name)
     if ctype == 0:
         return samples[..., 0]
     if ctype == 3:
@@ -180,14 +222,16 @@ def _png_image(data: bytes, name: str) -> np.ndarray:
 
 
 def _png_rgb(data: bytes, name: str) -> np.ndarray:
-    samples, ctype, palette, alpha = _read_png(data, name)
+    samples, ctype, depth, palette, alpha = _read_png(data, name)
     if ctype == 3:
         return _png_palette(samples, palette, alpha, name, False)
+    if depth == 16:
+        # PIL opens 16-bit grey as "I;16", whose RGB clips, and the other
+        # 16-bit types through their "...;16B" raw modes, the high bytes
+        samples = (np.minimum(samples, 255) if ctype == 0
+                   else samples >> 8).astype(np.uint8)
     if ctype in (0, 4):
-        grey = samples[..., 0]
-        if grey.dtype == np.uint16:
-            grey = np.minimum(grey, 255).astype(np.uint8)
-        return np.repeat(grey[..., None], 3, -1)
+        return np.repeat(samples[..., :1], 3, -1)
     return np.ascontiguousarray(samples[..., :3])
 
 
@@ -233,6 +277,50 @@ def read_rgb(src: Source) -> np.ndarray:
         return _png_rgb(data, name)
     h, w, _ = _header(data, name)
     return _decode(data, name, h, w, 3)
+
+
+def read_luma(src: Source) -> np.ndarray:
+    """(H, W) uint8, as ``PIL.Image.open(src).convert("L")``: ITU-R 601-2
+    luma of ``read_rgb`` in PIL's fixed point, ``(R * 19595 + G * 38470 +
+    B * 7471 + 0x8000) >> 16`` (a grey file's own samples, since the
+    weights sum to 65536)."""
+    rgb = read_rgb(src).astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+def image_size(src: Source):
+    """(height, width) of a JPEG or PNG from its header alone (the PNG's
+    IHDR, the JPEG's first frame header of any kind), as ``PIL.Image.open(
+    src).size`` gives them (reversed), without decoding the image."""
+    data, name = _read(src)
+    if data.startswith(_PNG_SIGNATURE):
+        if len(data) < 24 or data[12:16] != b"IHDR":
+            raise ValueError(f"{name}: PNG without an IHDR chunk")
+        w, h = struct.unpack(">II", data[16:24])
+        return h, w
+    if not data.startswith(b"\xff\xd8"):
+        raise ValueError(f"{name}: not a JPEG or PNG file")
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"{name}: corrupt JPEG (no marker at byte "
+                             f"{pos})")
+        marker = data[pos + 1]
+        if marker == 0xFF:                       # fill byte
+            pos += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD8:
+            pos += 2                             # markers without a length
+            continue
+        # SOF0-SOF15 but DHT (C4), JPG (C8) and DAC (CC)
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            if pos + 9 > len(data):
+                break
+            h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
+            return h, w
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    raise ValueError(f"{name}: truncated JPEG (no frame header)")
 
 
 def read_gray(src: Source) -> np.ndarray:

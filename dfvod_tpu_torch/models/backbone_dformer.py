@@ -5,9 +5,11 @@ stem = Conv3x3 s2 -> BN -> exact GELU -> Conv3x3 s2 -> BN (dims[0] = 32),
 then per stage BN -> Conv3x3 s2; output stride 16, 128 channels. The BNs
 are trainable: in ``train()`` mode they normalize with the batch's
 statistics and update their running statistics as flax does, in
-``eval()`` mode they use the running statistics (eps 1e-5). The
-space-to-depth stem (``Conv3x3S2D``, off by default in the JAX package)
-waits for a later slice.
+``eval()`` mode they use the running statistics (eps 1e-5). The JAX
+package's space-to-depth stem (``Conv3x3S2D``, off by default and reached
+by no configuration) is an exact reparameterization of the 3x3/s2 conv
+that keeps its parameter; the port runs that conv as it is (a host-packed
+s2d frame is unpacked on the device first).
 """
 from __future__ import annotations
 

@@ -15,6 +15,13 @@ keeps the ``(7, 7, 3, 64)`` parameter; the port runs that conv as it is.
 layer1 in bf16 eval through the fused bottleneck stage
 (``ops/fused_bottleneck.py``, K6 on the card), with FrozenBN folded into
 the weights (``Bottleneck.folded_weights``).
+
+Under ``ops/quant.int8_mode`` each ``Bottleneck`` runs the JAX package's
+W8A8 path (``Bottleneck._int8_call``): FrozenBN folded into each conv's
+weights, the bias added after dequantization, one seam tag
+``conv{K}x{K}_c{Cin}`` per conv; a conv the seam allowlist leaves out
+runs ``bn(conv(x))``. With ``fused_stages``, layer1 stays on the fused
+stage, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dfvod_tpu_torch.ops import quant
 from dfvod_tpu_torch.ops.fused_bottleneck import fused_bottleneck_stage
+from dfvod_tpu_torch.utils.weight_cache import WeightCache
 
 
 class FrozenBatchNorm(nn.Module):
@@ -75,14 +84,49 @@ class Bottleneck(nn.Module):
         if downsample:
             self.downsample_conv = conv(in_features, p * 4, 1, stride)
             self.downsample_bn = FrozenBatchNorm(p * 4)
+        self._quantized = {}
 
     def forward(self, x):
+        if quant.enabled():
+            return self._int8_forward(x)
         identity = x
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         if self.downsample:
             identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
+
+    def _int8_conv(self, x, conv_name, bn_name):
+        """``bn(conv(x))`` in W8A8 when the conv's seam tag is allowed:
+        ``weight.float() * scale`` quantized per output channel (kept
+        until a weight or FrozenBN constant changes), the folded bias
+        added after dequantization in the output's dtype."""
+        cv, bn = getattr(self, conv_name), getattr(self, bn_name)
+        k = cv.kernel_size[0]
+        if not quant.enabled(f"conv{k}x{k}_c{x.shape[1]}"):
+            return bn(cv(x))
+        quant.refuse_autograd(cv.weight)
+
+        def make():
+            s, b = bn.fold()
+            return (*quant.quantize_conv_weight(
+                cv.weight.float() * s[:, None, None, None]), b)
+        cache = self._quantized.setdefault(conv_name, WeightCache())
+        wq, sw, b = cache.get((cv.weight, bn.weight, bn.bias,
+                               bn.running_mean, bn.running_var), make)
+        p = cv.padding[0]
+        y = quant.conv_q(x, wq, sw, cv.stride, ((p, p), (p, p)), cv.dilation)
+        return y + b.to(y.dtype)[None, :, None, None]
+
+    def _int8_forward(self, x):
+        """``dfvod_tpu/models/backbone_resnet.py::Bottleneck._int8_call``."""
+        identity = x
+        out = F.relu(self._int8_conv(x, "conv1", "bn1"))
+        out = F.relu(self._int8_conv(out, "conv2", "bn2"))
+        out = self._int8_conv(out, "conv3", "bn3")
+        if self.downsample:
+            identity = self._int8_conv(x, "downsample_conv", "downsample_bn")
         return F.relu(out + identity)
 
     def folded_weights(self, dtype):
@@ -119,7 +163,7 @@ class ResNetStage(nn.Module):
                  dilate: bool = False, allow_fused: bool = True):
         super().__init__()
         self.stride, self.dilate, self.allow_fused = stride, dilate, allow_fused
-        self._fold_key = self._fold = self._fold_src = None
+        self._fold = WeightCache()
         # torchvision wiring: layer1 reads the 64-ch stem, layerN the
         # previous stage's planes * 2
         in_features = 64 if planes == 64 else planes * 2
@@ -152,20 +196,14 @@ class ResNetStage(nn.Module):
     def folded_weights(self, dtype):
         """Every block's ``folded_weights(dtype)``. Where autograd records
         nothing (serving), the fold is kept and reused until a weight or
-        FrozenBN constant of the stage changes: replaced (``.to()``), or
-        written in place (``load_state_dict`` copies in place). The tensors
-        it was folded from are held, so their memory cannot be reused by
-        another tensor at the same address. A write through ``.data`` goes
-        unseen, as it does for autograd."""
+        FrozenBN constant of the stage changes, or ``dtype`` does
+        (``WeightCache``)."""
         blocks = [getattr(self, f"block_{i}") for i in range(self.blocks)]
         if torch.is_grad_enabled():
             return [b.folded_weights(dtype) for b in blocks]
-        src = [*self.parameters(), *self.buffers()]
-        key = (dtype, [(t.data_ptr(), t._version) for t in src])
-        if key != self._fold_key:
-            self._fold = [b.folded_weights(dtype) for b in blocks]
-            self._fold_key, self._fold_src = key, [t.detach() for t in src]
-        return self._fold
+        return self._fold.get([*self.parameters(), *self.buffers()],
+                              lambda: [b.folded_weights(dtype)
+                                       for b in blocks], dtype)
 
 
 def max_pool_torch(x, window: int, stride: int, pad: int):

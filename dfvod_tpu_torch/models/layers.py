@@ -7,8 +7,10 @@ mechanically (``utils/convert.py``). Tokens are ``(B, S, C)``.
 
 Dropout sits where the JAX package has it and is active only in
 ``train()`` mode, drawing from a ``torch.Generator`` that the trainer owns
-(``set_dropout_generator``). The int8 path of ``QDense`` waits for a later
-slice (here a plain ``nn.Linear``). Linear layers whose initial value is
+(``set_dropout_generator``). ``QLinear`` is the JAX package's ``QDense``:
+an ``nn.Linear`` that runs W8A8 under ``ops/quant.int8_mode`` (the
+MSDeformAttn projections, tag ``"proj"``, and the FFN linears, tag
+``"ffn"``, as in the JAX package). Linear layers whose initial value is
 part of the model's definition (zero kernels, the ring bias of
 ``sampling_offsets``) are marked ``keep_init`` so that
 ``models.init_parameters`` leaves them alone.
@@ -24,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dfvod_tpu_torch.ops import ms_deform_attn
+from dfvod_tpu_torch.ops import ms_deform_attn, quant
+from dfvod_tpu_torch.utils.weight_cache import WeightCache
 
 
 def gelu(x):
@@ -106,6 +109,30 @@ def remat_call(module: nn.Module, *args):
                       preserve_rng_state=False)
 
 
+class QLinear(nn.Linear):
+    """``nn.Linear`` (the same parameters and state-dict keys) that runs
+    ``quant.linear_q`` when ``quant.enabled(tag)`` holds at call time, with
+    its weight quantized once per change (``WeightCache``); with
+    the mode off, ``nn.Linear``'s forward."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 tag: str = "dense"):
+        super().__init__(in_features, out_features)
+        self.tag = tag
+        self._quantized = WeightCache()
+
+    def forward(self, x):
+        if not quant.enabled(self.tag):
+            return super().forward(x)
+        quant.refuse_autograd(self.weight)
+
+        def make():
+            wq, sw = quant.quantize_weight(self.weight, reduce_axes=(1,))
+            return wq, sw[:, 0]
+        wq, sw = self._quantized.get((self.weight,), make)
+        return quant.linear_q(x, wq, sw, self.bias)
+
+
 def fixed_linear(in_features: int, out_features: int,
                  bias: Optional[np.ndarray] = None) -> nn.Linear:
     """Linear with a zero kernel and a given (default zero) bias, kept by
@@ -146,11 +173,11 @@ class MSDeformAttn(nn.Module):
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         M, L, P = n_heads, n_levels, n_points
-        self.value_proj = nn.Linear(d_model, d_model)
+        self.value_proj = QLinear(d_model, d_model, tag="proj")
         self.sampling_offsets = fixed_linear(
             d_model, M * L * P * 2, sampling_offset_bias(M, L, P))
         self.attention_weights = fixed_linear(d_model, M * L * P)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.output_proj = QLinear(d_model, d_model, tag="proj")
 
     def forward(self, query, reference_points, input_flatten,
                 spatial_shapes: Sequence[Tuple[int, int]],
@@ -254,8 +281,8 @@ class FFN(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, activation: str = "relu",
                  dropout: float = 0.1):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.linear1 = QLinear(d_model, d_ffn, tag="ffn")
+        self.linear2 = QLinear(d_ffn, d_model, tag="ffn")
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
         self.act = ACTIVATIONS[activation]
         self.dropout1 = Dropout(dropout)

@@ -16,7 +16,6 @@ import json
 import os
 import shutil
 import sys
-import zlib
 
 import cv2
 import numpy as np
@@ -514,10 +513,11 @@ def test_loader_digest_is_chip_smokes_constant_and_close_to_jax():
 
 
 def test_data_layer_refusals_name_their_slice(tmp_path):
-    """What the data layer still refuses: an Adam7-interlaced PNG frame.
-    A loader sharded over processes, the two-stage model the CLI would
-    build and the segmentation targets were refused until their slices,
-    and are now supported: each rank of 2 loads its contiguous shard of
+    """What the data layer once refused, each supported now: an
+    Adam7-interlaced PNG depth map loads as the JAX package's (cv2) and as
+    the same map written non-interlaced; a loader sharded over processes,
+    the two-stage model the CLI would build and the segmentation targets
+    were refused until their slices: each rank of 2 loads its contiguous shard of
     val.json's 60 frames (30, 4 batches of 8, the last padded from the
     shard), as the JAX Loader with the same rank does; a rank outside the
     world is refused."""
@@ -533,12 +533,15 @@ def test_data_layer_refusals_name_their_slice(tmp_path):
     ds = dataset.CocoDetectionDataset(IMG_DIR, VAL_JSON)
     with pytest.raises(ValueError, match="rank 2 outside a world of 2"):
         Loader(ds, tf.EvalTransform(), batch_size=2, rank=2, world=2)
-    png = bytearray(chip_smoke.png_bytes(image_io.read_gray(DEPTHS[0])))
-    png[28] = 1                        # IHDR's interlace method: Adam7
-    png[29:33] = zlib.crc32(bytes(png[12:29])).to_bytes(4, "big")
-    (tmp_path / "adam7.png").write_bytes(bytes(png))
-    with pytest.raises(ValueError, match="Adam7-interlaced PNG"):
-        dataset.load_depth(str(tmp_path / "adam7.png"))
+    depth = image_io.read_gray(DEPTHS[0])
+    (tmp_path / "adam7.png").write_bytes(chip_smoke.png_bytes(
+        depth, interlace=True))
+    (tmp_path / "plain.png").write_bytes(chip_smoke.png_bytes(depth))
+    got = dataset.load_depth(str(tmp_path / "adam7.png"))
+    np.testing.assert_array_equal(
+        got, j_dataset.load_depth(str(tmp_path / "adam7.png")))
+    np.testing.assert_array_equal(
+        got, dataset.load_depth(str(tmp_path / "plain.png")))
     check_supported(dataclasses.replace(
         chip_smoke.synth_recipe_cfg().model, two_stage=True))
     # the segmentation targets were refused until their slice; now the

@@ -301,6 +301,30 @@ def test_stage_fold_is_reused_until_a_weight_changes(monkeypatch):
     assert len(calls) == 18
 
 
+def test_stage_fold_keeps_one_slot_across_dtypes(monkeypatch):
+    """The stage keeps one fold: asked in another dtype it folds again in
+    that dtype, and asked back in the first it folds again, each equal to
+    a fresh fold."""
+    calls = []
+    real = br.Bottleneck.folded_weights
+
+    def counting(self, dtype):
+        calls.append(dtype)
+        return real(self, dtype)
+
+    monkeypatch.setattr(br.Bottleneck, "folded_weights", counting)
+    _, _, stage = stage_pair()
+    bf = torch.bfloat16
+    with torch.no_grad():
+        for dtype, n in ((bf, 3), (bf, 3), (torch.float32, 6), (bf, 9)):
+            got = stage.folded_weights(dtype)
+            assert len(calls) == n and got[0][0].dtype == dtype
+            for blk, i in zip(got, range(3)):
+                want = real(getattr(stage, f"block_{i}"), dtype)
+                assert all((a is None and b is None) or torch.equal(a, b)
+                           for a, b in zip(blk, want))
+
+
 def test_kernel_wrapper_refuses_what_k6_does_not_take():
     """Checks that run before any launch: a non-contiguous NHWC view (K6
     reads no strides), an f32 input, channels not in multiples of 16, a

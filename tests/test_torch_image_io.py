@@ -9,8 +9,8 @@ frames with (``dfvod_tpu/data/dataset.py:27-44``, ``:162-174``):
 - files that Pillow encodes: 4:4:4, 4:2:2, 4:2:0 and grayscale at 1x1,
   9x17 and 37x53, quality 5 and 100, optimized tables, restart markers,
   each bitwise equal to PIL and cv2;
-- refusals: progressive, CMYK, truncated, an Adam7-interlaced PNG, not a
-  JPEG, a colour file read as gray (``tests/test_torch_png.py`` holds the
+- refusals: progressive, CMYK, truncated, a PNG whose IHDR says Adam7
+  over non-interlaced data, not a JPEG, a colour file read as gray (``tests/test_torch_png.py`` holds the
   PNGs that are read);
 - ``load_depth`` bitwise equal to the JAX package's;
 - no module of the port imports PIL or cv2.
@@ -145,8 +145,8 @@ def refused(name):
     if name == "cmyk":
         return encode(Image.fromarray(arr).convert("CMYK"))
     if name == "png":
-        # Pillow writes no interlaced PNG: set IHDR's interlace byte and
-        # its CRC
+        # a PNG whose IHDR says Adam7 over a non-interlaced stream (IHDR's
+        # interlace byte and its CRC set): its passes do not fit the data
         buf = io.BytesIO()
         Image.fromarray(arr).save(buf, format="PNG")
         data = bytearray(buf.getvalue())

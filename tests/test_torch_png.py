@@ -4,17 +4,20 @@ frames with (``PIL.Image.open(f).convert("RGB")`` for RGB,
 ``cv2.imread(f, IMREAD_UNCHANGED)`` for depth,
 ``dfvod_tpu/data/dataset.py:27-44``):
 
-- seeded files that PIL and cv2 write (every colour type the reader takes:
-  grey, RGB, palette with and without ``tRNS``, grey + alpha, RGBA, 16-bit
-  grey) at 1x1, 9x17 and 37x53: ``read_rgb`` bitwise PIL's, ``read_image``
-  bitwise cv2's (in RGB order);
+- seeded files that PIL and cv2 write (grey, RGB, palette with and without
+  ``tRNS``, grey + alpha, RGBA, 16-bit grey) at 1x1, 9x17 and 37x53:
+  ``read_rgb`` bitwise PIL's, ``read_image`` bitwise cv2's (in RGB order);
 - files written by ``chip_smoke.png_bytes`` with each of the five row
   filters alone and all five in turn, the IDAT stream split over chunks:
   bitwise the array encoded, PIL and cv2;
+- the kinds Pillow does not write, by ``chip_smoke.png_bytes``: 1/2/4-bit
+  grey and palette samples and 16-bit RGB, RGBA and grey + alpha, each
+  non-interlaced and Adam7-interlaced, at 1x1, 9x17 and 37x53: bitwise
+  PIL, cv2 and (``read_luma``) PIL's ``convert("L")``;
 - 16-bit depth maps through ``load_depth`` bitwise the JAX package's;
-- refusals, each a ``ValueError`` naming the file's kind: Adam7, 1-bit
-  grey and 16-bit colour samples, a bad CRC, a truncated file, a bad
-  filter byte.
+- the cases once refused (Adam7, 1-bit grey, 16-bit RGB) read like PIL and
+  cv2, and the refusals, each a ``ValueError`` naming what is wrong: a
+  bad CRC, a truncated file, a bad filter byte.
 """
 import io
 import os
@@ -123,6 +126,44 @@ def test_every_row_filter_decodes_the_encoded_array(filters):
         assert_reads_like_pil_and_cv2(data, f"{filters} {shape}")
 
 
+# (kind, depth, channels or None for palette indices)
+WRITTEN = {"grey1": (1, 1), "grey2": (2, 1), "grey4": (4, 1),
+           "palette1": (1, None), "palette2": (2, None),
+           "palette4": (4, None), "rgb16": (16, 3), "rgba16": (16, 4),
+           "grey_alpha16": (16, 2)}
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("kind", list(WRITTEN))
+def test_low_bit_and_sixteen_bit_png_read_like_pil_and_cv2(kind, interlace):
+    depth, channels = WRITTEN[kind]
+    for h, w in SIZES:
+        rng = np.random.default_rng(h * w + depth)
+        if depth == 16:
+            arr = rng.integers(0, 65536, (h, w, channels), dtype=np.uint16)
+            data = chip_smoke.png_bytes(arr, interlace=interlace)
+        else:
+            arr = rng.integers(0, 1 << depth, (h, w), dtype=np.uint8)
+            palette = (None if channels else rng.integers(
+                0, 256, (1 << depth, 3), dtype=np.uint8))
+            data = chip_smoke.png_bytes(arr, depth=depth, palette=palette,
+                                        interlace=interlace)
+        msg = f"{kind} {h}x{w} interlace={interlace}"
+        assert_reads_like_pil_and_cv2(data, msg)
+        np.testing.assert_array_equal(
+            image_io.read_luma(data),
+            np.asarray(Image.open(io.BytesIO(data)).convert("L")),
+            err_msg=msg)
+        got = image_io.read_image(data)
+        if depth == 16:
+            want = arr[..., [0, 0, 0, 1]] if channels == 2 else arr
+        elif channels:
+            want = arr * (255 // ((1 << depth) - 1))
+        else:
+            want = palette[arr]
+        np.testing.assert_array_equal(got, want, err_msg=msg)
+
+
 def test_sixteen_bit_depth_load_depth_equals_jax(tmp_path):
     """Depth maps as the reference stores them, 16-bit grey PNG: the
     min-max to uint8 bitwise the JAX package's (cv2) on seeded maps, a
@@ -161,11 +202,12 @@ def refused(name):
                                             dtype=np.uint8)
     good = chip_smoke.png_bytes(arr)
     if name == "adam7":
-        return patched_ihdr(good, interlace=1)
+        # Pillow writes no interlaced PNG
+        return chip_smoke.png_bytes(arr, interlace=True)
     if name == "grey1":
         return pil_png(Image.fromarray(arr[..., 0]).convert("1"))
     if name == "rgb16":
-        return patched_ihdr(good, depth=16)
+        return chip_smoke.png_bytes(arr.astype(np.uint16) * 257 + 3)
     if name == "crc":
         return good[:-5] + bytes([good[-5] ^ 1]) + good[-4:]
     if name == "truncated":
@@ -180,14 +222,19 @@ def refused(name):
     raise KeyError(name)
 
 
-REFUSALS = {"adam7": "Adam7-interlaced PNG", "grey1": "1-bit grey PNG",
-            "rgb16": "16-bit RGB PNG", "crc": "fails its CRC",
-            "truncated": "truncated PNG", "filter": "unknown filter"}
+# what each case raises; None: read like PIL and cv2 (the first three were
+# refused until the reader took Adam7, 1/2/4-bit and 16-bit colour PNGs)
+REFUSALS = {"adam7": None, "grey1": None, "rgb16": None,
+            "crc": "fails its CRC", "truncated": "truncated PNG",
+            "filter": "unknown filter"}
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_unsupported_and_corrupt_png_raise_naming_them(name):
     data = refused(name)
+    if REFUSALS[name] is None:
+        assert_reads_like_pil_and_cv2(data, name)
+        return
     for read in (image_io.read_rgb, image_io.read_image):
         with pytest.raises(ValueError, match=REFUSALS[name]):
             read(data)

@@ -187,7 +187,9 @@ def test_unsupported_config_refused_for_training(kw, slice_name):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither JAX,
-    flax nor the JAX package: checked in a fresh interpreter, and on
+    flax nor the JAX package: checked in a fresh interpreter (the tools,
+    the plots and the int8 mode among the modules walked, matplotlib and
+    transformers left unloaded, as the card machine has neither), and on
     chip_smoke.py's source."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -197,7 +199,13 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dfvod_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'dfvod_tpu_torch.parallel.dist' in sys.modules\n"
+        "for n in ('parallel.dist', 'ops.quant', 'utils.attribution',\n"
+        "          'utils.visualization', 'tools.calculate_mean_std',\n"
+        "          'tools.yolo_to_coco', 'tools.yolo_eval', 'tools.rgb2d'):\n"
+        "    assert 'dfvod_tpu_torch.' + n in sys.modules, n\n"
+        "lazy = [m for m in sys.modules if m.split('.')[0] in "
+        "('matplotlib', 'transformers')]\n"
+        "assert not lazy, lazy\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('dfvod_tpu_torch.')]))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
