@@ -43,7 +43,21 @@ Phases, each on lines of its own:
    K6 (``fused_bottleneck``, ResNet-50's layer1 in bf16, a launch per
    block) on the serve model's real layer1 input and at borders, with the
    path (layer1 or generic kernel) its C entry counted and each path's
-   shared memory, timed beside the unfused bf16 layer1;
+   shared memory, timed beside the unfused bf16 layer1; LAPJV (``lapjv``,
+   the on-device Hungarian matcher of every train step) against
+   ``lapjv_plain`` on a CPU copy, every slot equal and each total the
+   scipy optimum, at the paths' problem sets (6 decoder layers x B=6 x 300
+   queries, the TransVOD++ key frame's 3 x 300, the two-stage encoder's
+   B=6 x 1,900 and, at 4 levels, x 11,875 (608x800) and x 26,150
+   (800x1333, the per-query state in global memory) proposals; 64 target
+   slots)
+   and at degenerate ones (no target, one, Q = T, integer ties, scattered
+   slots, NaN / inf replaced), timed beside its plain version on the card
+   and the host yardstick (copy + scipy) with the Dijkstra steps per
+   problem; every train step below launches it once (twice with
+   two-stage) with scipy refused, and ``check_matcher`` runs one step's
+   detection criterion under ``torch.cuda.set_sync_debug_mode("error")``
+   and holds the default backend against scipy's on its costs;
 4. the serving path at full width: LateFusion RGB-D DeformableDETR (ResNet-50
    DC5 + DFormer, hidden 256, 8 heads, 6+6 layers, 300 queries, box
    refinement) at B=8 608x800 from uint8 frames in bf16, random weights from
@@ -1417,6 +1431,268 @@ def phase_fused_bottleneck_kernel():
     return result
 
 
+# ------------------------------------------- LAPJV: the on-device matcher
+# the 4-level encoder's proposals at the CLI's largest batch (short side
+# 800, --max_size 1333): 26,150, whose per-query state the kernel keeps in
+# global memory (it exceeds a block's shared memory)
+ENC_L4_TOKENS_MAX = sum(-(-800 // s) * -(-1333 // s)
+                        for s in (8, 16, 16, 32))
+# the LateFusion_bf16.sh step's problems: 6 decoder layers x B=6 images;
+# the TransVOD++ key frame's: 3 layers x 1; the two-stage encoder's B=6
+# images of 1,900 (1 level) or 11,875 (4 levels, 608x800) proposals, and
+# 26,150 (4 levels, 800x1333); 64 target slots
+LAPJV_MAIN = {"train_dec": (6, TRAIN_BATCH, 300), "video_key": (3, 1, 300),
+              "two_stage_enc": (1, TRAIN_BATCH, 1900),
+              "two_stage_enc_l4": (1, TRAIN_BATCH, ENC_L4_TOKENS),
+              "two_stage_enc_l4_1333": (1, TRAIN_BATCH, ENC_L4_TOKENS_MAX)}
+LAPJV_SLOTS = 64
+
+
+def lapjv_inputs(gen, layers, B, Q, T=LAPJV_SLOTS, kind="match",
+                 n_valid=None, scattered=False):
+    """(cost (layers * B, Q, T) f32, valid (layers * B, T) bool) on the
+    card. ``kind`` "match": the matcher's costs of random predictions
+    against random targets (1-20 valid slots an image unless ``n_valid``
+    gives them, first in the row unless ``scattered``), the layers of an
+    image sharing its targets; "integer": costs in {0, 1, 2}, many exact
+    ties; "nonfinite": the matcher's costs with NaN and +-inf in 1% of
+    the entries, then replaced as ``match_layers`` does."""
+    from dfvod_tpu_torch.models.matcher import matching_cost
+    dev = torch.device("cuda")
+    if n_valid is None:
+        n_valid = torch.randint(1, 21, (B,), generator=gen, device=dev)
+    n_valid = torch.as_tensor(n_valid, device=dev)
+    valid = torch.arange(T, device=dev)[None] < n_valid[:, None]
+    if scattered:
+        perm = torch.rand((B, T), generator=gen, device=dev).argsort(1)
+        valid = torch.gather(valid, 1, perm)
+    P = layers * B
+    if kind == "integer":
+        cost = torch.randint(0, 3, (P, Q, T), generator=gen,
+                             device=dev).float()
+    else:
+        logits = torch.randn((P, Q, 3), generator=gen, device=dev)
+        boxes = torch.cat([
+            torch.rand((P, Q, 2), generator=gen, device=dev) * 0.8 + 0.1,
+            torch.rand((P, Q, 2), generator=gen, device=dev) * 0.48 + 0.02],
+            -1)
+        labels = torch.randint(0, 2, (B, T), generator=gen, device=dev)
+        tboxes = torch.cat([
+            torch.rand((B, T, 2), generator=gen, device=dev) * 0.6 + 0.2,
+            torch.rand((B, T, 2), generator=gen, device=dev) * 0.3 + 0.05],
+            -1)
+        cost = matching_cost(logits, boxes, labels.repeat(layers, 1),
+                             tboxes.repeat(layers, 1, 1),
+                             valid.repeat(layers, 1))
+        if kind == "nonfinite":
+            pick = torch.rand(cost.shape, generator=gen, device=dev)
+            cost = torch.where(pick < 0.003, float("nan"), cost)
+            cost = torch.where((pick >= 0.003) & (pick < 0.006),
+                               float("inf"), cost)
+            cost = torch.where((pick >= 0.006) & (pick < 0.01),
+                               float("-inf"), cost)
+            cost = torch.nan_to_num(cost, nan=1e9, posinf=1e9, neginf=-1e9)
+    return cost.contiguous(), valid.repeat(layers, 1)
+
+
+def lapjv_agrees(got, cost, valid):
+    """(equal, mismatched slots, max |index - plain's index|, worst |total
+    - optimum|): the kernel's assignment against ``lapjv_plain`` on a CPU
+    copy, every slot, no -1; each problem's total over its valid slots
+    against scipy's optimum (``matcher.solve``) within f32 rounding: sums
+    in f64 over the f32 entries, 1e-5 of the optimum's sum of absolute
+    entries."""
+    from dfvod_tpu_torch.models.matcher import solve
+    from dfvod_tpu_torch.ops.lapjv import lapjv_plain
+    c, v = cost.cpu(), valid.cpu()
+    ref = lapjv_plain(c, v)
+    g = got.cpu()
+    mismatched = int((g != ref).sum())
+    max_abs_err = int((g - ref).abs().max()) if g.numel() else 0
+    ok = mismatched == 0 and bool((g >= 0).all())
+    opt = solve(c.numpy(), v.numpy())
+    cn, vn, gn = c.numpy().astype("float64"), v.numpy(), g.numpy()
+    worst = 0.0
+    for p in range(cn.shape[0]):
+        cols = vn[p].nonzero()[0]
+        mine = cn[p, gn[p, cols].clip(0), cols]
+        best = cn[p, opt[p, cols], cols]
+        err = abs(mine.sum() - best.sum())
+        worst = max(worst, err)
+        ok &= bool(err <= 1e-5 * (abs(best).sum() + 1))
+        ok &= len(set(gn[p].tolist())) == gn.shape[1]
+    return ok, mismatched, max_abs_err, worst
+
+
+def host_solve_ms(cost, valid, iters=3):
+    """Yardstick, not a library call: host ms of the scipy backend's work
+    for the same costs, the copy to the host and
+    ``scipy.optimize.linear_sum_assignment`` per problem (``matcher.solve``),
+    then the copy of the result back to the card; the best of ``iters``."""
+    from dfvod_tpu_torch.models.matcher import solve
+    best = math.inf
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(cost.cpu().numpy(), valid.cpu().numpy())
+        torch.from_numpy(out).to("cuda")
+        torch.cuda.synchronize()
+        best = min(best, 1e3 * (time.perf_counter() - t0))
+    return best
+
+
+def phase_lapjv_kernel():
+    """(a) ``csrc/lapjv.cu`` against ``lapjv_plain`` on a CPU copy of the
+    same costs, every slot equal, no -1, each problem's total the scipy
+    optimum: at the paths' shapes (``LAPJV_MAIN``) and at degenerate ones
+    (images without targets or with one, Q = T, integer ties, scattered
+    valid slots, NaN / inf replaced). (b) At the paths' shapes: kernel ms
+    (CUDA events, launches queued behind a sleep), the plain version's ms
+    on the card, the host yardstick (copy + scipy), the bytes bound, and
+    the Dijkstra steps the plain version counts (``lapjv_plain.steps``):
+    the serial work that bytes do not see. At 26,150 proposals the
+    kernel's per-query state lies in global memory, at the other shapes
+    in shared memory."""
+    from dfvod_tpu_torch.ops import lapjv as lj
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    cases = [(name, dims, {}) for name, dims in LAPJV_MAIN.items()]
+    cases += [("no_valid", (1, 4, 300), {"n_valid": [0, 0, 3, 0]}),
+              ("one_valid", (1, 4, 300), {"n_valid": [1, 1, 1, 1]}),
+              ("q_equals_t", (1, 4, LAPJV_SLOTS),
+               {"n_valid": [64, 40, 0, 1]}),
+              ("integer_ties", (2, 4, 300), {"kind": "integer"}),
+              ("integer_ties_q64", (1, 4, 64), {"kind": "integer",
+                                                "n_valid": [64, 30, 5, 0]}),
+              ("scattered", (2, 4, 300), {"scattered": True}),
+              ("nonfinite", (2, 4, 300), {"kind": "nonfinite"})]
+    result = {}
+    for name, (layers, B, Q), kw in cases:
+        cost, valid = lapjv_inputs(gen, layers, B, Q, **kw)
+        before = lj.lapjv.launches
+        got = lj.lapjv(cost, valid)
+        torch.cuda.synchronize()
+        check(lj.lapjv.launches == before + 1, f"lapjv {name}: no launch")
+        ok, mismatched, max_abs_err, worst = lapjv_agrees(got, cost, valid)
+        steps = lj.lapjv_plain.steps      # of the CPU copy's solve
+        P, _, T = cost.shape
+        print(f"[lapjv] {name:17s} P={P} Q={Q} T={T} valid "
+              f"{int(valid.sum())}: {mismatched} slots differ from "
+              f"lapjv_plain, worst |total - scipy optimum| {worst:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"lapjv disagrees at {name}: {mismatched} slots, total "
+                  f"off by {worst}")
+        if name not in LAPJV_MAIN:
+            continue
+        r = {"P": P, "Q": Q, "T": T, "max_abs_err": max_abs_err,
+             "mismatched_slots": mismatched, "total_vs_scipy": worst,
+             "ms": cuda_ms(lambda: lj.lapjv(cost, valid), 20),
+             "plain_ms": cuda_ms(lambda: lj.lapjv_plain(cost, valid), 1,
+                                 warmup=1),
+             "yardstick_ms": host_solve_ms(cost, valid),
+             "mean_steps": float(steps.float().mean()),
+             "max_steps": int(steps.max())}
+        r["bound_ms"], r["bound_by"] = bound(nbytes(cost, valid, got), 0)
+        r["us_per_step"] = 1e3 * r["ms"] / r["max_steps"]
+        result[name] = r
+        print(f"[lapjv] time {name}: kernel {r['ms']:.4f} ms, plain on the "
+              f"card {r['plain_ms']:.2f} ms, host yardstick (copy + scipy, "
+              f"not one call) {r['yardstick_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.5f} ms (bytes: "
+              f"{nbytes(cost, valid, got) / 1e6:.2f} MB); Dijkstra steps "
+              f"per problem mean {r['mean_steps']:.1f} max {r['max_steps']}"
+              f" (T = {T} phases), {r['us_per_step']:.3f} us per step of "
+              f"the longest problem; {card_line()}", flush=True)
+    return result
+
+
+class no_host_solver:
+    """While active, ``scipy.optimize.linear_sum_assignment`` raises: a
+    path that reaches the matcher's host oracle fails."""
+
+    def __enter__(self):
+        import scipy.optimize
+        self._saved = scipy.optimize.linear_sum_assignment
+
+        def refuse(*args, **kw):
+            raise SmokeFailure("linear_sum_assignment called: the default "
+                               "matcher went to the host")
+        scipy.optimize.linear_sum_assignment = refuse
+
+    def __exit__(self, *exc):
+        import scipy.optimize
+        scipy.optimize.linear_sum_assignment = self._saved
+
+
+def check_matcher(state, criterion, batch, want, tag):
+    """(c) One forward of ``batch``, then its detection criterion under
+    ``torch.cuda.set_sync_debug_mode("error")`` with scipy refused: it
+    must not synchronise, and must launch LAPJV ``want`` times. On the
+    same outputs, the default backend's assignment equals the scipy
+    backend's in every valid slot of every layer."""
+    from dfvod_tpu_torch.models.matcher import match_layers
+    from dfvod_tpu_torch.ops import lapjv as lj
+    from dfvod_tpu_torch.train.engine import forward
+    out, targets = forward(state, batch)
+    torch.cuda.synchronize()
+    lj.lapjv.launches = 0
+    with no_host_solver():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, _ = criterion(out, targets)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launches = lj.lapjv.launches
+    check(launches == want, f"{tag}: the criterion launched LAPJV "
+                            f"{launches} times, not {want}")
+    loss = float(loss.detach())
+    check(math.isfinite(loss), f"{tag}: loss {loss}")
+    aux = list(out.get("aux_outputs", []))
+    enc = out.get("enc_outputs")
+    layers = [out, *aux] + ([enc] if enc is not None else [])
+    binary = [False] * (1 + len(aux)) + [True] * (enc is not None)
+    with no_host_solver():
+        dev = match_layers(layers, targets, criterion.loss_cfg, binary)
+    host = match_layers(layers, targets, criterion.loss_cfg, binary,
+                        backend="scipy")
+    valid = targets["valid"]
+    differ = int((dev != host)[:, valid].sum())
+    slots = int(valid.sum()) * len(layers)
+    print(f"[{tag}] matcher: the criterion ran under sync debug mode "
+          f"'error' without a sync, {launches} LAPJV launch(es), no scipy "
+          f"call; on this step's costs ({len(layers)} layers, "
+          f"{[int(x['pred_logits'].shape[1]) for x in layers]} queries) "
+          f"the default backend equals scipy in {slots - differ} of {slots} "
+          f"valid slots", flush=True)
+    check(differ == 0, f"{tag}: the default matcher differs from scipy in "
+                       f"{differ} valid slots")
+    del out, loss
+    return {"lapjv_launches": launches, "sync_free": True,
+            "valid_slots": slots, "slots_differ": differ}
+
+
+def backend_step_ms(state, criterion, batches, tag):
+    """(d) ms per step (host clock to a synchronize) with the default
+    matcher and with ``"scipy"`` on the same batches, in turns auto,
+    scipy, scipy, auto. Reported, not gated."""
+    from dfvod_tpu_torch.train import train_step
+    times = {"auto": [], "scipy": []}
+    for backend in ("auto", "scipy", "scipy", "auto"):
+        criterion.matcher_backend = backend
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, criterion, b)
+            torch.cuda.synchronize()
+            times[backend].append(1e3 * (time.perf_counter() - t0))
+    criterion.matcher_backend = "auto"
+    res = {k: sum(v) / len(v) for k, v in times.items()}
+    res["steps"] = len(times["auto"])
+    print(f"[{tag}] ms per step over {res['steps']} steps each, in turns: "
+          f"matcher 'auto' (LAPJV kernel) {res['auto']:.3f}, 'scipy' (host) "
+          f"{res['scipy']:.3f}; {card_line()}", flush=True)
+    return res
+
+
 # ----------------------------------------------------------- serving path
 @torch.no_grad()
 def randomize(model, seed):
@@ -2046,40 +2322,45 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
     first_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     n = MSDA_LAYERS[fusion]
-    want = want_launches(msda_fwd=n, msda_bwd=n)
+    # LAPJV: one launch for the decoder layers, one for the proposals
+    want = want_launches(msda_fwd=n, msda_bwd=n, lapjv=1 + m.two_stage)
     times = []
     fwd = bwd = 0
     levels_seen = {}
     paths = {"msda_fwd": {}, "msda_bwd": {}}
-    for i, batch in enumerate(batches[1:]):
-        t0 = time.perf_counter()
-        if levels > 1:
-            with msda_levels() as seen:
-                ((mt, launches), p_fwd), p_bwd = path_counts(
-                    msda_paths("msda_bwd"), lambda: path_counts(
-                        msda_paths("msda_fwd"), lambda: counted(
-                            lambda: train_step(state, criterion, batch))))
-        else:
-            mt, launches = counted(lambda: train_step(state, criterion,
-                                                      batch))
-            seen, p_fwd, p_bwd = {}, None, None
-        times.append(time.perf_counter() - t0)
-        levels_seen = dict(seen)
-        for name, got in (("msda_fwd", p_fwd), ("msda_bwd", p_bwd)):
-            for k, v in (got or {}).items():
-                paths[name][k] = paths[name].get(k, 0) + v
-        metrics.append(mt)
-        check(launches == want,
-              f"{tag} step {i + 1} launched {launches}, not {want}")
-        fwd += launches["msda_fwd"]
-        bwd += launches["msda_bwd"]
+    lapjv_total = 0
+    with no_host_solver():      # the matcher stays on the card
+        for i, batch in enumerate(batches[1:]):
+            t0 = time.perf_counter()
+            if levels > 1:
+                with msda_levels() as seen:
+                    ((mt, launches), p_fwd), p_bwd = path_counts(
+                        msda_paths("msda_bwd"), lambda: path_counts(
+                            msda_paths("msda_fwd"), lambda: counted(
+                                lambda: train_step(state, criterion, batch))))
+            else:
+                mt, launches = counted(lambda: train_step(state, criterion,
+                                                          batch))
+                seen, p_fwd, p_bwd = {}, None, None
+            times.append(time.perf_counter() - t0)
+            levels_seen = dict(seen)
+            for name, got in (("msda_fwd", p_fwd), ("msda_bwd", p_bwd)):
+                for k, v in (got or {}).items():
+                    paths[name][k] = paths[name].get(k, 0) + v
+            metrics.append(mt)
+            check(launches == want,
+                  f"{tag} step {i + 1} launched {launches}, not {want}")
+            fwd += launches["msda_fwd"]
+            bwd += launches["msda_bwd"]
+            lapjv_total += launches["lapjv"]
     by_levels = (f"; K1 per step by levels {levels_seen}, each K2 the "
                  f"backward of one of them; by their C entries K1 "
                  f"{paths['msda_fwd']}, K2 {paths['msda_bwd']}"
                  if levels > 1 else "")
     print(f"[{tag}] launches over {steps} steps: msda_fwd {fwd}, msda_bwd "
-          f"{bwd} ({n} and {n} per step; counts set to 0 before each "
-          f"step, read after){by_levels}", flush=True)
+          f"{bwd}, lapjv {lapjv_total} ({n}, {n} and {want['lapjv']} per "
+          f"step; counts set to 0 before each step, read after){by_levels}",
+          flush=True)
     enc_keys = [k for k in ("loss_ce_enc", "loss_bbox_enc", "loss_giou_enc")
                 if k in metrics[0]]
     check(bool(enc_keys) == m.two_stage, f"{tag}: _enc losses {enc_keys}")
@@ -2148,16 +2429,22 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
           f"{', '.join(f'{1e3 * t:.3f}' for t in times)}) -> "
           f"{TRAIN_BATCH / (ms / 1e3):.1f} frames/s; peak memory "
           f"{peak:.2f} GiB", flush=True)
+    matcher = check_matcher(state, criterion, batches[1], want["lapjv"], tag)
+    if tag == "train":
+        matcher["backend_ms"] = backend_step_ms(state, criterion,
+                                                batches[1:3], tag)
     return {"ms_per_step": ms, "frames_per_s": TRAIN_BATCH / (ms / 1e3),
             "first_step_ms": first_ms, "steps_ms": [1e3 * t for t in times],
             "peak_memory_gib": peak, "launches_fwd": fwd,
-            "launches_bwd": bwd, "launches_by_levels": levels_seen,
+            "launches_bwd": bwd, "launches_lapjv": lapjv_total,
+            "matcher": matcher, "launches_by_levels": levels_seen,
             "paths": paths, "steps": steps,
             "enc_losses": {k: float(metrics[-1][k]) for k in enc_keys}}
 
 
 KERNELS = ("msda_fwd", "hat_sample_fwd", "msda_bwd", "hat_sample_bwd",
-           "corner_gather_fwd", "hat_sample_sparse", "fused_bottleneck")
+           "corner_gather_fwd", "hat_sample_sparse", "fused_bottleneck",
+           "lapjv")
 
 
 class msda_levels:
@@ -2192,12 +2479,12 @@ class msda_levels:
 def kernel_counters():
     """{kernel: the wrapper whose ``launches`` counts its launches}."""
     from dfvod_tpu_torch.ops import (corner_gather, fused_bottleneck,
-                                     hat_sample, msda)
+                                     hat_sample, lapjv, msda)
     return dict(zip(KERNELS, (
         msda.ms_deform_attn, hat_sample.hat_sample, msda.ms_deform_attn_bwd,
         hat_sample.hat_sample_bwd, corner_gather.corner_gather,
         hat_sample.hat_sample_sparse,
-        fused_bottleneck.fused_bottleneck_stage)))
+        fused_bottleneck.fused_bottleneck_stage, lapjv.lapjv)))
 
 
 def want_launches(**nonzero):
@@ -2274,8 +2561,10 @@ def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1,
     cfg = small_cfg(fusion, layers, dropout=0.0, num_feature_levels=levels,
                     **(model_kw or {}))
     n_msda = small_msda_layers(fusion, layers)
-    want = (want_launches(corner_gather_fwd=n_msda, msda_bwd=n_msda) if impl
-            else want_launches(msda_fwd=n_msda, msda_bwd=n_msda))
+    lapjv = 1 + cfg.model.two_stage
+    want = (want_launches(corner_gather_fwd=n_msda, msda_bwd=n_msda,
+                          lapjv=lapjv) if impl
+            else want_launches(msda_fwd=n_msda, msda_bwd=n_msda, lapjv=lapjv))
     batch = train_batch(5, B=2, max_boxes=8)
     batch["images"] = batch["images"][:, :96, :128].contiguous()
     batch["sizes"] = torch.tensor([[96, 128], [60, 84]])
@@ -2332,10 +2621,11 @@ def phase_small_train_reference(impl=None, fusion="LateFusion", levels=1,
 
 # ------------------------------------------------------ video training path
 # launches per TransVOD++ step: 13 trunk + 3 temporal decoder layers (K1,
-# K2), the QRF RoIAlign (K3, K4); with fixed_pretrained_model the trunk
-# gets no gradient, so K2 runs for the temporal decoders only and K4 not
+# K2), the QRF RoIAlign (K3, K4), the matcher (LAPJV); with
+# fixed_pretrained_model the trunk gets no gradient, so K2 runs for the
+# temporal decoders only and K4 not
 VIDEO_LAUNCHES = want_launches(msda_fwd=16, hat_sample_fwd=1, msda_bwd=16,
-                               hat_sample_bwd=1)
+                               hat_sample_bwd=1, lapjv=1)
 FIXED_LAUNCHES = dict(VIDEO_LAUNCHES, msda_bwd=3, hat_sample_bwd=0)
 
 
@@ -2394,14 +2684,16 @@ def phase_train_clips(steps=5):
     first_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     times, totals = [], dict.fromkeys(VIDEO_LAUNCHES, 0)
-    for i, batch in enumerate(batches[1:]):
-        t0 = time.perf_counter()
-        mt, launches = counted(lambda: train_step(state, criterion, batch))
-        times.append(time.perf_counter() - t0)
-        metrics.append(mt)
-        check(launches == VIDEO_LAUNCHES,
-              f"step {i + 1} launched {launches}, not {VIDEO_LAUNCHES}")
-        totals = {k: totals[k] + launches[k] for k in totals}
+    with no_host_solver():      # the matcher stays on the card
+        for i, batch in enumerate(batches[1:]):
+            t0 = time.perf_counter()
+            mt, launches = counted(lambda: train_step(state, criterion,
+                                                      batch))
+            times.append(time.perf_counter() - t0)
+            metrics.append(mt)
+            check(launches == VIDEO_LAUNCHES,
+                  f"step {i + 1} launched {launches}, not {VIDEO_LAUNCHES}")
+            totals = {k: totals[k] + launches[k] for k in totals}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[train_clips] launches over {steps} steps: {totals} (counts set "
           f"to 0 before each step, read after)", flush=True)
@@ -2439,7 +2731,9 @@ def phase_train_clips(steps=5):
     result = {"ms_per_step": ms, "clips_per_s": 1e3 / ms,
               "frames_per_s": CLIP_TRAIN_FRAMES * 1e3 / ms,
               "first_step_ms": first_ms, "steps_ms": [1e3 * t for t in times],
-              "peak_memory_gib": peak, "launches": totals, "steps": steps}
+              "peak_memory_gib": peak, "launches": totals, "steps": steps,
+              "matcher": check_matcher(state, criterion, batches[1], 1,
+                                       "train_clips")}
     print(f"[train_clips] ms per step of 1 clip x {CLIP_TRAIN_FRAMES} frames:"
           f" mean {ms:.3f} (first step {first_ms:.1f}; per step "
           f"{', '.join(f'{1e3 * t:.3f}' for t in times)}) -> "
@@ -2519,10 +2813,10 @@ def phase_small_video_train_reference():
     variants = (("transvod_pp", dict(temporal_mode="transvod_pp",
                                      num_ref_frames=2),
                  want_launches(msda_fwd=8, hat_sample_fwd=1, msda_bwd=8,
-                               hat_sample_bwd=1)),
+                               hat_sample_bwd=1, lapjv=1)),
                 ("transvod_tdam", dict(temporal_mode="transvod",
                                        use_tdam=True, num_ref_frames=5),
-                 want_launches(msda_fwd=7, msda_bwd=7)))
+                 want_launches(msda_fwd=7, msda_bwd=7, lapjv=1)))
     for name, kw, want in variants:
         batch = clip_train_batch(7, F=1 + kw["num_ref_frames"], h=96, w=128,
                                  max_boxes=8)
@@ -3107,8 +3401,8 @@ def phase_remat(steps=3, train_peak_gib=None):
         results.append((loss, {n: p.grad for n, p in model.named_parameters()
                                if p.grad is not None}, launches))
     (l0, g0, k0), (l1, g1, k1) = results
-    check(k0 == want_launches(msda_fwd=5, msda_bwd=5)
-          and k1 == want_launches(msda_fwd=7, msda_bwd=5),
+    check(k0 == want_launches(msda_fwd=5, msda_bwd=5, lapjv=1)
+          and k1 == want_launches(msda_fwd=7, msda_bwd=5, lapjv=1),
           f"small remat step launched {k1} (plain {k0})")
     check(abs(float(l1) - float(l0)) <= 1e-5 + 1e-4 * abs(float(l0)),
           f"small remat loss {float(l1)} vs {float(l0)}")
@@ -3133,7 +3427,7 @@ def phase_remat(steps=3, train_peak_gib=None):
     train_step(state, criterion, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    want = want_launches(msda_fwd=19, msda_bwd=13)
+    want = want_launches(msda_fwd=19, msda_bwd=13, lapjv=1)
     times, fwd, bwd = [], 0, 0
     for i, b in enumerate(batches[1:]):
         t0 = time.perf_counter()
@@ -3191,10 +3485,10 @@ SYNTH_RGBD_LOADER_SHA256 = ("4a9113e10a88f05dcbb0b90ff638f200"
 # TransVOD++ video stage under --fixed_pretrained_model (the trunk's 13
 # layers forward and 3 temporal decoder rounds, RoIAlign once; the trunk
 # gets no gradient, so K2 runs for the temporal rounds only, K4 not)
-CLI_STEP_LAUNCHES = want_launches(msda_fwd=13, msda_bwd=13)
+CLI_STEP_LAUNCHES = want_launches(msda_fwd=13, msda_bwd=13, lapjv=1)
 CLI_EVAL_LAUNCHES = want_launches(msda_fwd=13)
 CLI_VIDEO_STEP_LAUNCHES = want_launches(msda_fwd=16, hat_sample_fwd=1,
-                                        msda_bwd=3)
+                                        msda_bwd=3, lapjv=1)
 CLI_VIDEO_EVAL_LAUNCHES = want_launches(msda_fwd=16, hat_sample_fwd=1)
 
 
@@ -3704,8 +3998,8 @@ def phase_two_stage_r18(txt_dir=None):
             "enc_box_mean", "enc_logit_max", "topk_slack") if k in serve},
             "train": {k: train[k] for k in (
                 "ms_per_step", "frames_per_s", "first_step_ms",
-                "peak_memory_gib", "launches_fwd", "launches_bwd", "steps",
-                "enc_losses")}}
+                "peak_memory_gib", "launches_fwd", "launches_bwd",
+                "launches_lapjv", "matcher", "steps", "enc_losses")}}
     serve4, server, ref_model, _, _ = phase_serve(
         requests=2, warmup=1, levels=4, model_kw=TWO_STAGE,
         tag="serve-two_stage-L4")
@@ -3776,7 +4070,9 @@ def phase_two_stage_cli(txt_dir=None):
             t0 = time.perf_counter()
             stats, total = counted(lambda: cli.main(train_argv))
             wall = time.perf_counter() - t0
-        per_step = check_cli_launches(probe, total, CLI_STEP_LAUNCHES,
+        # two-stage: a second LAPJV launch for the encoder's proposals
+        per_step = check_cli_launches(probe, total,
+                                      dict(CLI_STEP_LAUNCHES, lapjv=2),
                                       CLI_EVAL_LAUNCHES, "two-stage R18 CLI")
         check_stats(stats, "two-stage R18 CLI")
         check(len(probe.steps) == 30, f"{len(probe.steps)} steps, want 30")
@@ -4268,7 +4564,7 @@ def phase_ddp_world1(steps=3):
     cfg = train_cfg()
     batches = [{k: v.to("cuda") for k, v in train_batch(40 + i).items()}
                for i in range(1 + steps)]
-    want = want_launches(msda_fwd=13, msda_bwd=13)
+    want = want_launches(msda_fwd=13, msda_bwd=13, lapjv=1)
     out = {}
     for name in ("plain", "ddp"):
         tmp = tempfile.mkdtemp(prefix="dfvod_w1_")
@@ -4562,7 +4858,8 @@ def dp_rank(device, plan):
     res["train"] = dp_train_rank(
         "train", dp_train_cfg(),
         [dp_train_batch(i, world) for i in range(1 + DP_TIMED)],
-        plan["train"]["ref"], want_launches(msda_fwd=13, msda_bwd=13), rank)
+        plan["train"]["ref"],
+        want_launches(msda_fwd=13, msda_bwd=13, lapjv=1), rank)
     res["video"] = dp_train_rank(
         "video", video_train_cfg(dropout=0.0),
         [dp_video_batch(i, world) for i in range(1 + DP_TIMED)],
@@ -4858,7 +5155,7 @@ def phase_clip_parallel(name, devices, backend="gloo"):
 # ------------------------------------------------------------ segmentation
 SEG_BATCH = 2                 # B=2 serve and train at 608x800
 SEG_SERVE_LAUNCHES = want_launches(msda_fwd=13)
-SEG_TRAIN_LAUNCHES = want_launches(msda_fwd=13, msda_bwd=13)
+SEG_TRAIN_LAUNCHES = want_launches(msda_fwd=13, msda_bwd=13, lapjv=1)
 
 
 def box_masks(batch):
@@ -5016,7 +5313,7 @@ def phase_seg_cli():
         for name, extra, want in (
                 ("masks", (), SEG_TRAIN_LAUNCHES),
                 ("frozen", ("--frozen_weights", first),
-                 want_launches(msda_fwd=13))):
+                 want_launches(msda_fwd=13, lapjv=1))):
             d = os.path.join(tmp, name)
             stats, probe, wall, total, lines = run_cli(
                 "Synth_LateFusion.sh", d, env=env,
@@ -5638,7 +5935,8 @@ def phase_tools(txt_dir):
 
 
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
-           "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck")
+           "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck",
+           "lapjv")
 
 
 def ptxas_lines(log):
@@ -5702,6 +6000,7 @@ def main() -> int:
     kern_sparse = phase_hat_sparse_kernel()
     kern_entries = phase_single_level_hat_entries()
     kern_fused = phase_fused_bottleneck_kernel()
+    kern_lapjv = phase_lapjv_kernel()
     serve, server, ref_model, req, out32 = phase_serve()
     variants = phase_serve_variants(server, ref_model, req, out32)
     del server, ref_model, req, out32
@@ -5964,8 +6263,40 @@ def main() -> int:
         "shape": "serve layer1 (8, 152, 200, 64) bf16 -> (8, 152, 200, 256),"
                  " 3 blocks, one launch each",
     }
+    dec = kern_lapjv["train_dec"]
+    record_lapjv = {
+        "name": "lapjv", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/lapjv.cu",
+        "replaces": "dfvod_tpu/models/matcher.py:79 (XLA while_loop; not a "
+                    "Pallas kernel)",
+        "launches": train["launches_lapjv"],
+        # max_abs_err: the largest |index - lapjv_plain's index| of a slot
+        **{k: dec[k] for k in ("max_abs_err", "mismatched_slots", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "yardstick_ms", "mean_steps", "max_steps",
+                               "us_per_step")},
+        # no PyTorch call computes an assignment; the scipy backend's host
+        # work (copy + linear_sum_assignment) is the labelled yardstick
+        "library_ms": None,
+        "yardstick": "copy to the host + scipy.optimize.linear_sum_"
+                     "assignment per problem + copy back",
+        "shape": f"LateFusion_bf16.sh step: 6 layers x B={TRAIN_BATCH}, "
+                 f"Q=300, T={LAPJV_SLOTS}, 1-20 valid slots an image",
+        "shapes": kern_lapjv,
+        "train_steps": train["steps"],
+        "train_clips_launches": train_clips["launches"]["lapjv"],
+        "two_stage_train_launches": two_r18["two_stage"]["train"][
+            "launches_lapjv"],
+        "resnet18_train_launches": two_r18["resnet18"]["train"][
+            "launches_lapjv"],
+        "criterion_sync_free": {
+            "train": train["matcher"],
+            "train_clips": train_clips["matcher"],
+            "two_stage": two_r18["two_stage"]["train"]["matcher"]},
+        "step_ms_by_backend": train["matcher"]["backend_ms"],
+    }
     new_records = [record_onehot, record_gather, record_sparse, record_tiled,
-                   record_sep, record_fused]
+                   record_sep, record_fused, record_lapjv]
     fusion_line = {mode: {
         "serve": {k: fusion[mode]["serve"][k] for k in (
             "ms_per_batch", "frames_per_s", "peak_memory_gib", "box_max",
@@ -5990,7 +6321,8 @@ def main() -> int:
               record_bwd["tdam_l5"], record_bwd["video_f32"],
               record_bwd["needs_ms"], record_bwd["cf_stage2"], record_hat,
               record_hat_bwd, *record_hat_bwd["other"].values(),
-              *new_records, record_sparse["enc_l4"], train, clip,
+              *new_records, *kern_lapjv.values(), record_sparse["enc_l4"],
+              train, train["matcher"]["backend_ms"], clip,
               train_clips, *(v[k] for v in fusion_line.values()
                              if isinstance(v, dict) for k in v),
               *eval_ckpt.values(), eval_ckpt["single"]["stats"],

@@ -75,10 +75,18 @@ NAN_EXIT_CODE = 42
 HEARTBEAT_S = 120
 
 
-def check_supported_run(cfg):
+def check_supported_run(cfg, eval_only: bool = False):
     """Refuse ``--frozen_weights`` without ``--masks``, the panoptic
-    dataset, and the JAX package's multi-host start without torchrun's
-    variables."""
+    dataset, the JAX package's multi-host start without torchrun's
+    variables, and a training run with more target slots than queries,
+    which the default matcher (LAPJV, as the JAX package's) cannot
+    assign."""
+    if not eval_only and cfg.data.max_boxes > cfg.model.num_queries:
+        raise ValueError(
+            f"--max_boxes {cfg.data.max_boxes} with --num_queries "
+            f"{cfg.model.num_queries}: the matcher assigns each target "
+            "slot its own query, so training needs --max_boxes <= "
+            "--num_queries")
     if cfg.model.frozen_weights and not cfg.model.masks:
         raise ValueError("--frozen_weights: frozen training is meant for "
                          "segmentation only (add --masks)")
@@ -373,7 +381,7 @@ def main(argv=None, video: bool = False, device=None):
               temporal_weights=getattr(args, "transvod_temporal_weights", ""),
               spatial_weights=getattr(args, "spatial_weights", ""),
               wandb_enabled=not args.no_wandb, auto_resume=args.auto_resume)
-    check_supported_run(cfg)        # before any process starts
+    check_supported_run(cfg, args.eval)   # before any process starts
     if parallel.under_torchrun():
         if cfg.train.num_devices > 1:
             raise ValueError(

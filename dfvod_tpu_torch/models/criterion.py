@@ -21,7 +21,10 @@ The reference semantics the JAX package keeps are kept here too:
   JAX package).
 
 The final and aux layers and the encoder's proposals are matched together
-(``matcher.match_layers``): one host sync per call.
+(``matcher.match_layers``) by ``matcher_backend``: ``"auto"``, the
+on-device LAPJV, as the JAX package's default, or ``"scipy"``, the host
+oracle. With the default the detection losses do not synchronise with the
+host; the mask losses index the valid slots, which does.
 
 Under data parallelism (a process group of more than one rank) every rank
 divides by the global batch's box count over the ranks, all-reduced in
@@ -66,8 +69,11 @@ def modified_sigmoid_focal_loss(logits, targets_onehot, num_boxes,
     ce = _bce_with_logits(logits, targets_onehot)
     p_t = prob * targets_onehot + (1 - prob) * (1 - targets_onehot)
     loss = ce * ((1 - p_t) ** gamma)
-    alpha_t = torch.tensor(alpha_table, dtype=loss.dtype,
-                           device=loss.device)
+    # filled on the device: a copy from the host (``torch.tensor(...,
+    # device=...)``, or ``alpha_t[k] = a``) would synchronise the stream
+    alpha_t = loss.new_empty(K)
+    for k, a in enumerate(alpha_table):
+        alpha_t[k].fill_(a)
     return (alpha_t * loss).mean(1).sum() / num_boxes
 
 
@@ -88,9 +94,11 @@ class SetCriterion:
     """Call with the model's outputs and padded targets; returns (total
     weighted loss, dict of unweighted components)."""
 
-    def __init__(self, num_classes: int, loss_cfg, dec_layers: int = 6):
+    def __init__(self, num_classes: int, loss_cfg, matcher_backend="auto",
+                 dec_layers: int = 6):
         self.num_classes = num_classes
         self.loss_cfg = loss_cfg
+        self.matcher_backend = matcher_backend
         self.weight_dict = self._build_weight_dict(dec_layers)
 
     def _build_weight_dict(self, dec_layers: int):
@@ -183,7 +191,8 @@ class SetCriterion:
         layers = [outputs, *aux_list] + ([enc] if enc is not None else [])
         assign = match_layers(layers, targets, self.loss_cfg,
                               binary=[False] * (1 + len(aux_list))
-                              + [True] * (enc is not None))
+                              + [True] * (enc is not None),
+                              backend=self.matcher_backend)
         losses = self._loss_single(outputs, targets, assign[0], num_boxes)
         if "pred_masks" in outputs and "masks" in targets:
             losses.update(self._loss_masks(outputs["pred_masks"], targets,

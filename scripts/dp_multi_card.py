@@ -51,11 +51,11 @@ THROUGHPUT_STEPS = 5
 def throughput_steps(seed):
     """ms per ``LateFusion_bf16.sh`` step (B=6, bf16) on this process's
     card over ``THROUGHPUT_STEPS`` steps after a warm-up, its own batches
-    from ``seed``; 13 K1 + 13 K2 launches per step."""
+    from ``seed``; 13 K1 + 13 K2 + 1 LAPJV launches per step."""
     state, criterion = cs.fresh_state(cs.train_cfg())
     batches = [{k: v.to("cuda") for k, v in cs.train_batch(seed + i).items()}
                for i in range(1 + THROUGHPUT_STEPS)]
-    want = cs.want_launches(msda_fwd=13, msda_bwd=13)
+    want = cs.want_launches(msda_fwd=13, msda_bwd=13, lapjv=1)
     cs.timed_steps(state, criterion, batches[:1], want, "throughput warm-up")
     return cs.timed_steps(state, criterion, batches[1:], want, "throughput")
 
@@ -134,7 +134,7 @@ def main():
     print(f"[dp-cards] {n} x {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     cs.build_kernels(("msda_fwd", "msda_bwd", "hat_sample_fwd",
-                      "hat_sample_bwd"))
+                      "hat_sample_bwd", "lapjv"))
     # the loader's host libraries, before N ranks would each build them
     from dfvod_tpu_torch.ops import build
     for name in ("jpeg_decode", "preprocess"):

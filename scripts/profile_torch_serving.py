@@ -23,8 +23,9 @@ Training (``--train``): the train step of ``chip_smoke.py``'s train phase
 
 1. host ms per step, and the step's phases by CUDA events: forward,
    criterion (with the matcher), backward, clip + optimizer;
-2. the matcher's host time per step (its one device-to-host copy waits for
-   the forward) and the scipy solves' share of it;
+2. the matcher's host time per step: with the default backend the LAPJV
+   kernel's launches (no sync), with ``matcher_backend="scipy"`` the
+   copy that waits for the forward and the scipy solves (their share);
 3. a ``torch.profiler`` window over a few steps: device busy share, the
    kernels' time, the top kernels, ops and host ops.
 
@@ -260,8 +261,8 @@ def profile_train(cs, n, clips=False, fusion="LateFusion"):
                 for m in groups[k]]})
         roi_align = timed_roi_align(layers)
 
-    # host time of the matcher (its copy waits for the forward) and of the
-    # scipy solves inside it
+    # host time of the matcher (the default enqueues the LAPJV kernel; the
+    # scipy backend's copy waits for the forward) and of scipy's solves
     host = collections.defaultdict(float)
 
     def timed(fn, key):
@@ -316,9 +317,9 @@ def profile_train(cs, n, clips=False, fusion="LateFusion"):
             print(f"[phase]   {'rest of the forward':20s} "
                   f"{ms / n - accounted:8.3f} ms "
                   f"{100 * (ms / n - accounted) / total:5.1f}%", flush=True)
-    print(f"[matcher] host {1e3 * host['matcher'] / n:.3f} ms per step, of "
-          f"which scipy solves {1e3 * host['scipy'] / n:.3f} ms (the rest "
-          f"waits for the forward and copies the costs)", flush=True)
+    print(f"[matcher] backend {criterion.matcher_backend!r}: host "
+          f"{1e3 * host['matcher'] / n:.3f} ms per step, of which scipy "
+          f"solves {1e3 * host['scipy'] / n:.3f} ms", flush=True)
     profiler_window(lambda: train_step(state, criterion, batch), n, "step")
     return 0
 

@@ -374,6 +374,11 @@ REFUSALS = {
     # refused until the two-stage slice; now one epoch (one step) trains
     # and evaluates
     "two_stage": (["--two_stage"], {}, None),
+    # the default matcher (LAPJV) gives each target slot its own query:
+    # training with more slots than queries is refused before the model
+    # and the loader are built
+    "max_boxes_over_queries": (["--max_boxes", "16"], {},
+                               "--max_boxes <= --num_queries"),
 }
 
 

@@ -15,8 +15,9 @@ Backbone_CrossFusion's stage-2 geometry on their vector kernels, and small
 Encoder_CrossFusion and Backbone_CrossFusion models and train steps on the
 card against the CPU. Then the data path: loader batches pinned and
 copied to the card against the host's, and one epoch of a small model
-through ``cli.main`` on the card against the CPU. They skip without a CUDA
-device. This file imports neither JAX
+through ``cli.main`` on the card against the CPU. Last, the on-device
+matcher (LAPJV) against its plain version in every slot. They skip
+without a CUDA device. This file imports neither JAX
 nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -36,6 +37,7 @@ from dfvod_tpu_torch.ops import fused_bottleneck as fb
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops import msda
 from dfvod_tpu_torch.ops import msda_forms as mf
+from dfvod_tpu_torch.ops.lapjv import lapjv, lapjv_plain
 from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.train.engine import create_train_state, forward
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
@@ -1190,7 +1192,9 @@ def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     summation order flips a noise-level gradient's sign, the two runs step
     an entry in opposite directions). The card's run launches K1 and K2 3
     times in its step (1 encoder, 1 depth encoder, 1 decoder layer) and K1
-    3 times in its final evaluation of one batch."""
+    3 times in its final evaluation of one batch. ``--max_boxes 8``: the
+    default matcher, as the JAX package's, needs no more target slots than
+    queries (12)."""
     import json
     from dfvod_tpu_torch.cli import main as cli
     from dfvod_tpu_torch.train.optim import label_params
@@ -1207,7 +1211,8 @@ def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                 "--with_box_refine", "--fusion_type", "LateFusion",
                 "--dformer_backbone", "--batch_size", "8", "--epochs", "1",
                 "--train_short_sides", "96", "--eval_short_side", "96",
-                "--max_size", "128", "--lr", str(lr), "--device_preprocess"]
+                "--max_size", "128", "--max_boxes", "8", "--lr", str(lr),
+                "--device_preprocess"]
 
     fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
     logs, params = [], []
@@ -1236,3 +1241,68 @@ def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         err = (g - r.float()).abs()
         close = err <= 1e-4 + 1e-3 * r.float().abs()
         assert bool((close | (err <= 2.01 * lrs.get(k, 0.0))).all()), k
+
+
+# LAPJV (csrc/lapjv.cu), the on-device matcher: (P, Q, T, costs, valid
+# slots per problem, first in the row; None: 1..20), the train paths'
+# problem sets and degenerate ones
+LAPJV_CASES = {
+    "decoder_6x6": (36, 300, 64, "normal", None),
+    "encoder_s1900": (2, 1900, 64, "normal", None),
+    "encoder_s11875": (1, 11875, 64, "normal", None),
+    # 4 levels at 800x1333: the per-query state in global memory
+    "encoder_s26150": (2, 26150, 64, "normal", None),
+    "q_equals_t": (3, 64, 64, "normal", [64, 7, 0]),
+    "integer_ties": (6, 300, 64, "integer", None),
+    "scattered_ties": (4, 40, 16, "integer_scattered", [9, 1, 16, 0]),
+    "no_target": (2, 300, 64, "normal", [0, 0]),
+    "sanitized_nonfinite": (4, 300, 64, "nonfinite", None),
+    "warp_q5": (4, 5, 3, "integer", [3, 1, 0, 2]),
+}
+
+
+@pytest.mark.parametrize("case", list(LAPJV_CASES))
+def test_lapjv_kernel_matches_plain(cuda_device, case):
+    """The kernel's assignment equals ``lapjv_plain``'s on the same costs
+    in every slot, invalid slots included: one launch, no -1."""
+    P, Q, T, kind, n_valid = LAPJV_CASES[case]
+    g = torch.Generator().manual_seed(list(LAPJV_CASES).index(case))
+    if kind.startswith("integer"):
+        cost = torch.randint(0, 3, (P, Q, T), generator=g).float()
+    else:
+        cost = torch.randn((P, Q, T), generator=g)
+    if kind == "nonfinite":
+        pick = torch.rand((P, Q, T), generator=g)
+        cost = torch.where(pick < 0.01, float("nan"), cost)
+        cost = torch.where((pick >= 0.01) & (pick < 0.02), float("inf"),
+                           cost)
+        cost = torch.where((pick >= 0.02) & (pick < 0.03), -float("inf"),
+                           cost)
+        cost = torch.nan_to_num(cost, nan=1e9, posinf=1e9, neginf=-1e9)
+    n = (torch.randint(1, 21, (P,), generator=g) if n_valid is None
+         else torch.tensor(n_valid))
+    valid = torch.arange(T)[None] < n[:, None]
+    if kind.endswith("scattered"):
+        valid = torch.gather(valid, 1, torch.rand((P, T), generator=g)
+                             .argsort(1))
+    before = lapjv.launches
+    got = lapjv(cost.to(cuda_device), valid.to(cuda_device))
+    torch.cuda.synchronize()
+    assert lapjv.launches == before + 1
+    assert got.dtype == torch.int64 and bool((got >= 0).all())
+    assert torch.equal(got.cpu(), lapjv_plain(cost, valid))
+
+
+def test_lapjv_kernel_refusals(cuda_device):
+    """Shapes and types the kernel does not take raise before a launch."""
+    valid = torch.ones((1, 64), dtype=torch.bool, device=cuda_device)
+    before = lapjv.launches
+    with pytest.raises(TypeError, match="f32"):
+        lapjv(torch.zeros((1, 300, 64), dtype=torch.float64,
+                          device=cuda_device), valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        lapjv(torch.zeros((1, 64, 300), device=cuda_device).transpose(1, 2),
+              valid)
+    with pytest.raises(ValueError, match="T <= Q"):
+        lapjv(torch.zeros((1, 30, 64), device=cuda_device), valid)
+    assert lapjv.launches == before
