@@ -49,12 +49,13 @@ Phases, each on lines of its own:
    scipy optimum, at the paths' problem sets (6 decoder layers x B=6 x 300
    queries, the TransVOD++ key frame's 3 x 300, the two-stage encoder's
    B=6 x 1,900 and, at 4 levels, x 11,875 (608x800) and x 26,150
-   (800x1333, the per-query state in global memory) proposals; 64 target
-   slots)
-   and at degenerate ones (no target, one, Q = T, integer ties, scattered
-   slots, NaN / inf replaced), timed beside its plain version on the card
-   and the host yardstick (copy + scipy) with the Dijkstra steps per
-   problem; every train step below launches it once (twice with
+   (800x1333) proposals; 64 target slots)
+   and at degenerate ones (no target, one, every slot valid at 300 and
+   26,150 queries, Q = T, integer ties, scattered slots, NaN / inf
+   replaced), timed beside its plain version on the card and the host
+   yardstick (copy + scipy) with the Dijkstra steps per problem, the
+   kernel's plan (a warp per problem, or a cluster of C CTAs) and its us
+   a step, the decoder's plan checked to need no scratch; every train step below launches it once (twice with
    two-stage) with scipy refused, and ``check_matcher`` runs one step's
    detection criterion under ``torch.cuda.set_sync_debug_mode("error")``
    and holds the default backend against scipy's on its costs;
@@ -307,6 +308,21 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_call_us(fn, iters=20):
+    """Mean host us that a call of ``fn`` takes to return (a wrapper's own
+    work and its launch's enqueue), the calls queued behind a sleep kernel
+    so that none waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return us
 
 
 def path_counts(module, fn):
@@ -1433,8 +1449,8 @@ def phase_fused_bottleneck_kernel():
 
 # ------------------------------------------- LAPJV: the on-device matcher
 # the 4-level encoder's proposals at the CLI's largest batch (short side
-# 800, --max_size 1333): 26,150, whose per-query state the kernel keeps in
-# global memory (it exceeds a block's shared memory)
+# 800, --max_size 1333): 26,150, the kernel's largest plan (a cluster of 16
+# CTAs a problem)
 ENC_L4_TOKENS_MAX = sum(-(-800 // s) * -(-1333 // s)
                         for s in (8, 16, 16, 32))
 # the LateFusion_bf16.sh step's problems: 6 decoder layers x B=6 images;
@@ -1541,23 +1557,46 @@ def host_solve_ms(cost, valid, iters=3):
     return best
 
 
+def lapjv_bytes(cost, valid, got):
+    """The bytes the assignment must move: the valid rows' costs (an
+    invalid row's cost is 0 and is never read), the mask and the output,
+    each once."""
+    return (int(valid.sum()) * cost.shape[1] * cost.element_size()
+            + nbytes(valid, got))
+
+
+def plan_text(plan):
+    where = ("all cost rows in shared memory"
+             if plan["rows_in_smem"] >= LAPJV_SLOTS else
+             f"{plan['rows_in_smem']} cost rows in shared memory, the rest "
+             f"in a {plan['scratch_bytes'] / 1e6:.2f} MB scratch")
+    return (f"C={plan['C']} CTAs x W={plan['W']} warps, "
+            f"{plan['columns_a_thread']} columns a thread in registers "
+            f"(kernel K={plan['kernel_k']}), {where}, "
+            f"{plan['smem_bytes']} B shared a CTA")
+
+
 def phase_lapjv_kernel():
     """(a) ``csrc/lapjv.cu`` against ``lapjv_plain`` on a CPU copy of the
     same costs, every slot equal, no -1, each problem's total the scipy
     optimum: at the paths' shapes (``LAPJV_MAIN``) and at degenerate ones
-    (images without targets or with one, Q = T, integer ties, scattered
-    valid slots, NaN / inf replaced). (b) At the paths' shapes: kernel ms
-    (CUDA events, launches queued behind a sleep), the plain version's ms
-    on the card, the host yardstick (copy + scipy), the bytes bound, and
-    the Dijkstra steps the plain version counts (``lapjv_plain.steps``):
-    the serial work that bytes do not see. At 26,150 proposals the
-    kernel's per-query state lies in global memory, at the other shapes
-    in shared memory."""
+    (images without targets or with one, every slot valid, Q = T, integer
+    ties, scattered valid slots, NaN / inf replaced). (b) At the paths'
+    shapes: the kernel's plan (C CTAs x W warps a problem, where costs and
+    state live), kernel ms (CUDA events, launches queued behind a sleep),
+    the plain version's ms on the card, the host yardstick (copy + scipy),
+    the wrapper's host us a call, the bytes bound (the valid rows' costs,
+    the mask and the output), and the Dijkstra steps the plain version counts
+    (``lapjv_plain.steps``): the serial work that bytes do not see, and
+    kernel us a step of the longest problem."""
     from dfvod_tpu_torch.ops import lapjv as lj
     gen = torch.Generator(device="cuda").manual_seed(18)
     cases = [(name, dims, {}) for name, dims in LAPJV_MAIN.items()]
     cases += [("no_valid", (1, 4, 300), {"n_valid": [0, 0, 3, 0]}),
               ("one_valid", (1, 4, 300), {"n_valid": [1, 1, 1, 1]}),
+              ("all_valid", (1, 2, 300), {"n_valid": [64, 64]}),
+              ("all_valid_26150", (1, 1, ENC_L4_TOKENS_MAX),
+               {"n_valid": [64]}),
               ("q_equals_t", (1, 4, LAPJV_SLOTS),
                {"n_valid": [64, 40, 0, 1]}),
               ("integer_ties", (2, 4, 300), {"kind": "integer"}),
@@ -1583,25 +1622,81 @@ def phase_lapjv_kernel():
                   f"off by {worst}")
         if name not in LAPJV_MAIN:
             continue
+        plan = lj.lapjv_plan(P, Q, T)
         r = {"P": P, "Q": Q, "T": T, "max_abs_err": max_abs_err,
              "mismatched_slots": mismatched, "total_vs_scipy": worst,
+             "plan": plan,
              "ms": cuda_ms(lambda: lj.lapjv(cost, valid), 20),
+             "host_us": host_call_us(lambda: lj.lapjv(cost, valid)),
              "plain_ms": cuda_ms(lambda: lj.lapjv_plain(cost, valid), 1,
                                  warmup=1),
              "yardstick_ms": host_solve_ms(cost, valid),
              "mean_steps": float(steps.float().mean()),
              "max_steps": int(steps.max())}
-        r["bound_ms"], r["bound_by"] = bound(nbytes(cost, valid, got), 0)
+        r["bound_ms"], r["bound_by"] = bound(lapjv_bytes(cost, valid, got),
+                                             0)
         r["us_per_step"] = 1e3 * r["ms"] / r["max_steps"]
         result[name] = r
-        print(f"[lapjv] time {name}: kernel {r['ms']:.4f} ms, plain on the "
+        print(f"[lapjv] time {name}: kernel {r['ms']:.4f} ms (host "
+              f"{r['host_us']:.1f} us a call), plain on the "
               f"card {r['plain_ms']:.2f} ms, host yardstick (copy + scipy, "
               f"not one call) {r['yardstick_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.5f} ms (bytes: "
-              f"{nbytes(cost, valid, got) / 1e6:.2f} MB); Dijkstra steps "
+              f"{r['bound_ms']:.6f} ms (bytes of the valid rows, the mask "
+              f"and the output: {lapjv_bytes(cost, valid, got) / 1e6:.3f} "
+              f"MB); Dijkstra steps "
               f"per problem mean {r['mean_steps']:.1f} max {r['max_steps']}"
               f" (T = {T} phases), {r['us_per_step']:.3f} us per step of "
-              f"the longest problem; {card_line()}", flush=True)
+              f"the longest problem; plan {plan_text(plan)}; {card_line()}",
+              flush=True)
+    return result
+
+
+def lapjv_plan_sweep(shapes=None, iters=10):
+    """ms of every plan (C CTAs x W warps a problem) the kernel takes at
+    each ``LAPJV_MAIN`` shape (CUDA events, ``iters`` launches behind a
+    sleep), each plan's assignment equal to the default plan's in every
+    slot, and us a step of the longest problem (``lapjv_plain``'s steps
+    on a CPU copy): the times the default plan (``csrc/lapjv.cu``,
+    ``default_cw``) is chosen from. Run it on the card after
+    ``build_kernels(("lapjv",))`` when the kernel changes. Plans the C
+    entry refuses (too many columns a thread, a cluster the card cannot
+    place) are listed with the refusal."""
+    from dfvod_tpu_torch.ops import lapjv as lj
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    result = {}
+    for name in shapes or LAPJV_MAIN:
+        layers, B, Q = LAPJV_MAIN[name]
+        cost, valid = lapjv_inputs(gen, layers, B, Q)
+        lj.lapjv_plain(cost.cpu(), valid.cpu())
+        max_steps = int(lj.lapjv_plain.steps.max())
+        ref = lj.lapjv(cost, valid)
+        default = lj.lapjv_plan(*cost.shape)
+        rows = {}
+        # every (C, W) the kernel takes up to 16 CTAs of 8 warps
+        for C, W in [(c, w) for c in (1, 2, 4, 8, 16) for w in (1, 2, 4, 8)]:
+            key = f"{C}x{W}"
+            try:
+                plan = lj.lapjv_plan(*cost.shape, _cw=(C, W))
+            except ValueError as e:
+                rows[key] = {"refused": str(e).split(": ")[-1]}
+                continue
+            got = lj.lapjv_cuda(cost, valid, _cw=(C, W))
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"lapjv plan {key} at {name} "
+                                         f"differs from the default plan")
+            ms = cuda_ms(lambda: lj.lapjv_cuda(cost, valid, _cw=(C, W)),
+                         iters, warmup=1)
+            rows[key] = {"ms": ms, "us_per_step": 1e3 * ms / max_steps,
+                         "columns_a_thread": plan["columns_a_thread"],
+                         "rows_in_smem": plan["rows_in_smem"],
+                         "default": (C, W) == (default["C"], default["W"])}
+            print(f"[lapjv plans] {name} P={cost.shape[0]} Q={Q}: C={C} "
+                  f"W={W} ({plan['columns_a_thread']} columns a thread) "
+                  f"{ms:.4f} ms, {rows[key]['us_per_step']:.3f} us a step"
+                  f"{' (default)' if rows[key]['default'] else ''}",
+                  flush=True)
+        result[name] = {"max_steps": max_steps, "plans": rows}
+    print(f"[lapjv plans] {card_line()}", flush=True)
     return result
 
 
@@ -6001,6 +6096,9 @@ def main() -> int:
     kern_entries = phase_single_level_hat_entries()
     kern_fused = phase_fused_bottleneck_kernel()
     kern_lapjv = phase_lapjv_kernel()
+    scratch = kern_lapjv["train_dec"]["plan"]["scratch_bytes"]
+    check(scratch == 0, f"lapjv at the decoder's 36 x 300 asks for "
+                        f"{scratch} scratch bytes, not 0")
     serve, server, ref_model, req, out32 = phase_serve()
     variants = phase_serve_variants(server, ref_model, req, out32)
     del server, ref_model, req, out32
@@ -6274,7 +6372,7 @@ def main() -> int:
         **{k: dec[k] for k in ("max_abs_err", "mismatched_slots", "ms",
                                "plain_ms", "bound_ms", "bound_by",
                                "yardstick_ms", "mean_steps", "max_steps",
-                               "us_per_step")},
+                               "us_per_step", "host_us", "plan")},
         # no PyTorch call computes an assignment; the scipy backend's host
         # work (copy + linear_sum_assignment) is the labelled yardstick
         "library_ms": None,

@@ -23,8 +23,10 @@ augmentation does not end there gets -1 in every slot, so the caller's
 next gather fails instead of anything looping.
 
 ``lapjv`` takes the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel (any Q: the per-query state goes to global memory
-where shared memory is too small) or raises. ``lapjv.launches`` counts launches.
+it launches the kernel or raises. The kernel's plan (``lapjv_plan``)
+spreads a problem over C CTAs (a thread-block cluster when C > 1) of W
+warps: a warp per problem up to 512 queries, a cluster for the two-stage
+proposals (up to 131,072 queries). ``lapjv.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -37,10 +39,19 @@ from dfvod_tpu_torch.ops import build
 
 # what the C entry's negative codes mean
 _REFUSALS = {
-    -1: "a shape it does not take (it needs T <= Q and T <= 32767)",
+    -1: "a shape it does not take (it needs T <= Q, T <= 32767 and Q <= "
+        "131,072: 32 columns a thread of 16 CTAs of 8 warps)",
     -2: "a T whose row state needs more shared memory than a block has "
-        "(9 bytes a row)",
+        "(about 32 bytes a row)",
+    -3: "a plan it has no kernel for (C in 1, 2, 4, 8, 16 CTAs; W in 1, 2, "
+        "4, 8 warps; at most 16 columns a thread for a warp per problem, "
+        "32 otherwise)",
+    -4: "a cluster of C blocks that the card cannot place "
+        "(cudaOccupancyMaxActiveClusters is 0)",
 }
+# lapjv_plan's fields, in the order the C entry writes them
+_PLAN_FIELDS = ("C", "W", "columns_a_thread", "kernel_k", "rows_in_smem",
+                "smem_bytes", "max_active_clusters", "scratch_bytes")
 
 
 def _check_args(cost, valid):
@@ -140,9 +151,9 @@ def lapjv_plain(cost, valid):
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = build.load("lapjv")
-    lib.lapjv_scratch_bytes.argtypes = [ctypes.c_int] * 3
-    lib.lapjv_scratch_bytes.restype = ctypes.c_size_t
-    lib.lapjv.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    lib.lapjv_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lapjv_plan.restype = ctypes.c_int
+    lib.lapjv.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                           + [ctypes.c_void_p])
     lib.lapjv.restype = ctypes.c_int
     lib.lapjv_error_string.argtypes = [ctypes.c_int]
@@ -150,30 +161,62 @@ def _library():
     return lib
 
 
-def lapjv_cuda(cost, valid):
-    """Launch ``csrc/lapjv.cu`` on CUDA tensors: one block per problem, its
-    per-query state in shared memory where it fits, else in the scratch."""
+def _raise_for(rc, P, Q, T, C, W):
+    if rc < 0:
+        raise ValueError(f"the lapjv kernel refused P = {P}, Q = {Q}, T = "
+                         f"{T} (plan C = {C}, W = {W}; 0 = the default): "
+                         f"{_REFUSALS.get(rc, f'code {rc}')}")
+    if rc > 0:
+        raise RuntimeError("lapjv launch failed: "
+                           + _library().lapjv_error_string(rc).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device, P, Q, T, C, W):
+    """The C entry's plan on CUDA device ``device`` (the current one), made
+    once per shape: it queries the card and sets the kernel's attributes,
+    host work that every train step would otherwise repeat."""
+    plan = (ctypes.c_int64 * len(_PLAN_FIELDS))()
+    rc = _library().lapjv_plan(P, Q, T, C, W, ctypes.addressof(plan))
+    _raise_for(rc, P, Q, T, C, W)
+    return dict(zip(_PLAN_FIELDS, map(int, plan)))
+
+
+def lapjv_plan(P, Q, T, _cw=(0, 0)):
+    """The kernel's plan for P problems of Q queries and T slots on the
+    current CUDA device, as a dict: ``C`` CTAs and ``W`` warps a problem,
+    the columns a thread and the kernel's K, the cost rows held in shared
+    memory, its bytes a CTA, the clusters the card holds at once (0 for a
+    warp per problem) and the scratch bytes. Raises where the C entry
+    refuses. ``_cw`` forces (C, W), for ``chip_smoke.lapjv_plan_sweep``
+    alone."""
+    return dict(_plan(torch.cuda.current_device(), P, Q, T, *_cw))
+
+
+def lapjv_cuda(cost, valid, _cw=(0, 0)):
+    """Launch ``csrc/lapjv.cu`` on CUDA tensors under the default plan
+    (``_cw`` forces (C, W), for ``chip_smoke.lapjv_plan_sweep`` alone); the
+    scratch holds the valid cost rows that shared memory does not (the
+    plan's ``scratch_bytes``)."""
+    _check_args(cost, valid)
     P, Q, T = cost.shape
+    if cost.device.type != "cuda":
+        raise ValueError(f"lapjv_cuda takes CUDA tensors, not {cost.device}")
     if cost.dtype != torch.float32:
         raise TypeError(f"the lapjv kernel takes f32 costs, not {cost.dtype}")
     if not (cost.is_contiguous() and valid.is_contiguous()):
         raise ValueError("cost and valid must be contiguous")
     out = torch.empty((P, T), dtype=torch.long, device=cost.device)
-    lib = _library()
-    # the costs transposed to (P, T, Q), then each problem's Q-long state
-    # where it does not fit in shared memory: written and read by the kernel
-    scratch = torch.empty(lib.lapjv_scratch_bytes(P, Q, T),
-                          dtype=torch.uint8, device=cost.device)
     with torch.cuda.device(cost.device):
+        pl = _plan(cost.device.index, P, Q, T, *_cw)
+        scratch = torch.empty(pl["scratch_bytes"], dtype=torch.uint8,
+                              device=cost.device)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lapjv(cost.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
-                       out.data_ptr(), P, Q, T, stream)
-    if rc < 0:
-        raise ValueError(f"the lapjv kernel refused P = {P}, Q = {Q}, T = "
-                         f"{T}: {_REFUSALS.get(rc, f'code {rc}')}")
-    if rc > 0:
-        raise RuntimeError("lapjv launch failed: "
-                           + lib.lapjv_error_string(rc).decode())
+        rc = _library().lapjv(
+            cost.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), P, Q, T, pl["C"], pl["W"], pl["kernel_k"],
+            pl["rows_in_smem"], pl["smem_bytes"], stream)
+    _raise_for(rc, P, Q, T, pl["C"], pl["W"])
     lapjv.launches += 1
     return out
 

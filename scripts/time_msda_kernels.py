@@ -12,9 +12,12 @@ for; K3 at the QRF serve shape; K4 at the QRF training shape with real
 and uniform points, with and without point gradients; K5a at the encoder
 shape and at 4 levels; K5b/c at the B=8 encoder shape in bf16 beside
 ``F.embedding_bag``; K6 on the serve model's layer1 input, 8 x 152 x 200
-x 64 bf16, beside the unfused layer1). ``--phases`` takes a
-comma-separated subset of the groups ``msda``, ``hat``, ``gather`` and
-``bottleneck``; all four by default.
+x 64 bf16, beside the unfused layer1) and the matcher's LAPJV kernel
+(``lapjv``: every slot against ``lapjv_plain`` and each path's problem
+set timed, ``chip_smoke.LAPJV_MAIN``, with its plan of C CTAs x W warps
+a problem where the tree's kernel has plans). ``--phases`` takes a
+comma-separated subset of the groups ``msda``, ``hat``, ``gather``,
+``bottleneck`` and ``lapjv``; all five by default.
 
 To hold two commits against each other, unpack the other one with
 ``git archive`` into a git-ignored directory and run both in one call on
@@ -42,7 +45,8 @@ PHASES = {"msda": ("msda_fwd", "msda_bwd"),
           "hat": ("hat_sample_fwd", "hat_sample_bwd",
                   "hat_sample_sparse_fwd"),
           "gather": ("corner_gather_fwd",),
-          "bottleneck": ("fused_bottleneck",)}
+          "bottleneck": ("fused_bottleneck",),
+          "lapjv": ("lapjv",)}
 
 
 def load_chip_smoke():
@@ -59,7 +63,8 @@ def main() -> int:
                         help="checkout whose dfvod_tpu_torch is timed")
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated groups: msda (K1, K2), hat "
-                             "(K3, K4, K5a), gather (K5b/c), bottleneck (K6)")
+                             "(K3, K4, K5a), gather (K5b/c), bottleneck (K6), "
+                             "lapjv (the matcher)")
     args = parser.parse_args()
     root = os.path.abspath(args.root)
     phases = set(args.phases.split(","))
@@ -90,7 +95,8 @@ def main() -> int:
     def times(results):
         return {k: {n: v for n, v in r.items()
                     if n in ("ms", "plain_ms", "bound_ms", "needs",
-                             "library_ms", "yardstick_ms", "paths")}
+                             "library_ms", "yardstick_ms", "paths", "plan",
+                             "max_steps", "us_per_step", "host_us")}
                 for k, r in results.items() if isinstance(r, dict)}
 
     out = {"root": root, "card": card}
@@ -107,6 +113,13 @@ def main() -> int:
     if "bottleneck" in phases:
         out["fused_bottleneck"] = times(
             {"serve": smoke.phase_fused_bottleneck_kernel()})
+    if "lapjv" in phases:
+        from dfvod_tpu_torch.ops import lapjv
+        if not hasattr(lapjv, "lapjv_plan"):
+            # a tree older than the kernel's plans: one block a problem
+            lapjv.lapjv_plan = lambda P, Q, T: None
+            smoke.plan_text = lambda plan: "one block a problem (no plan)"
+        out["lapjv"] = times(smoke.phase_lapjv_kernel())
     print(json.dumps(out))
     return 0
 

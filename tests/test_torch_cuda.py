@@ -16,8 +16,9 @@ Encoder_CrossFusion and Backbone_CrossFusion models and train steps on the
 card against the CPU. Then the data path: loader batches pinned and
 copied to the card against the host's, and one epoch of a small model
 through ``cli.main`` on the card against the CPU. Last, the on-device
-matcher (LAPJV) against its plain version in every slot. They skip
-without a CUDA device. This file imports neither JAX
+matcher (LAPJV) against its plain version in every slot, at the paths'
+shapes and at the edges of its plans, and its plans at the paths'
+shapes. They skip without a CUDA device. This file imports neither JAX
 nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -37,7 +38,8 @@ from dfvod_tpu_torch.ops import fused_bottleneck as fb
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops import msda
 from dfvod_tpu_torch.ops import msda_forms as mf
-from dfvod_tpu_torch.ops.lapjv import lapjv, lapjv_plain
+from dfvod_tpu_torch.ops.lapjv import (lapjv, lapjv_cuda, lapjv_plain,
+                                       lapjv_plan)
 from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.train.engine import create_train_state, forward
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
@@ -1245,12 +1247,12 @@ def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
 
 # LAPJV (csrc/lapjv.cu), the on-device matcher: (P, Q, T, costs, valid
 # slots per problem, first in the row; None: 1..20), the train paths'
-# problem sets and degenerate ones
+# problem sets, the edges of the kernel's plans and degenerate ones
 LAPJV_CASES = {
     "decoder_6x6": (36, 300, 64, "normal", None),
     "encoder_s1900": (2, 1900, 64, "normal", None),
     "encoder_s11875": (1, 11875, 64, "normal", None),
-    # 4 levels at 800x1333: the per-query state in global memory
+    # 4 levels at 800x1333: a cluster of 16 CTAs a problem
     "encoder_s26150": (2, 26150, 64, "normal", None),
     "q_equals_t": (3, 64, 64, "normal", [64, 7, 0]),
     "integer_ties": (6, 300, 64, "integer", None),
@@ -1258,7 +1260,30 @@ LAPJV_CASES = {
     "no_target": (2, 300, 64, "normal", [0, 0]),
     "sanitized_nonfinite": (4, 300, 64, "nonfinite", None),
     "warp_q5": (4, 5, 3, "integer", [3, 1, 0, 2]),
+    # every slot valid; at 26,150 more valid rows than shared memory holds
+    # (the rest in the scratch)
+    "all_valid_q300": (2, 300, 64, "normal", [64, 64]),
+    "all_valid_s26150": (1, 26150, 64, "normal", [64]),
+    # more problems than SMs
+    "decoder_p144": (144, 300, 64, "normal", None),
+    # each edge of the default plans and one past it: a warp per problem
+    # up to 512 queries, 8 CTAs of 4 warps up to 4,096, 16 of 4 up to
+    # 65,536, 16 of 8 beyond
+    "plan_edge_q512": (2, 512, 64, "normal", None),
+    "plan_edge_q513": (2, 513, 64, "normal", None),
+    "plan_edge_q4096": (2, 4096, 64, "normal", None),
+    "plan_edge_q4097": (2, 4097, 64, "normal", None),
+    "plan_edge_q65536": (1, 65536, 64, "normal", None),
+    "plan_edge_q65537": (1, 65537, 64, "normal", None),
+    # no multiple of the columns a CTA owns
+    "q1901": (3, 1901, 64, "normal", None),
+    "one_slot": (3, 5, 1, "normal", [1, 0, 1]),
 }
+# the default plan (C CTAs, W warps a problem) at each of chip_smoke.py's
+# LAPJV_MAIN shapes, as PERF.md records it
+LAPJV_MAIN_PLANS = {(36, 300, 64): (1, 1), (3, 300, 64): (1, 1),
+                    (6, 1900, 64): (8, 4), (6, 11875, 64): (16, 4),
+                    (6, 26150, 64): (16, 4)}
 
 
 @pytest.mark.parametrize("case", list(LAPJV_CASES))
@@ -1293,8 +1318,22 @@ def test_lapjv_kernel_matches_plain(cuda_device, case):
     assert torch.equal(got.cpu(), lapjv_plain(cost, valid))
 
 
+def test_lapjv_plans_at_the_main_shapes(cuda_device):
+    """The default plan at every path's problem set is the one PERF.md
+    records; the decoder layers' solve needs no scratch."""
+    import chip_smoke
+    shapes = {(layers * B, Q, chip_smoke.LAPJV_SLOTS)
+              for layers, B, Q in chip_smoke.LAPJV_MAIN.values()}
+    assert shapes == set(LAPJV_MAIN_PLANS)
+    for shape, cw in LAPJV_MAIN_PLANS.items():
+        plan = lapjv_plan(*shape)
+        assert (plan["C"], plan["W"]) == cw, shape
+    assert lapjv_plan(36, 300, 64)["scratch_bytes"] == 0
+
+
 def test_lapjv_kernel_refusals(cuda_device):
-    """Shapes and types the kernel does not take raise before a launch."""
+    """Shapes, types and plans the kernel does not take raise before a
+    launch."""
     valid = torch.ones((1, 64), dtype=torch.bool, device=cuda_device)
     before = lapjv.launches
     with pytest.raises(TypeError, match="f32"):
@@ -1305,4 +1344,9 @@ def test_lapjv_kernel_refusals(cuda_device):
               valid)
     with pytest.raises(ValueError, match="T <= Q"):
         lapjv(torch.zeros((1, 30, 64), device=cuda_device), valid)
+    with pytest.raises(ValueError, match="131,072"):
+        lapjv(torch.zeros((1, 131073, 1), device=cuda_device), valid[:, :1])
+    with pytest.raises(ValueError, match="no kernel for"):
+        lapjv_cuda(torch.zeros((1, 300, 64), device=cuda_device), valid,
+                   _cw=(3, 1))
     assert lapjv.launches == before

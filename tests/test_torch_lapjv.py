@@ -33,7 +33,9 @@ from dfvod_tpu_torch.utils.config import LossConfig
 # name: (B, Q, T, cost kind, valid slots). "scattered": an image without
 # targets (row 0) and one with a single valid target (row 1), the others'
 # valid slots scattered among invalid ones; "path": the train paths' 64
-# slots, 1-20 valid first in each row, as the loader pads them
+# slots, 1-20 valid first in each row, as the loader pads them; "all":
+# every slot valid (more valid rows than the kernel's shared memory holds
+# at the largest proposal count)
 CASES = {
     "scattered": (4, 30, 10, "normal", "scattered"),
     "integer_ties": (4, 30, 10, "integer", "scattered"),
@@ -42,6 +44,8 @@ CASES = {
     "s1900": (2, 1900, 16, "normal", "scattered"),
     "path_t64": (2, 300, 64, "normal", "path"),
     "path_t64_ties": (2, 300, 64, "integer", "path"),
+    "path_t64_all_valid": (2, 300, 64, "normal", "all"),
+    "s1900_t64": (1, 1900, 64, "normal", "path"),
 }
 
 
@@ -56,6 +60,8 @@ def case_inputs(name):
     if slots == "path":
         valid = np.arange(T)[None] < rng.integers(1, 21, (B, 1))
         return cost, valid
+    if slots == "all":
+        return cost, np.ones((B, T), bool)
     valid = rng.random((B, T)) < 0.6
     valid[0] = False
     valid[1] = False
