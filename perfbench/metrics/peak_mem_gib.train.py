@@ -1,0 +1,6 @@
+"""``torch.cuda.max_memory_allocated`` over the traced window, after a
+reset at its start, in GiB."""
+
+
+def read(ctx):
+    return ctx.peak_window_bytes / 2 ** 30 if ctx.peak_window_bytes else None
