@@ -1590,6 +1590,7 @@ def phase_lapjv_kernel():
     (``lapjv_plain.steps``): the serial work that bytes do not see, and
     kernel us a step of the longest problem."""
     from dfvod_tpu_torch.ops import lapjv as lj
+    from dfvod_tpu_torch.utils import trace
     gen = torch.Generator(device="cuda").manual_seed(18)
     cases = [(name, dims, {}) for name, dims in LAPJV_MAIN.items()]
     cases += [("no_valid", (1, 4, 300), {"n_valid": [0, 0, 3, 0]}),
@@ -1607,10 +1608,10 @@ def phase_lapjv_kernel():
     result = {}
     for name, (layers, B, Q), kw in cases:
         cost, valid = lapjv_inputs(gen, layers, B, Q, **kw)
-        before = lj.lapjv.launches
+        before = trace.counter("lapjv")
         got = lj.lapjv(cost, valid)
         torch.cuda.synchronize()
-        check(lj.lapjv.launches == before + 1, f"lapjv {name}: no launch")
+        check(trace.counter("lapjv") == before + 1, f"lapjv {name}: no launch")
         ok, mismatched, max_abs_err, worst = lapjv_agrees(got, cost, valid)
         steps = lj.lapjv_plain.steps      # of the CPU copy's solve
         P, _, T = cost.shape
@@ -1727,16 +1728,17 @@ def check_matcher(state, criterion, batch, want, tag):
     from dfvod_tpu_torch.models.matcher import match_layers
     from dfvod_tpu_torch.ops import lapjv as lj
     from dfvod_tpu_torch.train.engine import forward
+    from dfvod_tpu_torch.utils import trace
     out, targets = forward(state, batch)
     torch.cuda.synchronize()
-    lj.lapjv.launches = 0
+    before = trace.counter("lapjv")
     with no_host_solver():
         torch.cuda.set_sync_debug_mode("error")
         try:
             loss, _ = criterion(out, targets)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    launches = lj.lapjv.launches
+    launches = trace.counter("lapjv") - before
     check(launches == want, f"{tag}: the criterion launched LAPJV "
                             f"{launches} times, not {want}")
     loss = float(loss.detach())
@@ -2175,8 +2177,8 @@ def phase_clip_serve(requests=5):
     at 608x800 in bf16: one warm-up, then ``requests`` timed requests."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
     from dfvod_tpu_torch.models import build_model
-    from dfvod_tpu_torch.ops import hat_sample, msda
     from dfvod_tpu_torch.serve import Server
+    from dfvod_tpu_torch.utils import trace
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
 
     cfg = Config(model=ModelConfig(fusion_type="LateFusion",
@@ -2206,15 +2208,15 @@ def phase_clip_serve(requests=5):
     first_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
 
-    msda.ms_deform_attn.launches = 0
-    hat_sample.hat_sample.launches = 0
+    k1, k3 = trace.counter("msda_fwd"), trace.counter("hat_sample")
     times, dets = [], []
     for x, s in reqs[1:]:
         t0 = time.perf_counter()
         dets.append(server(x, s))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    k1, k3 = msda.ms_deform_attn.launches, hat_sample.hat_sample.launches
+    k1, k3 = (trace.counter("msda_fwd") - k1,
+              trace.counter("hat_sample") - k3)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[clip] launches over {requests} requests: msda_fwd {k1}, "
           f"hat_sample_fwd {k3} ({k1 / requests:g} and {k3 / requests:g} "
@@ -2282,7 +2284,7 @@ def phase_small_temporal_reference():
     CPU, padded clips: atol 1e-4 / rtol 1e-3, TF32 off."""
     from dfvod_tpu_torch.data.device_pipeline import device_normalize
     from dfvod_tpu_torch.models import build_model
-    from dfvod_tpu_torch.ops import hat_sample, msda
+    from dfvod_tpu_torch.utils import trace
     from dfvod_tpu_torch.utils.config import Config, ModelConfig
     small = dict(fusion_type="LateFusion", num_queries=100, hidden_dim=64,
                  nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128)
@@ -2299,11 +2301,12 @@ def phase_small_temporal_reference():
         gpu_model.load_state_dict(cpu_model.state_dict())
         x, s = clip_frames(7, n_clips=2, F=1 + kw["num_ref_frames"], h=96,
                            w=128)
-        msda.ms_deform_attn.launches = hat_sample.hat_sample.launches = 0
+        k1, k3 = trace.counter("msda_fwd"), trace.counter("hat_sample")
         with torch.no_grad():
             ref = cpu_model(*device_normalize(x, s))
             got = gpu_model(*device_normalize(x.cuda(), s.cuda()))
-        k1, k3 = msda.ms_deform_attn.launches, hat_sample.hat_sample.launches
+        k1, k3 = (trace.counter("msda_fwd") - k1,
+                  trace.counter("hat_sample") - k3)
         check(k1 == k1_want and k3 == k3_want,
               f"small {name} on the card launched msda_fwd {k1} and "
               f"hat_sample_fwd {k3} times, not {k1_want} and {k3_want}")
@@ -2571,15 +2574,17 @@ class msda_levels:
             layers.ms_deform_attn = self._kernel
 
 
-def kernel_counters():
-    """{kernel: the wrapper whose ``launches`` counts its launches}."""
-    from dfvod_tpu_torch.ops import (corner_gather, fused_bottleneck,
-                                     hat_sample, lapjv, msda)
-    return dict(zip(KERNELS, (
-        msda.ms_deform_attn, hat_sample.hat_sample, msda.ms_deform_attn_bwd,
-        hat_sample.hat_sample_bwd, corner_gather.corner_gather,
-        hat_sample.hat_sample_sparse,
-        fused_bottleneck.fused_bottleneck_stage, lapjv.lapjv)))
+# {kernel: the counter of ``dfvod_tpu_torch/utils/trace.py`` that counts
+# its launches}
+KERNEL_COUNTERS = dict(zip(KERNELS, (
+    "msda_fwd", "hat_sample", "msda_bwd", "hat_sample_bwd", "corner_gather",
+    "hat_sample_sparse", "fused_bottleneck", "lapjv")))
+
+
+def launch_counts():
+    """{kernel: its launches so far}."""
+    from dfvod_tpu_torch.utils import trace
+    return {k: trace.counter(c) for k, c in KERNEL_COUNTERS.items()}
 
 
 def want_launches(**nonzero):
@@ -2588,14 +2593,12 @@ def want_launches(**nonzero):
 
 
 def counted(fn):
-    """(fn(), {kernel: launches}): every kernel's count set to 0 just before
-    ``fn`` and read just after."""
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
+    """(fn(), {kernel: launches}): every kernel's count read just before
+    ``fn`` and just after."""
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: c.launches for k, c in counters.items()}
+    return out, {k: n - before[k] for k, n in launch_counts().items()}
 
 
 def step_on_cpu_and_card(cfg, batch):
@@ -3775,17 +3778,15 @@ class CliProbe:
 
     @staticmethod
     def _wrap(fn, into):
-        counters = kernel_counters()
-
         def probe(*args, **kw):
-            before = {k: c.launches for k, c in counters.items()}
+            before = launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             into.append((1e3 * (time.perf_counter() - t0),
-                         {k: c.launches - before[k]
-                          for k, c in counters.items()}))
+                         {k: n - before[k]
+                          for k, n in launch_counts().items()}))
             return out
         return probe
 

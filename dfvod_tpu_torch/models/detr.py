@@ -53,6 +53,7 @@ from dfvod_tpu_torch.models.research import (
 from dfvod_tpu_torch.models.segmentation import LATERAL_STAGES, MaskBranch
 from dfvod_tpu_torch.models.transformer import DeformableTransformer
 from dfvod_tpu_torch.utils.config import ModelConfig, check_supported
+from dfvod_tpu_torch.utils.trace import span
 
 RESNET50_STAGE_CHANNELS = {1: 256, 2: 512, 3: 1024, 4: 2048}
 DFORMER_CHANNELS = 128
@@ -145,10 +146,12 @@ class DeformableDETR(nn.Module):
             raise ValueError(f"{cfg.fusion_type} takes {channels}-channel "
                              f"images, not {images.shape[-1]}")
         if self.cross_fusion_backbone:
-            feats, masks, _, _ = self.backbone(images[..., :3],
-                                               images[..., 3:4], mask)
+            with span("backbone"):
+                feats, masks, _, _ = self.backbone(images[..., :3],
+                                                   images[..., 3:4], mask)
         else:
-            stage_outs = self.backbone(images[..., :3])
+            with span("backbone"):
+                stage_outs = self.backbone(images[..., :3])
             feats = [stage_outs[s] for s in cfg.backbone_stages]
             masks = [downsample_mask(mask, tuple(f.shape[1:3]))
                      for f in feats]
@@ -164,7 +167,8 @@ class DeformableDETR(nn.Module):
 
         depth_feats = depth_masks = depth_pos = None
         if self.depth_tokens:
-            dfeat, dmask = self.depth_backbone(images[..., 3:4], mask)
+            with span("depth_backbone"):
+                dfeat, dmask = self.depth_backbone(images[..., 3:4], mask)
             depth_feats = [self.input_proj_depth_0(dfeat)]
             depth_masks = [dmask]
             depth_pos = [sine_position_embedding(~dmask, cfg.hidden_dim // 2)]

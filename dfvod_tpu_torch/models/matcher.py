@@ -27,6 +27,7 @@ from dfvod_tpu_torch.utils.box_ops import (
     box_cxcywh_to_xyxy,
     generalized_box_iou,
 )
+from dfvod_tpu_torch.utils.trace import span
 
 BIG_COST = 1e6
 
@@ -100,37 +101,39 @@ def match_layers(outputs_list, targets, loss_cfg, binary=(), backend="auto"):
     if backend not in ("lapjv", "scipy"):
         raise ValueError(f"matcher backend {backend!r}: 'auto', 'lapjv' or "
                          f"'scipy'")
-    labels = targets["labels"]
-    valid = targets["valid"]
-    binary = list(binary or [False] * len(outputs_list))
-    costs = [torch.nan_to_num(
-        matching_cost(o["pred_logits"].detach().float(),
-                      o["pred_boxes"].detach().float(),
-                      torch.zeros_like(labels) if is_bin else labels,
-                      targets["boxes"].float(), valid,
-                      loss_cfg.set_cost_class, loss_cfg.set_cost_bbox,
-                      loss_cfg.set_cost_giou),
-        nan=1e9, posinf=1e9, neginf=-1e9)
-        for o, is_bin in zip(outputs_list, binary)]
-    if backend == "lapjv":
-        # one launch per (target kind, Q): the decoder layers, the proposals
-        groups = [(is_bin, c.shape[1]) for is_bin, c in zip(binary, costs)]
-        assign = [None] * len(costs)
-        for key in dict.fromkeys(groups):
-            at = [k for k, g in enumerate(groups) if g == key]
-            got = hungarian_lapjv(torch.cat([costs[k] for k in at]),
-                                  valid.repeat(len(at), 1))
-            for k, a in zip(at, got.view(len(at), *valid.shape)):
-                assign[k] = a
-        return torch.stack(assign)
-    # one device-to-host copy for every cost and the valid mask together
-    flat = torch.cat([c.reshape(-1) for c in costs]
-                     + [valid.to(costs[0].dtype).reshape(-1)])
-    host = flat.cpu().numpy()
-    valid_np = host[-valid.numel():].reshape(valid.shape) > 0.5
-    assign, at = [], 0
-    for c in costs:
-        assign.append(solve(host[at:at + c.numel()].reshape(c.shape),
-                            valid_np))
-        at += c.numel()
-    return torch.from_numpy(np.stack(assign)).to(costs[0].device)
+    with span("matcher"):
+        labels = targets["labels"]
+        valid = targets["valid"]
+        binary = list(binary or [False] * len(outputs_list))
+        costs = [torch.nan_to_num(
+            matching_cost(o["pred_logits"].detach().float(),
+                          o["pred_boxes"].detach().float(),
+                          torch.zeros_like(labels) if is_bin else labels,
+                          targets["boxes"].float(), valid,
+                          loss_cfg.set_cost_class, loss_cfg.set_cost_bbox,
+                          loss_cfg.set_cost_giou),
+            nan=1e9, posinf=1e9, neginf=-1e9)
+            for o, is_bin in zip(outputs_list, binary)]
+        if backend == "lapjv":
+            # one launch per (target kind, Q): the decoder layers, the
+            # proposals
+            groups = [(is_bin, c.shape[1]) for is_bin, c in zip(binary, costs)]
+            assign = [None] * len(costs)
+            for key in dict.fromkeys(groups):
+                at = [k for k, g in enumerate(groups) if g == key]
+                got = hungarian_lapjv(torch.cat([costs[k] for k in at]),
+                                      valid.repeat(len(at), 1))
+                for k, a in zip(at, got.view(len(at), *valid.shape)):
+                    assign[k] = a
+            return torch.stack(assign)
+        # one device-to-host copy for every cost and the valid mask together
+        flat = torch.cat([c.reshape(-1) for c in costs]
+                         + [valid.to(costs[0].dtype).reshape(-1)])
+        host = flat.cpu().numpy()
+        valid_np = host[-valid.numel():].reshape(valid.shape) > 0.5
+        assign, at = [], 0
+        for c in costs:
+            assign.append(solve(host[at:at + c.numel()].reshape(c.shape),
+                                valid_np))
+            at += c.numel()
+        return torch.from_numpy(np.stack(assign)).to(costs[0].device)

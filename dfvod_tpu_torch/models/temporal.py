@@ -61,6 +61,7 @@ from dfvod_tpu_torch.parallel.dist import (
 )
 from dfvod_tpu_torch.utils.box_ops import box_cxcywh_to_xyxy, inverse_sigmoid
 from dfvod_tpu_torch.utils.config import ModelConfig, check_supported
+from dfvod_tpu_torch.utils.trace import span
 
 
 # the trunk outputs the temporal heads read, gathered under clip-parallel
@@ -292,42 +293,45 @@ class TemporalDeformableDETR(nn.Module):
         B = BF // F
 
         out_sf = self._trunk_outputs(images, mask)
-        trunk = out_sf["_trunk"]
-        if cfg.fixed_pretrained_model:
-            trunk = {k: v if k == "spatial_shapes" else v.detach()
-                     for k, v in trunk.items()}
-            out_sf = {**out_sf,
-                      "pred_logits": out_sf["pred_logits"].detach(),
-                      "pred_boxes": out_sf["pred_boxes"].detach()}
+        # the span of the temporal head (``utils/trace.py``): from the
+        # trunk's outputs to the heads'
+        with span("temporal"):
+            trunk = out_sf["_trunk"]
+            if cfg.fixed_pretrained_model:
+                trunk = {k: v if k == "spatial_shapes" else v.detach()
+                         for k, v in trunk.items()}
+                out_sf = {**out_sf,
+                          "pred_logits": out_sf["pred_logits"].detach(),
+                          "pred_boxes": out_sf["pred_boxes"].detach()}
 
-        def split(x):
-            """(B*F, ...) -> key (B, ...), refs (B, N, ...)."""
-            x = x.reshape(B, F, *x.shape[1:])
-            return x[:, 0], x[:, 1:]
+            def split(x):
+                """(B*F, ...) -> key (B, ...), refs (B, N, ...)."""
+                x = x.reshape(B, F, *x.shape[1:])
+                return x[:, 0], x[:, 1:]
 
-        memory, pos_flat = trunk["memory"], trunk["pos_flat"]
-        hs = trunk["hs_last"]
-        N, Q, S = cfg.num_ref_frames, hs.shape[1], memory.shape[1]
-        cur_memory, ref_memory = split(memory)
-        cur_pos, ref_pos = split(pos_flat)
-        ref_memory = (ref_memory + ref_pos).reshape(B, N * S, -1)
-        cur_hs, ref_hs = split(hs)
-        ref_hs = ref_hs.reshape(B, N * Q, -1)
-        cur_ref = split(trunk["last_reference"])[0]
-        valid_ratios = split(trunk["valid_ratios"])[0]        # (B, L, 2)
-        # per-frame logits of the trunk's last head
-        ref_logits = split(out_sf["pred_logits"])[1].reshape(B, N * Q, -1)
-        ref_prob = torch.sigmoid(ref_logits)
+            memory, pos_flat = trunk["memory"], trunk["pos_flat"]
+            hs = trunk["hs_last"]
+            N, Q, S = cfg.num_ref_frames, hs.shape[1], memory.shape[1]
+            cur_memory, ref_memory = split(memory)
+            cur_pos, ref_pos = split(pos_flat)
+            ref_memory = (ref_memory + ref_pos).reshape(B, N * S, -1)
+            cur_hs, ref_hs = split(hs)
+            ref_hs = ref_hs.reshape(B, N * Q, -1)
+            cur_ref = split(trunk["last_reference"])[0]
+            valid_ratios = split(trunk["valid_ratios"])[0]        # (B, L, 2)
+            # per-frame logits of the trunk's last head
+            ref_logits = split(out_sf["pred_logits"])[1].reshape(B, N * Q, -1)
+            ref_prob = torch.sigmoid(ref_logits)
 
-        if cfg.temporal_mode == "transvod":
-            out = self._transvod(cur_memory, cur_pos, ref_memory, cur_hs,
-                                 ref_hs, ref_prob, cur_ref,
-                                 trunk["spatial_shapes"], valid_ratios)
-        else:
-            out = self._transvod_pp(trunk, cur_memory, cur_hs, ref_prob,
-                                    cur_ref, valid_ratios, mask, B)
-        out["_single_frame"] = _key_frame_outputs(out_sf, B, F)
-        return out
+            if cfg.temporal_mode == "transvod":
+                out = self._transvod(cur_memory, cur_pos, ref_memory, cur_hs,
+                                     ref_hs, ref_prob, cur_ref,
+                                     trunk["spatial_shapes"], valid_ratios)
+            else:
+                out = self._transvod_pp(trunk, cur_memory, cur_hs, ref_prob,
+                                        cur_ref, valid_ratios, mask, B)
+            out["_single_frame"] = _key_frame_outputs(out_sf, B, F)
+            return out
 
     def _transvod(self, cur_memory, cur_pos, ref_memory, cur_hs, ref_hs,
                   ref_prob, cur_ref, spatial_shapes, valid_ratios):

@@ -40,6 +40,7 @@ from dfvod_tpu_torch.models.layers import (
 )
 from dfvod_tpu_torch.models.position_encoding import proposal_pos_embed
 from dfvod_tpu_torch.utils.box_ops import inverse_sigmoid
+from dfvod_tpu_torch.utils.trace import span
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
 
@@ -322,124 +323,131 @@ class DeformableTransformer(nn.Module):
         Returns dict: outputs_class (num_layers, B, Q, K), outputs_coord
         (num_layers, B, Q, 4), the trunk state and, two-stage, every
         encoder token's enc_outputs_class (B, S, K) and enc_outputs_coord
-        (B, S, 4).
+        (B, S, 4). The encoder, with the depth fusion, is the span
+        ``trunk.encoder``; the queries, the decoder and its heads are
+        ``trunk.decoder`` (``utils/trace.py``).
         """
-        src_flat, mask_flat, pos_flat, spatial_shapes = flatten_levels(
-            srcs, masks, pos_embeds, self.level_embed)
-        valid_ratios = torch.stack([get_valid_ratio(m) for m in masks],
-                                   dim=1)
-        B = src_flat.shape[0]
-        ref_points_enc = encoder_reference_points(spatial_shapes,
-                                                  valid_ratios)
+        with span("trunk.encoder"):
+            src_flat, mask_flat, pos_flat, spatial_shapes = flatten_levels(
+                srcs, masks, pos_embeds, self.level_embed)
+            valid_ratios = torch.stack([get_valid_ratio(m) for m in masks],
+                                       dim=1)
+            B = src_flat.shape[0]
+            ref_points_enc = encoder_reference_points(spatial_shapes,
+                                                      valid_ratios)
 
-        if self.fusion != "none":
-            if depth_srcs is None:
-                raise ValueError(f"fusion={self.fusion!r} needs depth "
-                                 "features")
-            # depth has no level embedding
-            depth_flat, depth_mask_flat, _, depth_shapes = flatten_levels(
-                depth_srcs, depth_masks, depth_pos_embeds)
-        if self.fusion == "late":
-            src_flat = src_flat + self.depth_encoder_layer(
-                src_flat, pos_flat, ref_points_enc, depth_flat,
-                depth_shapes, depth_mask_flat)
+            if self.fusion != "none":
+                if depth_srcs is None:
+                    raise ValueError(f"fusion={self.fusion!r} needs depth "
+                                     "features")
+                # depth has no level embedding
+                depth_flat, depth_mask_flat, _, depth_shapes = flatten_levels(
+                    depth_srcs, depth_masks, depth_pos_embeds)
+            if self.fusion == "late":
+                src_flat = src_flat + self.depth_encoder_layer(
+                    src_flat, pos_flat, ref_points_enc, depth_flat,
+                    depth_shapes, depth_mask_flat)
 
-        output = src_flat
-        if self.num_enc_fusion_layers:
-            # the JAX package's rule: where the RGB and depth token grids
-            # coincide (one level at the same stride, as in the recipes),
-            # each fusion layer reads the previous fusion layer's output
-            # under the RGB mask; otherwise every one reads the depth
-            # tokens under the depth mask
-            same_tokens = mask_flat.shape[1] == depth_mask_flat.shape[1]
-            fusion_src = depth_flat
-            fusion_mask = mask_flat if same_tokens else depth_mask_flat
-        remat = self.remat and self.training and torch.is_grad_enabled()
-        for i in range(self.num_encoder_layers):
-            layer = getattr(self, f"encoder_layers_{i}")
-            args = (output, pos_flat, ref_points_enc, spatial_shapes,
+            output = src_flat
+            if self.num_enc_fusion_layers:
+                # the JAX package's rule: where the RGB and depth token grids
+                # coincide (one level at the same stride, as in the recipes),
+                # each fusion layer reads the previous fusion layer's output
+                # under the RGB mask; otherwise every one reads the depth
+                # tokens under the depth mask
+                same_tokens = mask_flat.shape[1] == depth_mask_flat.shape[1]
+                fusion_src = depth_flat
+                fusion_mask = mask_flat if same_tokens else depth_mask_flat
+            remat = self.remat and self.training and torch.is_grad_enabled()
+            for i in range(self.num_encoder_layers):
+                layer = getattr(self, f"encoder_layers_{i}")
+                args = (output, pos_flat, ref_points_enc, spatial_shapes,
+                        mask_flat)
+                output = remat_call(layer, *args) if remat else layer(*args)
+                if i < self.num_enc_fusion_layers:
+                    fused = getattr(self, f"fusion_layers_{i}")(
+                        output, pos_flat, ref_points_enc, fusion_src,
+                        depth_shapes, fusion_mask)
+                    if same_tokens:
+                        fusion_src = fused
+                    output = output + fused
+            memory = output
+
+        with span("trunk.decoder"):
+            if self.two_stage:
+                output_memory, proposals = gen_encoder_output_proposals(
+                    memory, mask_flat, spatial_shapes)
+                output_memory = self.enc_output_norm(
+                    self.enc_output(output_memory))
+                enc_logits, enc_deltas = self._head(self.num_decoder_layers)(
+                    output_memory)
+                enc_coord_unact = enc_deltas + proposals
+                topk_idx = proposal_topk(enc_logits[..., 0], self.num_queries)
+                topk_coords_unact = torch.gather(
+                    enc_coord_unact, 1,
+                    topk_idx[..., None].expand(-1, -1, 4)).detach()
+                reference_points = torch.sigmoid(topk_coords_unact)
+                d = memory.shape[-1]
+                pos_trans_out = self.pos_trans_norm(self.pos_trans(
+                    proposal_pos_embed(topk_coords_unact, d // 2
+                                       ).to(memory.dtype)))
+                query_pos, tgt = torch.split(pos_trans_out, d, dim=-1)
+            else:
+                # query_embed splits as (query_pos, tgt)
+                query_pos, tgt = torch.split(
+                    self.query_embed, self.query_embed.shape[1] // 2, dim=-1)
+                query_pos = query_pos[None].expand(B, -1, -1)
+                tgt = tgt[None].expand(B, -1, -1)
+                reference_points = torch.sigmoid(
+                    self.reference_points(query_pos))
+            init_reference = reference_points
+
+            outputs_classes, outputs_coords = [], []
+            output = tgt
+            for lid in range(self.num_decoder_layers):
+                if reference_points.shape[-1] == 4:
+                    ref_input = (reference_points[:, :, None]
+                                 * torch.cat([valid_ratios, valid_ratios],
+                                             dim=-1)[:, None])
+                else:
+                    ref_input = (reference_points[:, :, None]
+                                 * valid_ratios[:, None])
+                output = getattr(self, f"decoder_layers_{lid}")(
+                    output, query_pos, ref_input, memory, spatial_shapes,
                     mask_flat)
-            output = remat_call(layer, *args) if remat else layer(*args)
-            if i < self.num_enc_fusion_layers:
-                fused = getattr(self, f"fusion_layers_{i}")(
-                    output, pos_flat, ref_points_enc, fusion_src,
-                    depth_shapes, fusion_mask)
-                if same_tokens:
-                    fusion_src = fused
-                output = output + fused
-        memory = output
 
-        if self.two_stage:
-            output_memory, proposals = gen_encoder_output_proposals(
-                memory, mask_flat, spatial_shapes)
-            output_memory = self.enc_output_norm(
-                self.enc_output(output_memory))
-            enc_logits, enc_deltas = self._head(self.num_decoder_layers)(
-                output_memory)
-            enc_coord_unact = enc_deltas + proposals
-            topk_idx = proposal_topk(enc_logits[..., 0], self.num_queries)
-            topk_coords_unact = torch.gather(
-                enc_coord_unact, 1,
-                topk_idx[..., None].expand(-1, -1, 4)).detach()
-            reference_points = torch.sigmoid(topk_coords_unact)
-            d = memory.shape[-1]
-            pos_trans_out = self.pos_trans_norm(self.pos_trans(
-                proposal_pos_embed(topk_coords_unact, d // 2
-                                   ).to(memory.dtype)))
-            query_pos, tgt = torch.split(pos_trans_out, d, dim=-1)
-        else:
-            # query_embed splits as (query_pos, tgt)
-            query_pos, tgt = torch.split(
-                self.query_embed, self.query_embed.shape[1] // 2, dim=-1)
-            query_pos = query_pos[None].expand(B, -1, -1)
-            tgt = tgt[None].expand(B, -1, -1)
-            reference_points = torch.sigmoid(self.reference_points(query_pos))
-        init_reference = reference_points
+                # per-layer outputs, computed against the layer's *input*
+                # reference
+                logits, deltas = self._head(lid)(output)
+                ref_unact = inverse_sigmoid(reference_points)
+                if reference_points.shape[-1] == 4:
+                    coord = torch.sigmoid(deltas + ref_unact)
+                else:
+                    coord = torch.sigmoid(torch.cat(
+                        [deltas[..., :2] + ref_unact, deltas[..., 2:]],
+                        dim=-1))
+                outputs_classes.append(logits)
+                outputs_coords.append(coord)
 
-        outputs_classes, outputs_coords = [], []
-        output = tgt
-        for lid in range(self.num_decoder_layers):
-            if reference_points.shape[-1] == 4:
-                ref_input = (reference_points[:, :, None]
-                             * torch.cat([valid_ratios, valid_ratios],
-                                         dim=-1)[:, None])
-            else:
-                ref_input = reference_points[:, :, None] * valid_ratios[:,
-                                                                        None]
-            output = getattr(self, f"decoder_layers_{lid}")(
-                output, query_pos, ref_input, memory, spatial_shapes,
-                mask_flat)
+                if self.with_box_refine:
+                    reference_points = refine_reference(deltas,
+                                                        reference_points)
 
-            # per-layer outputs, computed against the layer's *input*
-            # reference
-            logits, deltas = self._head(lid)(output)
-            ref_unact = inverse_sigmoid(reference_points)
-            if reference_points.shape[-1] == 4:
-                coord = torch.sigmoid(deltas + ref_unact)
-            else:
-                coord = torch.sigmoid(torch.cat(
-                    [deltas[..., :2] + ref_unact, deltas[..., 2:]], dim=-1))
-            outputs_classes.append(logits)
-            outputs_coords.append(coord)
-
-            if self.with_box_refine:
-                reference_points = refine_reference(deltas, reference_points)
-
-        out = {
-            "outputs_class": torch.stack(outputs_classes),
-            "outputs_coord": torch.stack(outputs_coords),
-            "init_reference": init_reference,
-            "memory": memory,
-            "mask_flat": mask_flat,
-            "spatial_shapes": spatial_shapes,
-            "valid_ratios": valid_ratios,
-            "query_pos": query_pos,
-            "pos_flat": pos_flat,
-            "hs_last": output,
-            "last_reference": reference_points,
-            "last_deltas": deltas,
-        }
-        if self.two_stage:
-            out["enc_outputs_class"] = enc_logits
-            out["enc_outputs_coord"] = torch.sigmoid(enc_coord_unact)
-        return out
+            out = {
+                "outputs_class": torch.stack(outputs_classes),
+                "outputs_coord": torch.stack(outputs_coords),
+                "init_reference": init_reference,
+                "memory": memory,
+                "mask_flat": mask_flat,
+                "spatial_shapes": spatial_shapes,
+                "valid_ratios": valid_ratios,
+                "query_pos": query_pos,
+                "pos_flat": pos_flat,
+                "hs_last": output,
+                "last_reference": reference_points,
+                "last_deltas": deltas,
+            }
+            if self.two_stage:
+                out["enc_outputs_class"] = enc_logits
+                out["enc_outputs_coord"] = torch.sigmoid(enc_coord_unact)
+            return out

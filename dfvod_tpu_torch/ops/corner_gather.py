@@ -31,6 +31,7 @@ import functools
 import torch
 
 from dfvod_tpu_torch.ops import build
+from dfvod_tpu_torch.utils import trace
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))   # (dy, dx)
@@ -149,23 +150,21 @@ def corner_gather_cuda(value, idx, w):
     if rc > 0:
         raise RuntimeError("corner_gather_fwd launch failed: "
                            + lib.corner_gather_fwd_error_string(rc).decode())
-    corner_gather.launches += 1
+    trace.count("corner_gather")
     return out
 
 
 def corner_gather(value, idx, w):
     """The weighted row gather: the plain version for CPU tensors, K5b/c
     (``csrc/corner_gather_fwd.cu``) for CUDA tensors.
-    ``corner_gather.launches`` counts kernel launches."""
+    The counter ``corner_gather`` (``utils/trace.py``) counts kernel
+    launches."""
     if value.device.type == "cpu":
         return corner_gather_plain(value, idx, w)
     if value.device.type != "cuda":
         raise ValueError(f"corner_gather runs on cpu or cuda, not "
                          f"{value.device}")
     return corner_gather_cuda(value, idx, w)
-
-
-corner_gather.launches = 0
 
 
 def onehot_sample(v_bm, idx_bm, w_bm):

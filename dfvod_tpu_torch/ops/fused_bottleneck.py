@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from dfvod_tpu_torch.ops import build
+from dfvod_tpu_torch.utils import trace
 
 _BLOCK = 8   # tensors per block in ``weights``
 
@@ -174,7 +175,7 @@ def fused_stage_cuda(x, weights):
             raise RuntimeError(
                 "fused_bottleneck_block launch failed: "
                 + lib.fused_bottleneck_block_error_string(rc).decode())
-        fused_bottleneck_stage.launches += 1
+        trace.count("fused_bottleneck")
         y = out
     return y
 
@@ -212,12 +213,9 @@ class FusedStageFunction(torch.autograd.Function):
 def fused_bottleneck_stage(x, weights):
     """The stage through ``FusedStageFunction``: x ``(B, H, W, Cin)``,
     ``weights`` per block as the module docstring says.
-    ``fused_bottleneck_stage.launches`` counts K6 launches (one per
-    block)."""
+    The counter ``fused_bottleneck`` (``utils/trace.py``) counts K6
+    launches (one per block)."""
     flat = [t for blk in weights for t in blk]
     if len(flat) != _BLOCK * len(weights):
         raise ValueError("each block is (w1, b1, w2, b2, w3, b3, wd, bd)")
     return FusedStageFunction.apply(x, *flat)
-
-
-fused_bottleneck_stage.launches = 0

@@ -57,6 +57,7 @@ import functools
 import torch
 
 from dfvod_tpu_torch.ops import build
+from dfvod_tpu_torch.utils import trace
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -250,7 +251,7 @@ def hat_sample_cuda(value, px, py, aw, grid=None):
                                 aw.data_ptr(), out.data_ptr(), BM, H, W, D,
                                 Lq, PL, _DTYPE_CODES[v.dtype], stream)
     _raise_on("hat_sample_fwd", lib, rc)
-    hat_sample.launches += 1
+    trace.count("hat_sample")
     return out
 
 
@@ -278,7 +279,7 @@ def hat_sample_sparse_cuda(v_bm, spatial_shapes, px, py, aw):
             out.data_ptr(), BM, S, D, Lq, len(shapes), P, table,
             _DTYPE_CODES[v_bm.dtype], stream)
     _raise_on("hat_sample_sparse_fwd", lib, rc)
-    hat_sample_sparse.launches += 1
+    trace.count("hat_sample_sparse")
     return out
 
 
@@ -332,7 +333,7 @@ def hat_sample_bwd_cuda(value, px, py, aw, grad_out, grid=None,
             ptr(gaw), BM, H, W, D, Lq, PL, _DTYPE_CODES[v.dtype],
             _DTYPE_CODES[grad_out.dtype], stream)
     _raise_on("hat_sample_bwd", lib, rc)
-    hat_sample_bwd.launches += 1
+    trace.count("hat_sample_bwd")
     return (None if gv is None else gv.reshape(value.shape),
             gpx if need_x else None, gpy if need_y else None,
             gaw if need_a else None)
@@ -362,8 +363,9 @@ class HatSampleFunction(torch.autograd.Function):
 def hat_sample(value, px, py, aw, grid=None):
     """Weighted bilinear sampling: the plain version for CPU tensors
     (autograd differentiates it), ``HatSampleFunction`` (K3 forward, K4
-    backward) for CUDA tensors. ``hat_sample.launches`` counts forward
-    kernel launches, ``hat_sample_bwd.launches`` backward ones."""
+    backward) for CUDA tensors. The counters ``hat_sample`` and
+    ``hat_sample_bwd`` (``utils/trace.py``) count forward and backward
+    kernel launches."""
     if value.device.type == "cpu":
         return hat_sample_plain(value, px, py, aw, grid)
     if value.device.type != "cuda":
@@ -373,24 +375,19 @@ def hat_sample(value, px, py, aw, grid=None):
     return HatSampleFunction.apply(value, px, py, aw, grid)
 
 
-hat_sample.launches = 0
-
-
 def hat_sample_sparse(v_bm, spatial_shapes, px, py, aw):
     """Weighted bilinear sampling over MSDA's levels stacked along y:
     v_bm ``(BM, S, D)``, px/py/aw ``(BM, Lq, L * P)`` f32 with py carrying
     the level offsets; returns ``(BM, Lq, D)``. The plain version for CPU
     tensors, K5a (``csrc/hat_sample_sparse_fwd.cu``) for CUDA tensors;
-    ``hat_sample_sparse.launches`` counts the launches."""
+    the counter ``hat_sample_sparse`` (``utils/trace.py``) counts the
+    launches."""
     if v_bm.device.type == "cpu":
         return hat_sample_sparse_plain(v_bm, spatial_shapes, px, py, aw)
     if v_bm.device.type != "cuda":
         raise ValueError(f"hat_sample_sparse runs on cpu or cuda, not "
                          f"{v_bm.device}")
     return hat_sample_sparse_cuda(v_bm, spatial_shapes, px, py, aw)
-
-
-hat_sample_sparse.launches = 0
 
 
 def hat_sample_bwd(value, px, py, aw, grad_out, grid=None,
@@ -405,9 +402,6 @@ def hat_sample_bwd(value, px, py, aw, grad_out, grid=None,
         raise ValueError(f"hat_sample_bwd runs on cpu or cuda, not "
                          f"{value.device}")
     return hat_sample_bwd_cuda(value, px, py, aw, grad_out, grid, needs)
-
-
-hat_sample_bwd.launches = 0
 
 
 def bwd_merged_tiles():

@@ -26,7 +26,8 @@ next gather fails instead of anything looping.
 it launches the kernel or raises. The kernel's plan (``lapjv_plan``)
 spreads a problem over C CTAs (a thread-block cluster when C > 1) of W
 warps: a warp per problem up to 512 queries, a cluster for the two-stage
-proposals (up to 131,072 queries). ``lapjv.launches`` counts launches.
+proposals (up to 131,072 queries). The counter ``lapjv``
+(``utils/trace.py``) counts launches.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import functools
 import torch
 
 from dfvod_tpu_torch.ops import build
+from dfvod_tpu_torch.utils import trace
 
 # what the C entry's negative codes mean
 _REFUSALS = {
@@ -217,7 +219,7 @@ def lapjv_cuda(cost, valid, _cw=(0, 0)):
             out.data_ptr(), P, Q, T, pl["C"], pl["W"], pl["kernel_k"],
             pl["rows_in_smem"], pl["smem_bytes"], stream)
     _raise_for(rc, P, Q, T, pl["C"], pl["W"])
-    lapjv.launches += 1
+    trace.count("lapjv")
     return out
 
 
@@ -236,6 +238,4 @@ def lapjv(cost, valid):
         return lapjv_plain(cost, valid)
     return lapjv_cuda(cost, valid)
 
-
-lapjv.launches = 0
 lapjv_plain.steps = None

@@ -44,6 +44,7 @@ from typing import Sequence, Tuple
 import torch
 
 from dfvod_tpu_torch.ops import build
+from dfvod_tpu_torch.utils import trace
 from dfvod_tpu_torch.ops.corner_gather import (
     corner_gather_cuda,
     corner_gather_plain,
@@ -213,7 +214,7 @@ def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
             _DTYPE_CODES[sampling_locations.dtype],
             _DTYPE_CODES[attention_weights.dtype], stream)
     _raise_on("msda_fwd", lib, rc)
-    ms_deform_attn.launches += 1
+    trace.count("msda_fwd")
     return out
 
 
@@ -263,7 +264,7 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
             _DTYPE_CODES[sampling_locations.dtype],
             _DTYPE_CODES[attention_weights.dtype], stream)
     _raise_on("msda_bwd", lib, rc)
-    ms_deform_attn_bwd.launches += 1
+    trace.count("msda_bwd")
     return grad_value, grad_loc, grad_attw
 
 
@@ -328,9 +329,8 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations,
     versions for CPU tensors (autograd differentiates them),
     ``MSDeformAttnFunction`` (K1) or ``MSDeformAttnGatherFunction`` (K5b/c)
     for CUDA tensors, both with K2 as their backward.
-    ``ms_deform_attn.launches`` counts K1 launches,
-    ``corner_gather.launches`` K5b/c ones, ``ms_deform_attn_bwd.launches``
-    K2 ones."""
+    The counters ``msda_fwd``, ``corner_gather`` and ``msda_bwd``
+    (``utils/trace.py``) count K1, K5b/c and K2 launches."""
     gather = resolve_impl(impl) in GATHER_IMPLS
     if value.device.type == "cpu":
         plain = ms_deform_attn_flat_plain if gather else ms_deform_attn_plain
@@ -343,9 +343,6 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations,
     fn = MSDeformAttnGatherFunction if gather else MSDeformAttnFunction
     return fn.apply(value, spatial_shapes, sampling_locations,
                     attention_weights)
-
-
-ms_deform_attn.launches = 0
 
 
 def ms_deform_attn_plain_bwd(value, spatial_shapes, sampling_locations,
@@ -374,6 +371,3 @@ def ms_deform_attn_bwd(value, spatial_shapes, sampling_locations,
                          f"{value.device}")
     return ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
                                    attention_weights, grad_out)
-
-
-ms_deform_attn_bwd.launches = 0

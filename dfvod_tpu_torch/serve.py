@@ -18,6 +18,10 @@ request, runs the trunk on its contiguous rows of the frames, and gathers
 what the heads read (``models/temporal.py``); a request whose frames do
 not divide over the ranks raises, as the JAX sharding does. Every rank
 returns the same detections.
+
+Each call is the span ``serve.request`` with the children
+``serve.normalize``, ``serve.model`` and ``serve.postprocess``
+(``utils/trace.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from dfvod_tpu_torch.parallel.dist import world
 from dfvod_tpu_torch.utils.config import Config
 from dfvod_tpu_torch.utils.convert import load_jax_variables
 from dfvod_tpu_torch.utils.device import as_tensor
+from dfvod_tpu_torch.utils.trace import span
 
 
 class Server:
@@ -66,25 +71,29 @@ class Server:
     @torch.no_grad()
     def forward(self, images_u8, sizes):
         """The model's output dict for one request (see ``__call__``)."""
-        images_u8 = as_tensor(images_u8, self.device)
-        sizes = as_tensor(sizes, self.device)
-        if images_u8.dtype != torch.uint8 or images_u8.dim() != 4:
-            raise ValueError("images must be uint8 (B, H, W, C)")
-        if images_u8.shape[0] % self.frames:
-            raise ValueError(f"{images_u8.shape[0]} frames are not whole "
-                             f"clips of {self.frames}")
-        if sizes.shape != (images_u8.shape[0], 2):
-            raise ValueError(f"sizes must be ({images_u8.shape[0]}, 2), not "
-                             f"{tuple(sizes.shape)}")
-        img, mask = normalize_frames(images_u8, sizes)
-        return self.model(img.to(self.dtype), mask)
+        with span("serve.normalize"):
+            images_u8 = as_tensor(images_u8, self.device)
+            sizes = as_tensor(sizes, self.device)
+            if images_u8.dtype != torch.uint8 or images_u8.dim() != 4:
+                raise ValueError("images must be uint8 (B, H, W, C)")
+            if images_u8.shape[0] % self.frames:
+                raise ValueError(f"{images_u8.shape[0]} frames are not "
+                                 f"whole clips of {self.frames}")
+            if sizes.shape != (images_u8.shape[0], 2):
+                raise ValueError(f"sizes must be ({images_u8.shape[0]}, 2), "
+                                 f"not {tuple(sizes.shape)}")
+            img, mask = normalize_frames(images_u8, sizes)
+        with span("serve.model"):
+            return self.model(img.to(self.dtype), mask)
 
     def __call__(self, images_u8, sizes):
         """images_u8: (B*F, H, W, C) uint8 frames padded bottom/right, F
         frames per clip (F = 1 for the single-frame model); sizes: (B*F, 2)
         content (h, w). Returns scores (B, k), labels (B, k) and boxes
         (B, k, 4) as xyxy pixels of the (key) frame's content."""
-        out = self.forward(images_u8, sizes)
-        key_sizes = as_tensor(sizes, self.device)[::self.frames]
-        return self.postprocess(out["pred_logits"], out["pred_boxes"],
-                                key_sizes)
+        with span("serve.request"):
+            out = self.forward(images_u8, sizes)
+            with span("serve.postprocess"):
+                key_sizes = as_tensor(sizes, self.device)[::self.frames]
+                return self.postprocess(out["pred_logits"],
+                                        out["pred_boxes"], key_sizes)

@@ -5,9 +5,11 @@ One step: ``normalize_frames`` on uint8 frames -> the forward in
 ``model.train()`` (under ``torch.autocast`` to bf16 when
 ``train_dtype="bfloat16"``, with f32 master parameters and optimizer state)
 -> the criterion in f32 -> ``backward`` -> optax-style global-norm clip ->
-one step of the grouped optimizer. The only host sync is the matcher's one
-copy of the cost matrices; the metrics come back as device tensors. A
-non-finite loss is reported in the metrics, not raised.
+one step of the grouped optimizer. The criterion (the matcher runs on the
+device), the backward and the update do not synchronise; the forward does
+where it copies the batch and small constants to the card (the ``sync.*``
+counters of ``utils/trace.py`` count them); the metrics come back as
+device tensors. A non-finite loss is reported in the metrics, not raised.
 
 The batch is the dict of ``dfvod_tpu/cli/main.py::to_batch``: ``images``
 uint8 (B, H, W, C) with ``sizes`` (B, 2), ``labels`` (B, T), ``boxes``
@@ -64,6 +66,7 @@ from dfvod_tpu_torch.train.optim import (
 )
 from dfvod_tpu_torch.utils.config import Config, check_supported
 from dfvod_tpu_torch.utils.device import as_tensor
+from dfvod_tpu_torch.utils.trace import span
 
 TRAIN_DTYPES = ("float32", "bfloat16")
 
@@ -215,11 +218,20 @@ def train_step(state: TrainState, criterion, batch) -> Dict[str,
     """One optimizer step. Returns {loss, grad_norm, loss_ce, loss_bbox,
     loss_giou, cardinality_error, loss_ce_0, ...} as device tensors;
     ``grad_norm`` is the global norm before clipping. Under data
-    parallelism each is the mean over the ranks (the global batch's)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, parts = criterion(*forward(state, batch))
-    loss.backward()
-    grad_norm = apply_gradients(state)
-    metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
-    metrics.update({k: v.detach() for k, v in parts.items()})
-    return parallel.reduce_mean(metrics)
+    parallelism each is the mean over the ranks (the global batch's).
+    The step is the span ``train.step`` with the children
+    ``train.forward``, ``train.criterion``, ``train.backward`` and
+    ``train.update`` (``utils/trace.py``)."""
+    with span("train.step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            out, targets = forward(state, batch)
+        with span("train.criterion"):
+            loss, parts = criterion(out, targets)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.update"):
+            grad_norm = apply_gradients(state)
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
+        metrics.update({k: v.detach() for k, v in parts.items()})
+        return parallel.reduce_mean(metrics)

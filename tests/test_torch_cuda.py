@@ -42,6 +42,7 @@ from dfvod_tpu_torch.ops.lapjv import (lapjv, lapjv_cuda, lapjv_plain,
                                        lapjv_plan)
 from dfvod_tpu_torch.ops.roi_align import roi_align
 from dfvod_tpu_torch.train.engine import create_train_state, forward
+from dfvod_tpu_torch.utils import trace
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
 from torch_hat_patterns import PATTERNS, point_pattern
 
@@ -111,10 +112,10 @@ def test_kernel_matches_plain(cuda_device, case, dtypes):
     shapes, value, loc, attw, _ = msda_inputs(cuda_device, case,
                                               DTYPES[dtypes])
     B, Lq, M = loc.shape[:3]
-    before = msda.ms_deform_attn.launches
+    before = trace.counter("msda_fwd")
     got = msda.ms_deform_attn(value, shapes, loc, attw)
     torch.cuda.synchronize()
-    assert msda.ms_deform_attn.launches == before + 1
+    assert trace.counter("msda_fwd") == before + 1
     assert got.dtype == vdt and got.shape == (B, Lq, M * value.shape[-1])
     ref = msda.ms_deform_attn_plain(value.float(), shapes, finite_loc(loc),
                                     attw.float())
@@ -148,12 +149,12 @@ def test_small_model_card_matches_cpu(cuda_device):
     x = torch.randint(0, 256, (2, 96, 128, 4), generator=gen,
                       dtype=torch.uint8)
     sizes = torch.tensor([[96, 128], [60, 84]])
-    before = msda.ms_deform_attn.launches
+    before = trace.counter("msda_fwd")
     with torch.no_grad():
         ref = cpu_model(*device_normalize(x, sizes))
         got = gpu_model(*device_normalize(x.to(cuda_device),
                                           sizes.to(cuda_device)))
-    assert msda.ms_deform_attn.launches == before + 1 + 2 + 2
+    assert trace.counter("msda_fwd") == before + 1 + 2 + 2
     for k in ("pred_logits", "pred_boxes"):
         torch.testing.assert_close(got[k].cpu(), ref[k], atol=1e-4,
                                    rtol=1e-3)
@@ -224,14 +225,14 @@ def test_bwd_kernel_matches_plain(cuda_device, case, dtypes):
     shapes, value, loc, attw, go = msda_inputs(cuda_device, case,
                                                DTYPES[dtypes])
     needs = NEEDS.get(case.partition("/")[2], (True, True, True))
-    before = msda.ms_deform_attn_bwd.launches
+    before = trace.counter("msda_bwd")
     if all(needs):
         got = msda.ms_deform_attn_bwd(value, shapes, loc, attw, go)
     else:
         got = msda.ms_deform_attn_bwd_cuda(value, shapes, loc, attw, go,
                                            needs)
     torch.cuda.synchronize()
-    assert msda.ms_deform_attn_bwd.launches == before + 1
+    assert trace.counter("msda_bwd") == before + 1
     assert [g is not None for g in got] == list(needs)
     ref = msda.ms_deform_attn_plain_bwd(value.float(), shapes,
                                         finite_loc(loc), attw.float(),
@@ -274,12 +275,12 @@ def test_msda_module_grads_reach_its_projections(cuda_device):
     query = torch.randn(2, 20, 64)
     src = torch.randn(2, 60, 64)
     ref = torch.rand(2, 20, 2, 2)
-    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    fwd, bwd = trace.counter("msda_fwd"), trace.counter("msda_bwd")
     for mod, dev in ((cpu, "cpu"), (gpu, cuda_device)):
         out = mod(query.to(dev), ref.to(dev), src.to(dev), shapes)
         out.square().sum().backward()
-    assert msda.ms_deform_attn.launches == fwd + 1
-    assert msda.ms_deform_attn_bwd.launches == bwd + 1
+    assert trace.counter("msda_fwd") == fwd + 1
+    assert trace.counter("msda_bwd") == bwd + 1
     for name in ("value_proj", "sampling_offsets", "attention_weights"):
         g = getattr(gpu, name).weight.grad
         assert g is not None and bool(g.abs().sum() > 0), name
@@ -347,10 +348,10 @@ def test_hat_kernel_matches_plain(cuda_device, D, dtype):
     px[:, 25:30] = -1e6
     py[:, 25:30] = -1e6
     px[:, 30:32, 0] = float("nan")
-    before = hs.hat_sample.launches
+    before = trace.counter("hat_sample")
     got = hs.hat_sample(value, px, py, aw)
     torch.cuda.synchronize()
-    assert hs.hat_sample.launches == before + 1
+    assert trace.counter("hat_sample") == before + 1
     assert got.dtype == dtype and got.shape == (BM, Lq, D)
     ref = hs.hat_sample_plain(value.float(), px, py, aw)
     if dtype == torch.float32:
@@ -403,10 +404,10 @@ def test_hat_bwd_kernel_matches_plain(cuda_device, D, dtype, needs):
     px[:, 38:40] = float(W)
     go = torch.randn((BM, Lq, D), generator=gen, device=cuda_device).to(dtype)
     want = (True, False, False, False) if needs == "gv" else (True,) * 4
-    before = hs.hat_sample_bwd.launches
+    before = trace.counter("hat_sample_bwd")
     got = hs.hat_sample_bwd(value, px, py, aw, go, needs=want)
     torch.cuda.synchronize()
-    assert hs.hat_sample_bwd.launches == before + 1
+    assert trace.counter("hat_sample_bwd") == before + 1
     assert [g is not None for g in got] == list(want)
     assert got[0].dtype == dtype and got[0].shape == value.shape
     ref = hs.hat_sample_plain_bwd(value.float(), px, py, aw, go.float())
@@ -463,11 +464,11 @@ def test_hat_kernels_on_point_patterns(cuda_device, pattern, D, mix):
                                else 2.0 ** -8)
     ref = hs.hat_sample_plain_bwd(value.float(), px, py, aw, go.float())
     for needs in ((True, False, False, False), (True,) * 4):
-        before = hs.hat_sample_bwd.launches
+        before = trace.counter("hat_sample_bwd")
         tile_rows, tiles = hs.bwd_merged_tiles()
         got = hs.hat_sample_bwd(value, px, py, aw, go, needs=needs)
         torch.cuda.synchronize()
-        assert hs.hat_sample_bwd.launches == before + 1
+        assert trace.counter("hat_sample_bwd") == before + 1
         # every tile on K4's merged path at D = 256 and PL = 4, none else
         merged = -(-BM * Lq // tile_rows) if D == 256 and PL == 4 else 0
         assert hs.bwd_merged_tiles()[1] == tiles + merged
@@ -491,14 +492,14 @@ def test_roi_align_feature_grad_card_matches_cpu(cuda_device):
                        torch.maximum(boxes[..., :2], boxes[..., 2:])], -1)
     co = torch.randn((2, 17, 7, 7, 16), generator=gen)
     grads = []
-    fwd, bwd = hs.hat_sample.launches, hs.hat_sample_bwd.launches
+    fwd, bwd = trace.counter("hat_sample"), trace.counter("hat_sample_bwd")
     for dev in ("cpu", cuda_device):
         f = feat.to(dev).detach().requires_grad_()
         (roi_align(f, boxes.to(dev), output_size=7, spatial_scale=0.25)
          * co.to(dev)).sum().backward()
         grads.append(f.grad.cpu())
-    assert hs.hat_sample.launches == fwd + 1
-    assert hs.hat_sample_bwd.launches == bwd + 1
+    assert trace.counter("hat_sample") == fwd + 1
+    assert trace.counter("hat_sample_bwd") == bwd + 1
     torch.testing.assert_close(grads[1], grads[0], atol=1e-4, rtol=1e-4)
 
 
@@ -527,13 +528,13 @@ def test_small_temporal_model_card_matches_cpu(cuda_device, name):
                       dtype=torch.uint8)
     sizes = torch.tensor([[96, 128]] * (2 * F))
     sizes[1], sizes[F] = torch.tensor([60, 84]), torch.tensor([80, 128])
-    k1, k3 = msda.ms_deform_attn.launches, hs.hat_sample.launches
+    k1, k3 = trace.counter("msda_fwd"), trace.counter("hat_sample")
     with torch.no_grad():
         ref = cpu_model(*device_normalize(x, sizes))
         got = gpu_model(*device_normalize(x.to(cuda_device),
                                           sizes.to(cuda_device)))
-    assert msda.ms_deform_attn.launches == k1 + k1_want
-    assert hs.hat_sample.launches == k3 + k3_want
+    assert trace.counter("msda_fwd") == k1 + k1_want
+    assert trace.counter("hat_sample") == k3 + k3_want
     pairs = [(got, ref), (got["_single_frame"], ref["_single_frame"])]
     pairs += list(zip(got.get("aux_outputs", []), ref.get("aux_outputs",
                                                           [])))
@@ -569,7 +570,7 @@ def test_small_video_train_step_card_matches_cpu(cuda_device):
                                  * 0.3 + 0.05], -1),
              "valid": torch.arange(T)[None] < torch.tensor([[3], [5], [2]])}
     results = []
-    k4 = hs.hat_sample_bwd.launches
+    k4 = trace.counter("hat_sample_bwd")
     for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda_device)):
         state = create_train_state(model, cfg)
         loss, parts = criterion(*forward(
@@ -578,7 +579,7 @@ def test_small_video_train_step_card_matches_cpu(cuda_device):
         results.append(({"loss": loss.detach(), **parts},
                         {n: p.grad for n, p in model.named_parameters()
                          if p.grad is not None}))
-    assert hs.hat_sample_bwd.launches == k4 + 1
+    assert trace.counter("hat_sample_bwd") == k4 + 1
     (ref_parts, ref_grads), (parts, grads) = results
     for k, r in ref_parts.items():
         torch.testing.assert_close(parts[k].detach().cpu(), r.detach(),
@@ -607,10 +608,10 @@ def test_corner_gather_kernel_matches_plain(cuda_device, case, vdt):
     shapes, value, loc, attw, _ = msda_inputs(
         cuda_device, case, (vdt, torch.float32, torch.float32))
     idx, w = cg.corner_indices_weights(shapes, loc, attw)
-    before = cg.corner_gather.launches
+    before = trace.counter("corner_gather")
     got = cg.corner_gather(value, idx, w)
     torch.cuda.synchronize()
-    assert cg.corner_gather.launches == before + 1
+    assert trace.counter("corner_gather") == before + 1
     assert got.dtype == vdt and got.shape == value.shape[:1] + idx.shape[1:3] \
         + value.shape[-1:]
     rounded_close(got, cg.corner_gather_plain(value.float(), idx, w))
@@ -721,11 +722,11 @@ def test_hat_sparse_kernel_matches_plain(cuda_device, case, D):
     for dt, path in zip((torch.float32, torch.bfloat16), SPARSE_PATHS[D]):
         value = torch.randn((B, S, M, D), generator=gen,
                             device=cuda_device).to(dt)
-        before = hs.hat_sample_sparse.launches
+        before = trace.counter("hat_sample_sparse")
         paths = hs.kernel_paths()
         got = mf.ms_deform_attn_hat(value, shapes, loc, attw, sparse=True)
         torch.cuda.synchronize()
-        assert hs.hat_sample_sparse.launches == before + 1
+        assert trace.counter("hat_sample_sparse") == before + 1
         sparse_path_delta(paths, path)
         assert got.dtype == dt and got.shape == (B, Lq, M * D)
         assert bool((got[:, :2] == 0).all())
@@ -781,11 +782,11 @@ def test_dispatch_launches_per_impl(cuda_device, monkeypatch, impl):
     shapes, value, loc, attw, _ = msda_inputs(cuda_device, "multi_odd_d",
                                               DTYPES["f32"])
     gather = impl in msda.GATHER_IMPLS
-    counts = (msda.ms_deform_attn.launches, cg.corner_gather.launches)
+    counts = (trace.counter("msda_fwd"), trace.counter("corner_gather"))
     got = msda.ms_deform_attn(value, shapes, loc, attw)
     torch.cuda.synchronize()
-    assert (msda.ms_deform_attn.launches - counts[0],
-            cg.corner_gather.launches - counts[1]) == (
+    assert (trace.counter("msda_fwd") - counts[0],
+            trace.counter("corner_gather") - counts[1]) == (
         (0, 1) if gather else (1, 0))
     ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
@@ -794,10 +795,10 @@ def test_dispatch_launches_per_impl(cuda_device, monkeypatch, impl):
     shapes, value, loc, attw, _ = msda_inputs(cuda_device, "enc",
                                               DTYPES["f32"])
     for entry in (mf.ms_deform_attn_hat_tiled, mf.ms_deform_attn_hat_sep):
-        before = msda.ms_deform_attn.launches
+        before = trace.counter("msda_fwd")
         got = entry(value, shapes, loc, attw)
         torch.cuda.synchronize()
-        assert msda.ms_deform_attn.launches == before + 1
+        assert trace.counter("msda_fwd") == before + 1
         torch.testing.assert_close(
             got, msda.ms_deform_attn_plain(value, shapes, loc, attw),
             atol=1e-5, rtol=1e-5)
@@ -818,15 +819,15 @@ def test_gather_form_grads_card_match_cpu(cuda_device, impl):
     shapes = ((6, 8), (3, 4))
     query, src = torch.randn(2, 20, 64), torch.randn(2, 60, 64)
     ref = torch.rand(2, 20, 2, 2)
-    counts = (msda.ms_deform_attn.launches, cg.corner_gather.launches,
-              msda.ms_deform_attn_bwd.launches)
+    counts = (trace.counter("msda_fwd"), trace.counter("corner_gather"),
+              trace.counter("msda_bwd"))
     outs = []
     for mod, dev in ((cpu, "cpu"), (gpu, cuda_device)):
         out = mod(query.to(dev), ref.to(dev), src.to(dev), shapes)
         out.square().sum().backward()
         outs.append(out.detach().cpu())
-    assert (msda.ms_deform_attn.launches, cg.corner_gather.launches,
-            msda.ms_deform_attn_bwd.launches) == (
+    assert (trace.counter("msda_fwd"), trace.counter("corner_gather"),
+            trace.counter("msda_bwd")) == (
         counts[0], counts[1] + 1, counts[2] + 1)
     torch.testing.assert_close(outs[1], outs[0], atol=1e-4, rtol=1e-3)
     for name in ("value_proj", "sampling_offsets", "attention_weights"):
@@ -898,10 +899,10 @@ def test_fused_bottleneck_kernel_matches_plain(cuda_device, case):
     x = torch.relu(torch.randn(shape, generator=gen,
                                device=cuda_device)).bfloat16()
     blks = random_blocks(gen, cin, cm, 3, cuda_device)
-    before = fb.fused_bottleneck_stage.launches
+    before = trace.counter("fused_bottleneck")
     got = fb.fused_bottleneck_stage(x, blks)
     torch.cuda.synchronize()
-    assert fb.fused_bottleneck_stage.launches == before + 3
+    assert trace.counter("fused_bottleneck") == before + 3
     assert got.dtype == torch.bfloat16 and got.shape == shape[:3] + (4 * cm,)
     assert bool(torch.isfinite(got.float()).all())
     k6_close(got, fb.fused_stage_plain(x, blks))
@@ -950,12 +951,12 @@ def test_fused_bottleneck_refuses_a_strided_view(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     blks = random_blocks(gen, 64, 64, 1, cuda_device)
     x = torch.randn((1, 8, 16, 64), device=cuda_device).bfloat16()
-    before = fb.fused_bottleneck_stage.launches
+    before = trace.counter("fused_bottleneck")
     with pytest.raises(ValueError, match="contiguous"):
         fb.fused_bottleneck_stage(x.transpose(1, 2), blks)
     with pytest.raises(TypeError, match="bf16"):
         fb.fused_bottleneck_stage(x.float(), blks)
-    assert fb.fused_bottleneck_stage.launches == before
+    assert trace.counter("fused_bottleneck") == before
 
 
 def test_resnet50_fused_layer1_on_the_card(cuda_device):
@@ -975,12 +976,12 @@ def test_resnet50_fused_layer1_on_the_card(cuda_device):
     model = model.to(device=cuda_device, dtype=torch.bfloat16,
                      memory_format=torch.channels_last)
     x = torch.randn(2, 64, 96, 3)
-    before = fb.fused_bottleneck_stage.launches
+    before = trace.counter("fused_bottleneck")
     with torch.no_grad():
         want = ref(x)
         got = model(x.to(cuda_device).bfloat16())
     torch.cuda.synchronize()
-    assert fb.fused_bottleneck_stage.launches == before + 3
+    assert trace.counter("fused_bottleneck") == before + 3
     for s in (1, 2):
         err = float((got[s].float().cpu() - want[s]).norm() / want[s].norm())
         assert err < 3e-2, (s, err)
@@ -1072,12 +1073,12 @@ def test_small_fusion_model_card_matches_cpu(cuda_device, mode):
     x = torch.randint(0, 256, (2, 96, 128, 4), generator=gen,
                       dtype=torch.uint8)
     sizes = torch.tensor([[96, 128], [60, 84]])
-    before = msda.ms_deform_attn.launches
+    before = trace.counter("msda_fwd")
     with torch.no_grad():
         ref = cpu_model(*device_normalize(x, sizes))
         got = gpu_model(*device_normalize(x.to(cuda_device),
                                           sizes.to(cuda_device)))
-    assert msda.ms_deform_attn.launches == before + FUSION_LAUNCHES[mode]
+    assert trace.counter("msda_fwd") == before + FUSION_LAUNCHES[mode]
     for k in ("pred_logits", "pred_boxes"):
         torch.testing.assert_close(got[k].cpu(), ref[k], atol=1e-4,
                                    rtol=1e-3)
@@ -1105,7 +1106,7 @@ def test_small_fusion_train_step_card_matches_cpu(cuda_device, mode):
                                  * 0.3 + 0.05], -1),
              "valid": valid}
     results = []
-    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    fwd, bwd = trace.counter("msda_fwd"), trace.counter("msda_bwd")
     for model, dev in ((cpu_model, "cpu"), (gpu_model, cuda_device)):
         state = create_train_state(model, cfg)
         loss, parts = criterion(*forward(
@@ -1115,8 +1116,8 @@ def test_small_fusion_train_step_card_matches_cpu(cuda_device, mode):
                         {n: p.grad for n, p in model.named_parameters()
                          if p.grad is not None}))
     n = FUSION_LAUNCHES[mode]
-    assert msda.ms_deform_attn.launches == fwd + n
-    assert msda.ms_deform_attn_bwd.launches == bwd + n
+    assert trace.counter("msda_fwd") == fwd + n
+    assert trace.counter("msda_bwd") == bwd + n
     (ref_parts, ref_grads), (parts, grads) = results
     for k, r in ref_parts.items():
         torch.testing.assert_close(parts[k].detach().cpu(), r.detach(),
@@ -1216,7 +1217,7 @@ def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                 "--max_size", "128", "--max_boxes", "8", "--lr", str(lr),
                 "--device_preprocess"]
 
-    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    fwd, bwd = trace.counter("msda_fwd"), trace.counter("msda_bwd")
     logs, params = [], []
     for dev in ("cpu", cuda_device):
         out = tmp_path / str(dev)
@@ -1225,8 +1226,8 @@ def test_cli_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         with open(out / "log.txt") as f:
             logs.append(json.loads(f.readline()))
         params.append(load_checkpoint(str(out))[0]["model"])
-    assert msda.ms_deform_attn_bwd.launches - bwd == 3
-    assert msda.ms_deform_attn.launches - fwd == 3 + 3
+    assert trace.counter("msda_bwd") - bwd == 3
+    assert trace.counter("msda_fwd") - fwd == 3 + 3
     for k in ("train_loss", "train_loss_ce", "train_loss_bbox",
               "train_loss_giou"):
         np.testing.assert_allclose(logs[1][k], logs[0][k], atol=1e-5,
@@ -1310,10 +1311,10 @@ def test_lapjv_kernel_matches_plain(cuda_device, case):
     if kind.endswith("scattered"):
         valid = torch.gather(valid, 1, torch.rand((P, T), generator=g)
                              .argsort(1))
-    before = lapjv.launches
+    before = trace.counter("lapjv")
     got = lapjv(cost.to(cuda_device), valid.to(cuda_device))
     torch.cuda.synchronize()
-    assert lapjv.launches == before + 1
+    assert trace.counter("lapjv") == before + 1
     assert got.dtype == torch.int64 and bool((got >= 0).all())
     assert torch.equal(got.cpu(), lapjv_plain(cost, valid))
 
@@ -1335,7 +1336,7 @@ def test_lapjv_kernel_refusals(cuda_device):
     """Shapes, types and plans the kernel does not take raise before a
     launch."""
     valid = torch.ones((1, 64), dtype=torch.bool, device=cuda_device)
-    before = lapjv.launches
+    before = trace.counter("lapjv")
     with pytest.raises(TypeError, match="f32"):
         lapjv(torch.zeros((1, 300, 64), dtype=torch.float64,
                           device=cuda_device), valid)
@@ -1349,4 +1350,4 @@ def test_lapjv_kernel_refusals(cuda_device):
     with pytest.raises(ValueError, match="no kernel for"):
         lapjv_cuda(torch.zeros((1, 300, 64), device=cuda_device), valid,
                    _cw=(3, 1))
-    assert lapjv.launches == before
+    assert trace.counter("lapjv") == before

@@ -22,6 +22,7 @@ from dfvod_tpu.models.backbone_resnet import ResNetStage as JStage
 from dfvod_tpu.ops import fused_bottleneck as jfb
 from dfvod_tpu_torch.models import backbone_resnet as br
 from dfvod_tpu_torch.ops import fused_bottleneck as fb
+from dfvod_tpu_torch.utils import trace
 from dfvod_tpu_torch.utils.convert import load_jax_variables
 from torch_port_helpers import assert_close, random_variables
 
@@ -75,10 +76,10 @@ def test_plain_stage_matches_pallas_and_reference(case):
     ref = np.asarray(jfb.reference_stage(xj, as_jax(blks)), np.float32)
     pallas = np.asarray(jfb._stage_pallas(xj, as_jax(blks), TR=tr,
                                           interpret=True), np.float32)
-    before = fb.fused_bottleneck_stage.launches
+    before = trace.counter("fused_bottleneck")
     got = fb.fused_bottleneck_stage(torch.from_numpy(x).bfloat16(),
                                     as_torch(blks))
-    assert fb.fused_bottleneck_stage.launches == before
+    assert trace.counter("fused_bottleneck") == before
     assert got.dtype == torch.bfloat16 and got.shape == shape[:3] + (32,)
     np.testing.assert_array_equal(got.float().numpy(), ref)
     np.testing.assert_array_equal(got.float().numpy(), pallas)

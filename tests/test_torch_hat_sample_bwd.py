@@ -23,6 +23,7 @@ from dfvod_tpu.ops import msda_pallas
 from dfvod_tpu.ops.roi_align import roi_align as j_roi_align
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops.roi_align import roi_align
+from dfvod_tpu_torch.utils import trace
 from test_torch_hat_sample import (ROI_CASES, grid_coords, pattern_inputs)
 from torch_hat_patterns import PATTERNS
 from torch_port_helpers import assert_close
@@ -185,13 +186,14 @@ def test_cpu_dispatch_takes_the_plain_backward(monkeypatch):
 
     monkeypatch.setattr(hs, "hat_sample_cuda", no_kernel)
     monkeypatch.setattr(hs, "hat_sample_bwd_cuda", no_kernel)
-    fwd, bwd = hs.hat_sample.launches, hs.hat_sample_bwd.launches
+    fwd, bwd = trace.counter("hat_sample"), trace.counter("hat_sample_bwd")
     grid, v, px, py, aw, go = inputs(8, seed=6, Lq=64)
     got = hs.hat_sample_bwd(*map(torch.from_numpy, (v, px, py, aw, go)),
                             grid=grid)
     for g, w in zip(got, plain_bwd(grid, v, px, py, aw, go)):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
-    assert (hs.hat_sample.launches, hs.hat_sample_bwd.launches) == (fwd, bwd)
+    assert (trace.counter("hat_sample"),
+            trace.counter("hat_sample_bwd")) == (fwd, bwd)
 
 
 def test_bwd_kernel_arg_checks():

@@ -15,6 +15,7 @@ import torch
 from dfvod_tpu.ops.msda import ms_deform_attn_xla
 from dfvod_tpu.ops.msda_pallas import ms_deform_attn_pallas_hat
 from dfvod_tpu_torch.ops import msda
+from dfvod_tpu_torch.utils import trace
 
 # (spatial_shapes, B, Lq, M, D, P): single level, multi-level with
 # Lq not a multiple of 128 and odd D, D above one warp's 32 lanes
@@ -99,11 +100,11 @@ def test_cpu_takes_plain_path_and_counts_no_launch(monkeypatch):
         raise AssertionError("a CPU tensor reached the CUDA kernel")
 
     monkeypatch.setattr(msda, "ms_deform_attn_cuda", no_kernel)
-    before = msda.ms_deform_attn.launches
+    before = trace.counter("msda_fwd")
     shapes = ((6, 8),)
     value, loc, attw = make_inputs(shapes, 1, 8, 2, 8, 4)
     port(value, shapes, loc, attw)
-    assert msda.ms_deform_attn.launches == before
+    assert trace.counter("msda_fwd") == before
 
 
 def test_kernel_arg_checks():

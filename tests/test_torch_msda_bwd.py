@@ -19,6 +19,7 @@ import torch
 from dfvod_tpu.ops.msda import ms_deform_attn_flat, ms_deform_attn_xla
 from dfvod_tpu.ops.msda_pallas import ms_deform_attn_pallas_hat_bwd
 from dfvod_tpu_torch.ops import msda
+from dfvod_tpu_torch.utils import trace
 
 # (spatial_shapes, B, Lq, M, D, P): multi-level with D=24 (not a multiple
 # of a warp), a single level with Lq=300 (padded to the Pallas query
@@ -204,7 +205,7 @@ def test_cpu_route_is_plain_and_counts_no_launch(monkeypatch):
 
     monkeypatch.setattr(msda, "ms_deform_attn_cuda", no_kernel)
     monkeypatch.setattr(msda, "ms_deform_attn_bwd_cuda", no_kernel)
-    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_bwd.launches
+    fwd, bwd = trace.counter("msda_fwd"), trace.counter("msda_bwd")
     shapes, *dims = CASES["multi_d24"]
     value, loc, attw, go = make_inputs(shapes, *dims, seed=7)
     leaves = [torch.from_numpy(a).requires_grad_() for a in
@@ -214,8 +215,8 @@ def test_cpu_route_is_plain_and_counts_no_launch(monkeypatch):
     want = port_bwd(value, shapes, loc, attw, go)
     for leaf, w in zip(leaves, want):
         np.testing.assert_array_equal(leaf.grad.numpy(), w)
-    assert msda.ms_deform_attn.launches == fwd
-    assert msda.ms_deform_attn_bwd.launches == bwd
+    assert trace.counter("msda_fwd") == fwd
+    assert trace.counter("msda_bwd") == bwd
 
 
 def test_bwd_kernel_arg_checks():

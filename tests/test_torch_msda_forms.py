@@ -43,6 +43,7 @@ from dfvod_tpu_torch.ops import corner_gather as cg
 from dfvod_tpu_torch.ops import hat_sample as hs
 from dfvod_tpu_torch.ops import msda
 from dfvod_tpu_torch.ops import msda_forms as mf
+from dfvod_tpu_torch.utils import trace
 from dfvod_tpu_torch.utils.config import Config, ModelConfig
 from dfvod_tpu_torch.utils.convert import load_jax_variables
 from torch_port_helpers import assert_close, random_variables
@@ -101,9 +102,9 @@ def test_onehot_sample_matches_jax():
     idx = rng.integers(-5, S + 5, (BM, Lq, K)).astype(np.int32)
     w = rng.standard_normal((BM, Lq, K)).astype(np.float32)
     ref = jp.onehot_sample(*jj(v, idx, w), interpret=True)
-    before = cg.corner_gather.launches
+    before = trace.counter("corner_gather")
     got = cg.onehot_sample(*tt(v, idx, w))
-    assert cg.corner_gather.launches == before          # plain on the CPU
+    assert trace.counter("corner_gather") == before          # plain on the CPU
     assert got.shape == (BM, Lq, D)
     assert_close(got, ref, atol=1e-5, rtol=1e-5)
     inside = np.where((idx >= 0) & (idx < S), w, 0).astype(np.float32)
@@ -277,10 +278,11 @@ def test_dispatch_matches_jax(monkeypatch, impl, how):
     ref = JAX_FORMS[impl](jnp.asarray(v), shapes, *jj(loc, attw))
     if how == "env":
         monkeypatch.setenv("DFVOD_MSDA_IMPL", impl)
-    counts = (msda.ms_deform_attn.launches, cg.corner_gather.launches)
+    counts = (trace.counter("msda_fwd"), trace.counter("corner_gather"))
     got = msda.ms_deform_attn(*tt(v), shapes, *tt(loc, attw),
                               impl=impl if how == "explicit" else "auto")
-    assert (msda.ms_deform_attn.launches, cg.corner_gather.launches) == counts
+    assert (trace.counter("msda_fwd"),
+            trace.counter("corner_gather")) == counts
     assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
