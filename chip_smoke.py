@@ -1447,6 +1447,138 @@ def phase_fused_bottleneck_kernel():
     return result
 
 
+# ------------------------------- the FrozenBN epilogue (frozen_bn_act)
+# (N, C, H, W) of a 32-frame 608x800 request through the ResNet-50 DC5, in
+# channels-last memory: the stem's bn + ReLU, layer1's bn3 + identity +
+# ReLU, layer3's block 0 (bn3 + the downsample's bn + ReLU)
+FBA_SHAPES = {"stem": ((32, 64, 304, 400), "none"),
+              "layer1_identity": ((32, 256, 152, 200), "identity"),
+              "layer3_downsample": ((32, 1024, 38, 50), "affine")}
+
+
+def unfused_epilogue(x, bn, residual=None, residual_bn=None, relu=True):
+    """The passes ``frozen_bn_act`` replaced, as the port ran them before
+    it: each FrozenBN folded per call (5 launches) and applied as a
+    broadcast multiply and add in x's dtype, then the add and the ReLU."""
+    def apply(t, m):
+        s, b = m.fold()
+        return (t * s.to(t.dtype)[None, :, None, None]
+                + b.to(t.dtype)[None, :, None, None])
+    y = apply(x, bn)
+    if residual is not None:
+        y = y + (residual if residual_bn is None
+                 else apply(residual, residual_bn))
+    return torch.relu(y) if relu else y
+
+
+def fba_within_one_ulp(got, ref):
+    fi = torch.finfo(ref.dtype)
+    d = (got.float() - ref.float()).abs()
+    return bool((d <= fi.eps * ref.float().abs() + fi.tiny).all())
+
+
+def phase_frozen_bn_act_kernel():
+    """The FrozenBN epilogue (``csrc/frozen_bn_act.cu``) at the serve
+    request's shapes (``FBA_SHAPES``), bf16 channels-last, its constants
+    from bf16 FrozenBNs with random buffers as ``Server`` holds them:
+    the forward against the plain version (within one bf16 ulp) with the
+    path its C entry counted, then the forward's device ms beside its
+    bytes bound and today's unfused chain ("plain ms": fold per call,
+    multiply, add, add, ReLU), the host us a call of each, and the
+    backward's device ms beside its bound."""
+    from dfvod_tpu_torch.models.backbone_resnet import FrozenBatchNorm
+    from dfvod_tpu_torch.ops import frozen_bn_act as fba
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def frozen_bn(C):
+        bn = FrozenBatchNorm(C).to("cuda")
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0, 0.1, generator=gen)
+            bn.running_mean.normal_(0, 0.1, generator=gen)
+            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+        return bn.to(torch.bfloat16)
+
+    def act(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    result = {}
+    for name, (shape, form) in FBA_SHAPES.items():
+        x, bn = act(shape), frozen_bn(shape[1])
+        r = act(shape) if form != "none" else None
+        rbn = frozen_bn(shape[1]) if form == "affine" else None
+        consts = (*bn.folded(x.dtype),
+                  *(rbn.folded(x.dtype) if rbn is not None else (None,) * 2))
+        s, b, sr, rb_ = consts
+        with torch.no_grad():
+            got, paths = path_counts(fba, lambda: fba.frozen_bn_act(
+                x, s, b, r, sr, rb_, relu=True))
+            ref = fba.frozen_bn_act_plain(x, s, b, r, sr, rb_, relu=True)
+            ok = fba_within_one_ulp(got, ref)
+            chain = unfused_epilogue(x, bn, r, rbn)
+            r_chain = relative_l2(chain, ref)
+            del ref, chain
+            fwd_bytes = nbytes(x, got, *(t for t in (r, *consts)
+                                         if t is not None))
+            g = act(shape)
+            need_r = r is not None
+            before = fba.kernel_paths("bwd")
+            dx, dr = fba.frozen_bn_act_bwd_cuda(g, got, s, sr, True, True,
+                                                need_r)
+            torch.cuda.synchronize()
+            bwd_paths = {k: v - before[k]
+                         for k, v in fba.kernel_paths("bwd").items()}
+            want = fba.frozen_bn_act_bwd_plain(g, got, s, sr, True, True,
+                                               need_r)
+            ok_bwd = all(a is None or fba_within_one_ulp(a, w)
+                         for a, w in zip((dx, dr), want))
+            bwd_bytes = nbytes(g, got, dx, s) + (
+                nbytes(dr, *([sr] if sr is not None else [])) if need_r
+                else 0)
+            del want, dx, dr
+            rec = {
+                "shape": list(shape), "form": form, "ok": ok,
+                "ok_bwd": ok_bwd, "paths": paths, "bwd_paths": bwd_paths,
+                "unfused_relative_l2": r_chain,
+                "ms": cuda_ms(lambda: fba.frozen_bn_act_cuda(
+                    x, s, b, r, sr, rb_, relu=True), 20),
+                "plain_ms": cuda_ms(lambda: unfused_epilogue(
+                    x, bn, r, rbn), 10),
+                "host_us": host_call_us(lambda: bn(x, relu=True, residual=r,
+                                                   residual_bn=rbn)),
+                "plain_host_us": host_call_us(lambda: unfused_epilogue(
+                    x, bn, r, rbn)),
+                "bwd_ms": cuda_ms(lambda: fba.frozen_bn_act_bwd_cuda(
+                    g, got, s, sr, True, True, need_r), 20),
+            }
+        rec["bound_ms"], rec["bound_by"] = bound(fwd_bytes, 0)
+        rec["bwd_bound_ms"], _ = bound(bwd_bytes, 0)
+        rec["roofline_pct"] = 100.0 * rec["bound_ms"] / rec["ms"]
+        rec["bwd_roofline_pct"] = 100.0 * rec["bwd_bound_ms"] / rec["bwd_ms"]
+        print(f"[frozen_bn_act] {name:18s} {tuple(shape)} bf16 NHWC "
+              f"{form} + ReLU: {'ok' if ok else 'FAIL'} (one ulp of the "
+              f"plain version), backward {'ok' if ok_bwd else 'FAIL'}; "
+              f"paths {paths}, backward {bwd_paths}; kernel {rec['ms']:.4f}"
+              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+              f"{rec['roofline_pct']:.1f}%), unfused chain "
+              f"{rec['plain_ms']:.4f} ms (relative L2 "
+              f"{r_chain:.3e} from the plain version); host us a call "
+              f"{rec['host_us']:.1f}, unfused {rec['plain_host_us']:.1f}; "
+              f"backward {rec['bwd_ms']:.4f} ms, bound "
+              f"{rec['bwd_bound_ms']:.4f} ms "
+              f"({rec['bwd_roofline_pct']:.1f}%); {card_line()}",
+              flush=True)
+        check(ok and ok_bwd, f"frozen_bn_act disagrees with its plain "
+                             f"version at {name}")
+        check(paths in (None, {"nhwc8": 1, "nchw8": 0, "general8": 0}),
+              f"frozen_bn_act at {name} took the paths {paths}")
+        result[name] = rec
+        del x, r, g, got
+        free_card()
+    return result
+
+
 # ------------------------------------------- LAPJV: the on-device matcher
 # the 4-level encoder's proposals at the CLI's largest batch (short side
 # 800, --max_size 1333): 26,150, the kernel's largest plan (a cluster of 16
@@ -1943,10 +2075,20 @@ def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1,
             dets.append(server(x, s))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+    from dfvod_tpu_torch.utils import trace
+    fba_before = trace.counter("frozen_bn_act")
     with msda_levels(levels > 1) as levels_seen:
         (_, counts), paths = path_counts(msda_paths("msda_fwd"),
                                          lambda: counted(run))
     launches = counts["msda_fwd"]
+    # the FrozenBN epilogue's launches a request: 49 for the ResNet-50 (the
+    # stem and 3 a bottleneck), more with the ResNet-18 depth trunk
+    fba_launches = (trace.counter("frozen_bn_act") - fba_before) / requests
+    print(f"[{tag}] frozen_bn_act launches per request: {fba_launches:g}",
+          flush=True)
+    check(fba_launches == 49 or m.depth_backbone_type != "dformer",
+          f"expected 49 frozen_bn_act launches per request, got "
+          f"{fba_launches:g}")
     n = MSDA_LAYERS[fusion]
     per_levels = {k: v // requests for k, v in levels_seen.items()}
     print(f"[{tag}] msda_fwd launches over {requests} requests: {launches}"
@@ -1994,6 +2136,7 @@ def phase_serve(requests=6, fusion="LateFusion", warmup=0, levels=1,
           "bf16 serve disagrees with the f32 forward")
     return ({"ms_per_batch": ms, "frames_per_s": BATCH / (ms / 1e3),
              "launches": launches, "requests": requests,
+             "launches_frozen_bn_act": fba_launches,
              "launches_by_levels": per_levels,
              "peak_memory_gib": peak, "box_max": float(diff.max()),
              "box_mean": float(diff.mean()), "paths": paths, **gate},
@@ -2383,7 +2526,11 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
     and the DFormer BN statistics (none with the ResNet-18 depth trunk,
     whose BNs are frozen) move; a frozen ResNet-50 (LateFusion,
     Encoder_CrossFusion) stays bitwise unchanged, Backbone_CrossFusion's
-    trains."""
+    trains. Each step makes 49 FrozenBN epilogue passes forward and, where
+    the ResNet-50 trains (Backbone_CrossFusion), 49 backward; a frozen one
+    records no graph and makes none (more of both with the ResNet-18 depth
+    trunk)."""
+    from dfvod_tpu_torch.utils import trace
     from dfvod_tpu_torch.models import build_model
     from dfvod_tpu_torch.train import create_train_state, train_step
 
@@ -2427,8 +2574,13 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
     levels_seen = {}
     paths = {"msda_fwd": {}, "msda_bwd": {}}
     lapjv_total = 0
+    fba_steps = []
+    # the FrozenBN epilogue's passes a step, forward and backward
+    fba_want = (49, 49 if fusion == "Backbone_CrossFusion" else 0)
     with no_host_solver():      # the matcher stays on the card
         for i, batch in enumerate(batches[1:]):
+            fba_before = [trace.counter(c) for c in ("frozen_bn_act",
+                                                     "frozen_bn_act_bwd")]
             t0 = time.perf_counter()
             if levels > 1:
                 with msda_levels() as seen:
@@ -2446,8 +2598,14 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
                 for k, v in (got or {}).items():
                     paths[name][k] = paths[name].get(k, 0) + v
             metrics.append(mt)
+            fba = tuple(trace.counter(c) - n for c, n in zip(
+                ("frozen_bn_act", "frozen_bn_act_bwd"), fba_before))
+            fba_steps.append(fba)
             check(launches == want,
                   f"{tag} step {i + 1} launched {launches}, not {want}")
+            check(fba == fba_want or m.depth_backbone_type != "dformer",
+                  f"{tag} step {i + 1} made {fba} FrozenBN epilogue passes "
+                  f"(forward, backward), not {fba_want}")
             fwd += launches["msda_fwd"]
             bwd += launches["msda_bwd"]
             lapjv_total += launches["lapjv"]
@@ -2457,7 +2615,8 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
                  if levels > 1 else "")
     print(f"[{tag}] launches over {steps} steps: msda_fwd {fwd}, msda_bwd "
           f"{bwd}, lapjv {lapjv_total} ({n}, {n} and {want['lapjv']} per "
-          f"step; counts set to 0 before each step, read after){by_levels}",
+          f"step; counts set to 0 before each step, read after){by_levels}"
+          f"; frozen_bn_act (forward, backward) a step {fba_steps}",
           flush=True)
     enc_keys = [k for k in ("loss_ce_enc", "loss_bbox_enc", "loss_giou_enc")
                 if k in metrics[0]]
@@ -2536,7 +2695,7 @@ def phase_train(steps=5, fusion="LateFusion", train_dtype="bfloat16",
             "peak_memory_gib": peak, "launches_fwd": fwd,
             "launches_bwd": bwd, "launches_lapjv": lapjv_total,
             "matcher": matcher, "launches_by_levels": levels_seen,
-            "paths": paths, "steps": steps,
+            "paths": paths, "steps": steps, "frozen_bn_act": fba_steps,
             "enc_losses": {k: float(metrics[-1][k]) for k in enc_keys}}
 
 
@@ -6032,7 +6191,7 @@ def phase_tools(txt_dir):
 
 SOURCES = ("msda_fwd", "msda_bwd", "hat_sample_fwd", "hat_sample_bwd",
            "corner_gather_fwd", "hat_sample_sparse_fwd", "fused_bottleneck",
-           "lapjv")
+           "lapjv", "frozen_bn_act")
 
 
 def ptxas_lines(log):
@@ -6096,6 +6255,7 @@ def main() -> int:
     kern_sparse = phase_hat_sparse_kernel()
     kern_entries = phase_single_level_hat_entries()
     kern_fused = phase_fused_bottleneck_kernel()
+    kern_fba = phase_frozen_bn_act_kernel()
     kern_lapjv = phase_lapjv_kernel()
     scratch = kern_lapjv["train_dec"]["plan"]["scratch_bytes"]
     check(scratch == 0, f"lapjv at the decoder's 36 x 300 asks for "
@@ -6394,8 +6554,22 @@ def main() -> int:
             "two_stage": two_r18["two_stage"]["train"]["matcher"]},
         "step_ms_by_backend": train["matcher"]["backend_ms"],
     }
+    record_fba = {
+        "name": "frozen_bn_act", "route": "cuda",
+        "source": "dfvod_tpu_torch/csrc/frozen_bn_act.cu",
+        "replaces": "none: the unfused FrozenBN, ReLU and residual passes "
+                    "(XLA fuses them on the TPU)",
+        "launches": serve["launches_frozen_bn_act"],
+        **{k: kern_fba["stem"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "paths")},
+        # no single PyTorch call computes the pass; the unfused chain it
+        # replaced is "plain_ms"
+        "library_ms": None,
+        "shape": "stem (32, 64, 304, 400) bf16 channels-last, bn + ReLU",
+        "shapes": kern_fba,
+    }
     new_records = [record_onehot, record_gather, record_sparse, record_tiled,
-                   record_sep, record_fused, record_lapjv]
+                   record_sep, record_fused, record_lapjv, record_fba]
     fusion_line = {mode: {
         "serve": {k: fusion[mode]["serve"][k] for k in (
             "ms_per_batch", "frames_per_s", "peak_memory_gib", "box_max",
@@ -6420,7 +6594,8 @@ def main() -> int:
               record_bwd["tdam_l5"], record_bwd["video_f32"],
               record_bwd["needs_ms"], record_bwd["cf_stage2"], record_hat,
               record_hat_bwd, *record_hat_bwd["other"].values(),
-              *new_records, *kern_lapjv.values(), record_sparse["enc_l4"],
+              *new_records, *kern_lapjv.values(), *kern_fba.values(),
+              record_sparse["enc_l4"],
               train, train["matcher"]["backend_ms"], clip,
               train_clips, *(v[k] for v in fusion_line.values()
                              if isinstance(v, dict) for k in v),

@@ -166,7 +166,7 @@ class CrossFusionBackbone(nn.Module):
     def forward(self, rgb, depth, mask):
         """rgb: (B, H, W, 3); depth: (B, H, W, 1); mask: (B, H, W),
         True = pad."""
-        x = F.relu(self.bn1(self.conv1(rgb.permute(0, 3, 1, 2))))
+        x = self.bn1(self.conv1(rgb.permute(0, 3, 1, 2)), relu=True)
         x = max_pool_torch(x, 3, 2, 1)
         x_rgb = self.layer2(self.layer1(x))
         x_d = F.gelu(self.stem_bn1(self.stem_conv1(

@@ -11,6 +11,15 @@ that ``utils/convert.py`` maps weights mechanically. The JAX package's
 ``StemConvS2D`` is an exact reparameterization of the 7x7/s2/p3 stem that
 keeps the ``(7, 7, 3, 64)`` parameter; the port runs that conv as it is.
 
+Each FrozenBN runs with what follows it as one epilogue pass over its
+conv's output (``ops/frozen_bn_act.py``, a hand-written kernel on the
+card): ``act(x * s + b + R)``, with the ReLU and, at a bottleneck's last
+FrozenBN, the identity or the downsample's FrozenBN'd conv as R. The
+constants are ``FrozenBatchNorm.fold`` cast to the input's dtype, kept
+until a FrozenBN buffer changes (``FrozenBatchNorm.folded``); the sum is
+f32, rounded once. The stem and each ``Bottleneck`` make 49 such passes a
+ResNet-50 forward.
+
 ``ResNet50.fused_stages`` (False by default, as in the JAX package) runs
 layer1 in bf16 eval through the fused bottleneck stage
 (``ops/fused_bottleneck.py``, K6 on the card), with FrozenBN folded into
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfvod_tpu_torch.ops import quant
+from dfvod_tpu_torch.ops.frozen_bn_act import acc_dtype, frozen_bn_act
 from dfvod_tpu_torch.ops.fused_bottleneck import fused_bottleneck_stage
 from dfvod_tpu_torch.utils.weight_cache import WeightCache
 
@@ -46,6 +56,7 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self._folded = WeightCache()
 
     def fold(self):
         """(scale, bias) of the equivalent affine map, in the stored
@@ -53,10 +64,30 @@ class FrozenBatchNorm(nn.Module):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         return scale, self.bias - self.running_mean * scale
 
-    def forward(self, x):                       # NCHW
-        scale, bias = self.fold()
-        return (x * scale.to(x.dtype)[None, :, None, None]
-                + bias.to(x.dtype)[None, :, None, None])
+    def folded(self, dtype):
+        """(scale, bias) for an input of ``dtype``: ``fold()`` cast to
+        ``dtype`` (as the JAX package casts it), then held in f32 (f64 for
+        f64), the form ``frozen_bn_act`` takes. Kept until a buffer is
+        replaced or written in place, ``dtype`` changes or inference mode
+        is entered or left (autograd cannot save a tensor made in it):
+        ``WeightCache``, no fold per call."""
+        def make():
+            return tuple(t.to(dtype).to(acc_dtype(dtype))
+                         for t in self.fold())
+        return self._folded.get(
+            (self.weight, self.bias, self.running_mean, self.running_var),
+            make, (dtype, torch.is_inference_mode_enabled()))
+
+    def forward(self, x, relu=False, residual=None, residual_bn=None):
+        """``act(bn(x) + R)`` in one pass (NCHW): ``act`` ReLU where
+        ``relu``; R the ``residual`` itself or, with ``residual_bn``,
+        ``residual_bn(residual)``; nothing by default."""
+        scale, bias = self.folded(x.dtype)
+        res_scale = res_bias = None
+        if residual_bn is not None:
+            res_scale, res_bias = residual_bn.folded(x.dtype)
+        return frozen_bn_act(x, scale, bias, residual, res_scale, res_bias,
+                             relu)
 
 
 def conv(in_features: int, features: int, kernel: int, stride: int = 1,
@@ -89,13 +120,13 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         if quant.enabled():
             return self._int8_forward(x)
-        identity = x
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.bn2(self.conv2(out), relu=True)
         if self.downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(out + identity)
+            return self.bn3(self.conv3(out), relu=True,
+                            residual=self.downsample_conv(x),
+                            residual_bn=self.downsample_bn)
+        return self.bn3(self.conv3(out), relu=True, residual=x)
 
     def _int8_conv(self, x, conv_name, bn_name):
         """``bn(conv(x))`` in W8A8 when the conv's seam tag is allowed:
@@ -242,7 +273,7 @@ class ResNet50(nn.Module):
     def forward(self, x):
         """x: (B, H, W, 3). Returns {stage: (B, h, w, C)}."""
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         x = max_pool_torch(x, 3, 2, 1)
         outs = {}
         for s in (1, 2, 3, 4):

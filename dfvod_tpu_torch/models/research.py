@@ -16,7 +16,6 @@ mechanically. Select it with ``ModelConfig.depth_backbone_type =
 """
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
 
 from dfvod_tpu_torch.models.backbone_resnet import (
@@ -45,12 +44,12 @@ class BasicBlock(nn.Module):
             self.downsample_bn = FrozenBatchNorm(planes)
 
     def forward(self, x):
-        identity = x
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.bn1(self.conv1(x), relu=True)
         if self.downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(out + identity)
+            return self.bn2(self.conv2(out), relu=True,
+                            residual=self.downsample_conv(x),
+                            residual_bn=self.downsample_bn)
+        return self.bn2(self.conv2(out), relu=True, residual=x)
 
 
 class ResNet18Stage(nn.Module):
@@ -87,7 +86,7 @@ class ResNet18DepthBackbone(nn.Module):
 
     def forward(self, depth, mask):
         x = depth.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         x = max_pool_torch(x, 3, 2, 1)
         x = self.layer3(self.layer2(self.layer1(x)))
         feat = x.permute(0, 2, 3, 1)

@@ -1351,3 +1351,260 @@ def test_lapjv_kernel_refusals(cuda_device):
         lapjv_cuda(torch.zeros((1, 300, 64), device=cuda_device), valid,
                    _cw=(3, 1))
     assert trace.counter("lapjv") == before
+
+
+# ------------------------------------- the FrozenBN epilogue (frozen_bn_act)
+# (N, C, H, W): ResNet widths 64 / 256 / 2048 (layer3's 38 x 50 map has
+# H * W = 1900, no multiple of 8), then a C and an H * W that are not
+# multiples of 8, and one whose numel is not either (the tail)
+FBA_SHAPES = {"c64_hw475": (2, 64, 19, 25), "c256_hw80": (2, 256, 8, 10),
+              "c2048_hw40": (1, 2048, 5, 8), "c20_hw35": (2, 20, 5, 7),
+              "c12_hw15_tail": (1, 12, 3, 5)}
+FBA_FORMS = {"bn": ("none", False), "bn_relu": ("none", True),
+             "identity_relu": ("identity", True),
+             "affine_relu": ("affine", True)}
+
+
+def fba_case(device, shape, form, dtype, layout, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    C = shape[1]
+    fmt = (torch.channels_last if layout == "nhwc"
+           else torch.contiguous_format)
+
+    def act():
+        return torch.randn(shape, generator=gen, device=device).to(
+            dtype).contiguous(memory_format=fmt)
+
+    def const(lo, hi):
+        # a FrozenBN's fold cast to x's dtype, held in f32
+        return (torch.rand(C, generator=gen, device=device) * (hi - lo)
+                + lo).to(dtype).float()
+
+    x, s, b = act(), const(0.5, 1.5), const(-0.5, 0.5)
+    r = act() if form != "none" else None
+    sr, rb = ((const(0.5, 1.5), const(-0.5, 0.5)) if form == "affine"
+              else (None, None))
+    return x, s, b, r, sr, rb
+
+
+def fba_path(shape, layout):
+    C, hw = shape[1], shape[2] * shape[3]
+    if layout == "nhwc" and C % 8 == 0:
+        return "nhwc8"
+    if layout == "nchw" and hw % 8 == 0:
+        return "nchw8"
+    return "general8"
+
+
+def within_one_ulp(got, ref):
+    """Every entry within one unit in the last place of ``ref``'s dtype
+    (eps * |ref|, the smallest normal near zero)."""
+    fi = torch.finfo(ref.dtype)
+    d = (got.float() - ref.float()).abs()
+    return bool((d <= fi.eps * ref.float().abs() + fi.tiny).all())
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("form", list(FBA_FORMS))
+@pytest.mark.parametrize("shape", list(FBA_SHAPES))
+def test_frozen_bn_act_kernel_matches_plain(cuda_device, shape, form, dtype,
+                                            layout):
+    """The forward kernel against the plain version on the card, within
+    one ulp of x's dtype (both round the same f32 sums once), in x's
+    memory order, on the path the shape and layout choose."""
+    from dfvod_tpu_torch.ops import frozen_bn_act as fba
+    residual, relu = FBA_FORMS[form]
+    dt = getattr(torch, dtype)
+    x, s, b, r, sr, rb = fba_case(cuda_device, FBA_SHAPES[shape], residual,
+                                  dt, layout)
+    before = fba.kernel_paths()
+    got = fba.frozen_bn_act(x, s, b, r, sr, rb, relu=relu)
+    torch.cuda.synchronize()
+    after = fba.kernel_paths()
+    path = fba_path(FBA_SHAPES[shape], layout)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == path) for k in after}
+    want = fba.frozen_bn_act_plain(x, s, b, r, sr, rb, relu=relu)
+    assert got.dtype == dt and got.stride() == x.stride()
+    assert within_one_ulp(got, want)
+
+
+def test_frozen_bn_act_refuses_unaligned_pointers(cuda_device):
+    """Views one element into their buffers are not 16-byte aligned: x, the
+    residual or a constant there raises before any launch; an unaligned
+    incoming gradient, which autograd may hand over, is copied and the
+    backward agrees with the aligned one's."""
+    from dfvod_tpu_torch.ops import frozen_bn_act as fba
+    shape = (2, 64, 6, 5)
+    n = int(np.prod(shape))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    buf = torch.randn(2 * n + 1, generator=gen, device=cuda_device).bfloat16()
+    x = buf[1:n + 1].view(shape)
+    r = buf[n + 1:].view(shape)
+    consts = torch.rand(2 * 64 + 1, generator=gen, device=cuda_device) + 0.5
+    s, b = consts[:64].clone(), consts[64:128].clone() - 1.0
+    before = trace.counter("frozen_bn_act")
+    for args in ((x, s, b, r.clone()), (x.clone(), s, b, r),
+                 (x.clone(), consts[1:65], b, r.clone())):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fba.frozen_bn_act(*args, relu=True)
+    assert trace.counter("frozen_bn_act") == before
+    xa = x.clone().requires_grad_()
+    y = fba.frozen_bn_act(xa, s, b, r.clone(), relu=True)
+    g = torch.randn(n + 1, generator=gen, device=cuda_device).bfloat16()
+    (dx,) = torch.autograd.grad(y, xa, g[1:].view(shape))
+    want = fba.frozen_bn_act_bwd_plain(g[1:].view(shape), y.detach(), s,
+                                       None, True, True, False)[0]
+    assert torch.equal(dx, want)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices")
+def test_frozen_bn_act_runs_on_a_card_that_is_not_current(cuda_device):
+    """A FrozenBN on cuda:1 while cuda:0 is current launches on cuda:1,
+    forward and backward, with cuda:0's results."""
+    from dfvod_tpu_torch.ops import frozen_bn_act as fba
+    torch.cuda.set_device(0)
+    case = fba_case(torch.device("cuda", 0), (2, 256, 8, 10), "affine",
+                    torch.bfloat16, "nhwc")
+    x, s, b, r, sr, rb = case
+    g = torch.randn(x.shape, device="cuda:0").bfloat16().contiguous(
+        memory_format=torch.channels_last)
+
+    def run(dev):
+        t = [v.to(dev, copy=True) for v in (x, s, b, r, sr, rb, g)]
+        xl, rl = (t[0].requires_grad_(), t[3].requires_grad_())
+        y = fba.frozen_bn_act(xl, t[1], t[2], rl, t[4], t[5], relu=True)
+        dx, dr = torch.autograd.grad(y, (xl, rl), t[6])
+        torch.cuda.synchronize(dev)
+        return [v.cpu() for v in (y, dx, dr)]
+
+    on0 = run("cuda:0")
+    on1 = run("cuda:1")
+    assert torch.cuda.current_device() == 0
+    for a, w in zip(on1, on0):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("form", list(FBA_FORMS))
+def test_frozen_bn_act_bwd_kernel_matches_autograd(cuda_device, form, dtype,
+                                                   layout):
+    """The backward kernel (x's and the residual's gradients through
+    ``FrozenBNActFunction``) against autograd through the plain version on
+    the card, within one ulp (the same f32 products, rounded once), at
+    layer3's 38 x 50 map (H * W no multiple of 8) and 256 channels."""
+    from dfvod_tpu_torch.ops import frozen_bn_act as fba
+    residual, relu = FBA_FORMS[form]
+    dt = getattr(torch, dtype)
+    x, s, b, r, sr, rb = fba_case(cuda_device, (2, 256, 38, 50), residual,
+                                  dt, layout, seed=4)
+    g = torch.randn(x.shape, device=cuda_device).to(dt).contiguous(
+        memory_format=(torch.channels_last if layout == "nhwc"
+                       else torch.contiguous_format))
+    leaves = [t for t in (x, r) if t is not None]
+
+    def grads(fn):
+        ls = [t.detach().clone().requires_grad_() for t in leaves]
+        y = fn(ls[0], s, b, ls[1] if len(ls) > 1 else None, sr, rb,
+               relu=relu)
+        return torch.autograd.grad(y, ls, g)
+
+    before = fba.kernel_paths("bwd")
+    got = grads(fba.frozen_bn_act)
+    torch.cuda.synchronize()
+    after = fba.kernel_paths("bwd")
+    assert sum(after.values()) - sum(before.values()) == 1
+    for a, w in zip(got, grads(fba.frozen_bn_act_plain)):
+        assert a.dtype == dt and a.stride() == g.stride()
+        assert within_one_ulp(a, w)
+
+
+def test_frozen_bn_act_refusals(cuda_device):
+    """A strided view, an f64 tensor and a residual in another memory order
+    raise before any launch."""
+    from dfvod_tpu_torch.ops import frozen_bn_act as fba
+    x, s, b, r, _, _ = fba_case(cuda_device, (2, 64, 6, 5), "identity",
+                                torch.bfloat16, "nhwc")
+    before = trace.counter("frozen_bn_act")
+    with pytest.raises(ValueError, match="memory"):
+        fba.frozen_bn_act(x.transpose(2, 3), s, b)
+    with pytest.raises(TypeError, match="bf16, f16 or f32"):
+        fba.frozen_bn_act(x.double(), s.double(), b.double())
+    with pytest.raises(ValueError, match="memory order"):
+        fba.frozen_bn_act(x, s, b, r.contiguous())
+    with pytest.raises(ValueError, match="constants"):
+        fba.frozen_bn_act(x, s.bfloat16(), b)
+    assert trace.counter("frozen_bn_act") == before
+
+
+def unfused_frozen_bn(x, scale, bias, residual=None, res_scale=None,
+                      res_bias=None, relu=True):
+    """The passes ``frozen_bn_act`` replaced, each in x's dtype: the
+    FrozenBN multiply and add, the residual's, the add and the ReLU."""
+    def bn(t, s, c):
+        return (t * s.to(t.dtype)[None, :, None, None]
+                + c.to(t.dtype)[None, :, None, None])
+    y = bn(x, scale, bias)
+    if residual is not None:
+        y = y + (residual if res_scale is None
+                 else bn(residual, res_scale, res_bias))
+    return torch.relu(y) if relu else y
+
+
+def test_resnet50_epilogue_against_the_unfused_chain(cuda_device,
+                                                     monkeypatch):
+    """A bf16 channels-last ``ResNet50`` eval on the card makes 49 kernel
+    passes and agrees with the same model run through the unfused chain
+    within bf16's reach (relative L2 3e-2, the fused-stage test's); an f32
+    training forward and backward agrees with the chain's in the output
+    and every conv weight's gradient (relative L2 1e-5: the f32 passes
+    are bitwise the chain's, cuDNN's backward sums in its own order)."""
+    torch.manual_seed(0)
+    ref = br.ResNet50(return_stages=(1, 2, 3, 4)).eval()
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, br.FrozenBatchNorm):
+                m.running_mean.normal_(0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    model = ref.to(device=cuda_device, dtype=torch.bfloat16,
+                   memory_format=torch.channels_last)
+    x = torch.randn(2, 64, 96, 3, device=cuda_device)
+    before = trace.counter("frozen_bn_act")
+    with torch.no_grad():
+        got = model(x.bfloat16())
+        torch.cuda.synchronize()
+        assert trace.counter("frozen_bn_act") == before + 49
+        monkeypatch.setattr(br, "frozen_bn_act", unfused_frozen_bn)
+        want = model(x.bfloat16())
+        monkeypatch.undo()
+    for s in (1, 2, 3, 4):
+        assert got[s].dtype == torch.bfloat16
+        assert got[s].permute(0, 3, 1, 2).is_contiguous(
+            memory_format=torch.channels_last)
+        err = float((got[s].float() - want[s].float()).norm()
+                    / want[s].float().norm())
+        assert err < 3e-2, (s, err)
+
+    model = model.float().train()
+
+    def step():
+        out = model(x)[4]
+        out.square().mean().backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        model.zero_grad()
+        return out.detach(), grads
+
+    bwd_before = trace.counter("frozen_bn_act_bwd")
+    out, grads = step()
+    torch.cuda.synchronize()
+    assert trace.counter("frozen_bn_act_bwd") == bwd_before + 49
+    monkeypatch.setattr(br, "frozen_bn_act", unfused_frozen_bn)
+    want_out, want_grads = step()
+    monkeypatch.undo()
+    assert float((out - want_out).norm() / want_out.norm()) < 1e-5
+    for n, gw in want_grads.items():
+        err = float((grads[n] - gw).norm() / gw.norm())
+        assert err < 1e-5, (n, err)
