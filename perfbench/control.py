@@ -29,7 +29,6 @@ import torch  # noqa: E402
 
 from perfbench.harness import cell as cell_mod  # noqa: E402
 from perfbench.harness import faults, inputs, lowprec, spec  # noqa: E402
-from perfbench.loops import train  # noqa: E402
 
 
 @torch.no_grad()
@@ -39,11 +38,10 @@ def serve_fp8_control(cell, seed, device):
     pool, judged by the cell's check."""
     from perfbench.harness import weights
     from perfbench.loops import serve
-    from perfbench.reference import model as ref_model
-    traffic, config = cell.traffic, cell.config
-    pool = inputs.pool(traffic, seed, device)
-    ref = ref_model.build(config["config"]).to(device)
-    weights.load(ref, serve.draw_weights(config, seed, device))
+    traffic, config, ref_mod = cell.traffic, cell.config, cell.reference
+    pool = inputs.pool(traffic, seed, device, kind=cell.kind)
+    ref = ref_mod.build(config["config"]).to(device)
+    weights.load(ref, serve.draw_weights(config, seed, device, ref_mod))
     frames = ref.cfg["num_ref_frames"] + 1 if hasattr(ref, "detr") else 1
     kept, answers = {}, {}
     for i in range(traffic["check_requests"]):
@@ -51,29 +49,33 @@ def serve_fp8_control(cell, seed, device):
         sizes = pool[i]["sizes"].to(device)
         with lowprec.fp8():
             kept[i] = serve.forward_kept(ref, images, sizes,
-                                         traffic["check_block"])
-        sc, lab, bx = ref_model.postprocess(*kept[i]["final"],
-                                            sizes[::frames])
+                                         traffic["check_block"],
+                                         ref_mod.normalize)
+        sc, lab, bx = ref_mod.postprocess(*kept[i]["final"],
+                                          sizes[::frames])
         answers[i] = {"scores": sc.cpu(), "labels": lab.cpu(),
                       "boxes": bx.cpu()}
     del ref
     cell_mod.free(device != "cpu")
     return serve.check(config, traffic, seed, pool, kept, answers, device,
-                       frames)
+                       frames, ref_mod)
 
 
 def train_control(cell, seed, device):
-    """The fp8 reference in the program's place, against the f32 one."""
-    pool = inputs.pool(cell.traffic, seed, device)
+    """The fp8 reference in the program's place, against the f32 one
+    (over the cell's ranks' rows where its loop has several)."""
+    from perfbench.loops import train
+    pool = inputs.pool(cell.traffic, seed, device, kind=cell.kind)
     n = cell.traffic["check_steps"]
-    low = train.reference_steps(cell.config, seed, pool, n, device,
-                                lowprec=lowprec.fp8)
+    args = (cell.config, seed, pool, n, device, cell.reference)
+    low = train.reference_steps(*args, lowprec=lowprec.fp8,
+                                ranks=cell.chips)
     cell_mod.free(device != "cpu")
-    ref = train.reference_steps(cell.config, seed, pool, n, device)
+    ref = train.reference_steps(*args, ranks=cell.chips)
     cell_mod.free(device != "cpu")
-    emu = train.reference_steps(cell.config, seed, pool, n, device,
-                                lowprec=lowprec.bf16)
-    return train.ratios(low, emu, ref)
+    emu = train.reference_steps(*args, lowprec=lowprec.bf16,
+                                ranks=cell.chips)
+    return train.ratios(low, emu, ref, cell.reference)
 
 
 def main(argv):
@@ -95,7 +97,7 @@ def main(argv):
     loop = cell.traffic["loop"]
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        if args.control and loop == "train":
+        if args.control and cell.kind == "train":
             numbers = train_control(cell, seed, "cuda")
         elif args.control == "fp8":
             numbers = serve_fp8_control(cell, seed, "cuda")

@@ -48,18 +48,17 @@ def run(cell, seed, seconds, trace, device="cuda", t_start=None,
     ``faults``: a callable given the program once it is built, for the
     tests that break the timed path underneath."""
     t_start = time.perf_counter() if t_start is None else t_start
-    traffic, config = cell.traffic, cell.config
-    loop = spec.loop_module(traffic["loop"], cell.root)
+    traffic, config, loop = cell.traffic, cell.config, cell.loop
     limits = limits_of(cell)
     setup = {"import_s": time.perf_counter() - t_start}
     t = time.perf_counter()
-    pool = inputs.pool(traffic, seed, device)
+    pool = inputs.pool(traffic, seed, device, kind=cell.kind)
     setup["inputs_s"] = time.perf_counter() - t
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     t = time.perf_counter()
-    prog = loop.build(config, seed, device)
+    prog = loop.build(cell, seed, device)
     setup["build_s"] = time.perf_counter() - t
     if faults is not None:
         faults(prog)
@@ -89,7 +88,8 @@ def run(cell, seed, seconds, trace, device="cuda", t_start=None,
         metrics["setup_s"] = {"value": setup_s, "unit": "s"}
     else:
         ctx = types.SimpleNamespace(
-            loop=traffic["loop"], calls=w.calls, window_s=w.seconds,
+            loop=traffic["loop"], chips=cell.chips, calls=w.calls,
+            window_s=w.seconds,
             frames_per_s=w.frames / w.seconds,
             key_frames_per_call=w.key_frames,
             frames_per_call=traffic["frames_per_request"],
@@ -109,15 +109,19 @@ def run(cell, seed, seconds, trace, device="cuda", t_start=None,
         ctx.counts = flops.count(config["config"],
                                  traffic["frames_per_request"],
                                  traffic["height"], traffic["width"],
-                                 train=traffic["loop"] == "train")
+                                 train=cell.kind == "train",
+                                 ref=cell.reference)
         for m in cell.per_layer:
             value = spec.metric_reader(m["name"], cell.root)(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": float(value),
                                       "unit": m["unit"]}
 
-    # the check, after the program's state is freed
+    # the check, after the program's state is freed (a loop of ranks has
+    # ended its other ranks, and hands their peak over)
     held = loop.hand_over(prog, first, w)
+    peak_ranks = held.pop("memory_peak_bytes", 0) if isinstance(
+        held, dict) else 0
     del prog, first
     free(cuda)
     numbers = loop.check_numbers(cell, seed, pool, held, device)
@@ -126,7 +130,8 @@ def run(cell, seed, seconds, trace, device="cuda", t_start=None,
                    "kind": (torch.cuda.get_device_name() if cuda
                             else "cpu"),
                    "count": cell.chips if cuda else 0,
-                   "memory_peak_bytes": int(max(peak_setup, peak_window)),
+                   "memory_peak_bytes": int(max(peak_setup, peak_window,
+                                                peak_ranks)),
                    **device_info}
     result = {"correct": correct, "attempted": w.calls, "failed": w.failed,
               "metrics": metrics, "device": device_info}

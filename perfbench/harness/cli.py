@@ -31,7 +31,7 @@ def main(argv, t_start=None):
         print(f"perfbench: {args.workload} needs {cell.chips} cards, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
-    chips = spec.loop_module(cell.traffic["loop"], cell.root).CHIPS
+    chips = cell.loop.CHIPS
     if cell.chips not in chips:
         print(f"perfbench: {args.workload}: the loop "
               f"{cell.traffic['loop']!r} runs on {chips} cards, not "

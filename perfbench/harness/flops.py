@@ -1,26 +1,26 @@
 """Operations and bytes of a cell, counted from its shapes.
 
-Model FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the plain
-reference run on the ``meta`` device at the cell's batch and frame size
-(forward, or forward and backward of the trainable parameters for a train
-step), plus an analytic count of what the counter does not see: the
-bilinear sampling of deformable attention and of RoIAlign. The count does
-not depend on how the port implements the model, so a later change that
-removes a kernel still faces the same yardstick.
+Model FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over the cell's
+plain reference (its ``build``) run on the ``meta`` device at the cell's
+batch and frame size (forward, or forward and backward of the trainable
+parameters for a train step), plus an analytic count of what the counter
+does not see: the bilinear sampling of deformable attention and of
+RoIAlign. The count does not depend on how the port implements the model,
+so a later change that removes a kernel still faces the same yardstick.
 
 The deformable-attention calls and their shapes are read from the same
-meta run (a pre-hook on each ``MSDeformAttn``), and give K1's and K2's
-roofline bounds by the rule of the port's kernel table: the least time is
-max(bytes / HBM bandwidth, operations / peak), each input read once and
-each output written once.
+meta run (a pre-hook on each of the reference's ``MSDeformAttn``; the
+RoIAlign samples from its ``roi_align``, where it has one), and give K1's
+and K2's roofline bounds by the rule of the port's kernel table: the
+least time is max(bytes / HBM bandwidth, operations / peak), each input
+read once and each output written once.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 from torch.utils.flop_counter import FlopCounterMode
-
-from perfbench.reference import model as ref_model
-from perfbench.reference.train import group_label
 
 # NVIDIA H100 SXM5 80 GB, published dense peaks at its 700 W limit
 PEAKS = {"bf16_flops": 989e12, "f32_flops": 67e12, "hbm_bytes": 3.35e12}
@@ -86,10 +86,13 @@ def bound_s(flops, nbytes, peak_flops=PEAKS["f32_flops"]):
     return max(nbytes / PEAKS["hbm_bytes"], flops / peak_flops)
 
 
-def count(model_cfg, frames, height, width, train=False):
+def count(model_cfg, frames, height, width, ref, train=False):
     """{"flops": model FLOPs of one call over ``frames`` frames (a train
     step: forward and backward), "msda": [MSDACall, ...] of the forward,
-    "roi_flops": RoIAlign's sampling FLOPs}. Runs on the meta device."""
+    "roi_flops": RoIAlign's sampling FLOPs} of the reference module
+    ``ref`` (the cell's ``reference``). Runs on the meta
+    device. A train step's trainable parameters are those that the
+    reference's ``group_label`` does not call ``frozen``."""
     calls = []
 
     def pre(mod, args):
@@ -98,14 +101,17 @@ def count(model_cfg, frames, height, width, train=False):
                               mod.n_heads, mod.n_levels, mod.n_points,
                               mod.d_model // mod.n_heads))
     with torch.device("meta"):
-        m = ref_model.build(model_cfg)
+        m = ref.build(model_cfg)
+        msda = getattr(ref, "MSDeformAttn", None)
         for mod in m.modules():
-            if isinstance(mod, ref_model.MSDeformAttn):
+            if msda is not None and isinstance(mod, msda):
                 mod.register_forward_pre_hook(pre)
         x = torch.empty(frames, height, width, 4)
         mask = torch.zeros(frames, height, width, dtype=torch.bool)
         roi = {"flops": 0}
-        orig = ref_model.roi_align
+        orig = getattr(ref, "roi_align", None)
+        # the model calls RoIAlign by the name in the module that defines it
+        home = sys.modules[orig.__module__] if orig is not None else None
 
         def counted_roi(features, boxes, *a, **k):
             B, R = boxes.shape[:2]
@@ -113,13 +119,14 @@ def count(model_cfg, frames, height, width, train=False):
             # 7 x 7 bins of 2 x 2 bilinear samples, 4 corners x 2 FLOPs
             roi["flops"] += B * R * 49 * 4 * C * 8
             return orig(features, boxes, *a, **k)
-        ref_model.roi_align = counted_roi
+        if home is not None:
+            home.roi_align = counted_roi
         try:
             with flop_counter() as fc:
                 if train:
                     head = m.detr if hasattr(m, "detr") else m
                     for name, p in head.named_parameters():
-                        p.requires_grad_(group_label(name) != "frozen")
+                        p.requires_grad_(ref.group_label(name) != "frozen")
                     m.train()
                     out = m(x, mask)
                     loss = sum(o.float().mean() for o in (
@@ -131,7 +138,8 @@ def count(model_cfg, frames, height, width, train=False):
                     with torch.no_grad():
                         m(x, mask)
         finally:
-            ref_model.roi_align = orig
+            if home is not None:
+                home.roi_align = orig
     flops = fc.get_total_flops() + roi["flops"]
     flops += sum(c.fwd_flops() for c in calls)
     if train:

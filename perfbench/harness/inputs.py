@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+CHUNK = 16
+
 
 def sub_seed(seed: int, stream: int) -> int:
     """A seed for one stream of draws (weights, frames, targets) of a run."""
@@ -22,15 +24,13 @@ def sub_seed(seed: int, stream: int) -> int:
 
 def frames(n, height, width, content_sizes, seed, device, pin=True):
     """(n, H, W, 4) uint8 frames padded bottom/right to (H, W), and their
-    (n, 2) content sizes."""
+    (n, 2) content sizes. The draws are made whole, and the frames from
+    them ``CHUNK`` at a time, so that the device holds one float copy of
+    the pool (its pixel noise) beside the frames, not three."""
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 1))
     low = torch.rand((n, 4, max(height // 16, 1), max(width // 16, 1)),
                      generator=gen, device=device)
-    x = F.interpolate(low, size=(height, width), mode="bilinear",
-                      align_corners=False)
-    x = x + 0.1 * torch.rand((n, 4, height, width), generator=gen,
-                             device=device)
-    x = (x.clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1)
+    noise = torch.rand((n, 4, height, width), generator=gen, device=device)
     start = int(torch.randint(len(content_sizes), (1,), generator=gen,
                               device=device))
     sizes = torch.tensor([content_sizes[(start + i) % len(content_sizes)]
@@ -38,8 +38,15 @@ def frames(n, height, width, content_sizes, seed, device, pin=True):
     h = torch.arange(height, device=device)[None, :, None]
     w = torch.arange(width, device=device)[None, None, :]
     sz = sizes.to(device)
-    pad = (h >= sz[:, 0, None, None]) | (w >= sz[:, 1, None, None])
-    x = x.masked_fill(pad[..., None], 0).contiguous()
+    x = torch.empty((n, height, width, 4), dtype=torch.uint8, device=device)
+    for i in range(0, n, CHUNK):
+        c = slice(i, i + CHUNK)
+        f = F.interpolate(low[c], size=(height, width), mode="bilinear",
+                          align_corners=False) + 0.1 * noise[c]
+        f = (f.clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1)
+        pad = (h >= sz[c, 0, None, None]) | (w >= sz[c, 1, None, None])
+        x[c] = f.masked_fill(pad[..., None], 0)
+    del noise
     if device != "cpu" and torch.device(device).type == "cuda":
         x = x.cpu()
         if pin:
@@ -47,13 +54,17 @@ def frames(n, height, width, content_sizes, seed, device, pin=True):
     return x, sizes
 
 
-def targets(n, slots, min_boxes, max_boxes, seed, device="cpu"):
-    """labels (n, T) in {0, 1}, normalized cxcywh boxes (n, T, 4) and valid
-    (n, T), with ``min_boxes``..``max_boxes`` valid slots a frame."""
+def targets(n, slots, min_boxes, max_boxes, seed, device="cpu",
+            label_classes=None):
+    """labels (n, T), drawn uniformly from ``label_classes`` (by default
+    {0, 1}), normalized cxcywh boxes (n, T, 4) and valid (n, T), with
+    ``min_boxes``..``max_boxes`` valid slots a frame."""
     gen = torch.Generator().manual_seed(sub_seed(seed, 2))
     count = torch.randint(min_boxes, max_boxes + 1, (n,), generator=gen)
     valid = torch.arange(slots)[None] < count[:, None]
-    labels = torch.randint(0, 2, (n, slots), generator=gen) * valid
+    classes = torch.tensor(label_classes or (0, 1), dtype=torch.int64)
+    labels = classes[torch.randint(0, len(classes), (n, slots),
+                                   generator=gen)] * valid
     cxcy = torch.rand((n, slots, 2), generator=gen) * 0.6 + 0.2
     wh = torch.rand((n, slots, 2), generator=gen) * 0.3 + 0.05
     boxes = torch.cat([cxcy, wh], -1) * valid[..., None]
@@ -61,9 +72,11 @@ def targets(n, slots, min_boxes, max_boxes, seed, device="cpu"):
             "valid": valid.to(device)}
 
 
-def pool(traffic, seed, device):
+def pool(traffic, seed, device, kind):
     """The mix's pool of distinct batches: a list of dicts with ``images``
-    (pinned host uint8) and ``sizes``, and, for training, the targets."""
+    (pinned host uint8) and ``sizes``, and, where ``kind`` (the ``KIND``
+    of the mix's loop) is ``train``, the targets (labels from the mix's
+    ``label_classes`` where it gives them)."""
     n = traffic["frames_per_request"]
     P = traffic["pool"]
     imgs, sizes = frames(n * P, traffic["height"], traffic["width"],
@@ -71,9 +84,10 @@ def pool(traffic, seed, device):
                          seed, device)
     out = []
     tg = None
-    if traffic["loop"] == "train":
+    if kind == "train":
         tg = targets(n * P, traffic["target_slots"], traffic["min_boxes"],
-                     traffic["max_boxes"], seed)
+                     traffic["max_boxes"], seed,
+                     label_classes=traffic.get("label_classes"))
     for i in range(P):
         b = {"images": imgs[i * n:(i + 1) * n],
              "sizes": sizes[i * n:(i + 1) * n]}

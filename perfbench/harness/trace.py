@@ -115,6 +115,30 @@ class Profile:
         ``pred``."""
         return sum(b - a for n, a, b in self.kernels if pred(n))
 
+    def exposed_us(self, pred):
+        """Device time of the kernels whose name satisfies ``pred`` that
+        no other kernel or copy covers: the union of their intervals less
+        its overlap with the union of the others'."""
+        def union(ivs):
+            out = []
+            for a, b in sorted(ivs):
+                if out and a <= out[-1][1]:
+                    out[-1][1] = max(out[-1][1], b)
+                else:
+                    out.append([a, b])
+            return out
+        mine = union((a, b) for n, a, b in self.kernels if pred(n))
+        rest = union((a, b) for n, a, b in self.kernels if not pred(n))
+        covered, j = 0.0, 0
+        for a, b in mine:
+            while j < len(rest) and rest[j][1] <= a:
+                j += 1
+            k = j
+            while k < len(rest) and rest[k][0] < b:
+                covered += min(b, rest[k][1]) - max(a, rest[k][0])
+                k += 1
+        return sum(b - a for a, b in mine) - covered
+
     def gaps(self):
         """(start_us, end_us) of every idle stretch inside the window."""
         out, t = [], self.t0

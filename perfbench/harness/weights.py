@@ -9,15 +9,16 @@ Deformable DETR's initialization where it is random (He for the bias-free
 ResNet convolutions, Xavier for the linear layers and biased convolutions,
 N(0, 1) for the embeddings) and put small noise on what that
 initialization sets to constants (biases, the zero box kernels, the ring
-of sampling offsets), so that every parameter moves the output.
+of sampling offsets), so that every parameter moves the output. The
+reference module gives the constants (``PRIOR_PROB``, ``WH_BIAS``) and
+the ring (``ring_bias``); each deformable attention's ring has the
+module's own level count (``offset_levels``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-
-from perfbench.reference.model import PRIOR_PROB, WH_BIAS, ring_bias
 
 
 # Per-channel spread of the ResNet's folded FrozenBN scales and of the
@@ -43,12 +44,14 @@ def norm_scale(name, shape):
             and (leaf[-2].startswith("norm") or leaf[-2] == "gn"))
 
 
-def _rule(name, shape, model_cfg):
-    """(base tensor or float, scale) of one state-dict entry."""
+def _rule(name, shape, model_cfg, ref, levels):
+    """(base tensor or float, scale) of one state-dict entry; ``ref`` the
+    reference module, ``levels`` {name: level count} of the sampling
+    offsets' biases (1 where it has none)."""
     leaf = name.rsplit(".", 1)[-1]
     if name.endswith("sampling_offsets.bias"):
-        M = model_cfg["nheads"]
-        return ring_bias(M, 1, shape[0] // (2 * M)), 0.1
+        M, L = model_cfg["nheads"], levels.get(name, 1)
+        return ref.ring_bias(M, L, shape[0] // (2 * M * L)), 0.1
     if name.endswith("sampling_offsets.weight"):
         return 0.0, 0.02
     if name.endswith("attention_weights.weight") or name.endswith(
@@ -57,9 +60,9 @@ def _rule(name, shape, model_cfg):
     if name.endswith("bbox_layers_2.weight"):
         return 0.0, 0.02
     if name.endswith("bbox_layers_2.bias"):
-        return torch.tensor([0.0, 0.0, WH_BIAS, WH_BIAS]), 0.02
+        return torch.tensor([0.0, 0.0, ref.WH_BIAS, ref.WH_BIAS]), 0.02
     if name.endswith("class_embed.bias"):
-        return -math.log((1 - PRIOR_PROB) / PRIOR_PROB), 0.02
+        return -math.log((1 - ref.PRIOR_PROB) / ref.PRIOR_PROB), 0.02
     if leaf in ("level_embed", "query_embed"):
         return 0.0, 1.0
     if leaf == "running_mean":
@@ -80,9 +83,11 @@ def _rule(name, shape, model_cfg):
     return 0.0, math.sqrt(2.0 / (fan_in + fan_out))       # Xavier
 
 
-def draw(state_shapes, seed: int, model_cfg, device):
+def draw(state_shapes, seed: int, model_cfg, device, ref, levels):
     """{name: f32 tensor on ``device``} for ``state_shapes`` ({name:
-    shape}, the reference's floating state-dict entries), from ``seed``."""
+    shape}, the reference's floating state-dict entries), from ``seed``;
+    ``ref`` the reference module, ``levels`` as ``offset_levels`` gives
+    them (a ring it does not name: one level)."""
     names = sorted(state_shapes)
     sizes = [math.prod(state_shapes[n]) for n in names]
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -90,7 +95,7 @@ def draw(state_shapes, seed: int, model_cfg, device):
     out = {}
     for name, part in zip(names, z.split(sizes)):
         shape = tuple(state_shapes[name])
-        base, scale = _rule(name, shape, model_cfg)
+        base, scale = _rule(name, shape, model_cfg, ref, levels)
         base = torch.as_tensor(base, dtype=torch.float32).to(device)
         t = (base + scale * part.view(shape)).view(shape)
         if name.endswith("running_var"):
@@ -99,6 +104,14 @@ def draw(state_shapes, seed: int, model_cfg, device):
             t = torch.exp(t)
         out[name] = t
     return out
+
+
+def offset_levels(model):
+    """{state-dict name of a sampling offsets' bias: the level count of
+    its deformable attention} over ``model``'s modules."""
+    return {f"{name}.sampling_offsets.bias": int(m.n_levels)
+            for name, m in model.named_modules()
+            if hasattr(m, "sampling_offsets") and hasattr(m, "n_levels")}
 
 
 def floating_shapes(model):

@@ -12,8 +12,9 @@ have passed and ends with the last one's answer: every request started is
 finished and counted.
 
 A loop module (``perfbench/harness/spec.py::loop_module``) gives the
-harness: ``CHIPS``, ``build``, ``warm_up``, ``trace_events``, ``window``,
-``traced_call``, ``hand_over`` and ``check_numbers``.
+harness: ``KIND``, ``CHIPS``, ``build``, ``warm_up``, ``trace_events``,
+``window``, ``traced_call``, ``hand_over`` and ``check_numbers``. The
+reference it checks against is the cell's (``spec.reference``).
 """
 from __future__ import annotations
 
@@ -25,20 +26,20 @@ import numpy as np
 import torch
 
 from perfbench.harness import trace, weights
-from perfbench.reference import model as ref_model
 
 
 class Program:
-    """The port's server for a cell, with the run's weights loaded."""
+    """The port's server for a cell, with the run's weights (drawn from
+    the shapes of ``ref``, the configuration's reference module) loaded."""
 
-    def __init__(self, config, seed, device, dtype=torch.bfloat16):
+    def __init__(self, config, seed, device, ref, dtype=torch.bfloat16):
         from dfvod_tpu_torch.serve import Server
         from dfvod_tpu_torch.utils.config import Config
         self.cfg = Config.from_flat(**config["config"])
         self.server = Server(self.cfg, device=device, dtype=dtype, seed=seed)
         self.frames = self.server.frames
         self.model = self.server.model
-        w = draw_weights(config, seed, device)
+        w = draw_weights(config, seed, device, ref)
         weights.load(self.model, w)
         del w
         self.calls = 0
@@ -127,22 +128,27 @@ def probe_values(name, args, out):
     return {"final": (out["pred_logits"], out["pred_boxes"])}
 
 
-def draw_weights(config, seed, device):
+def draw_weights(config, seed, device, ref):
+    """The run's weights for the floating state of the reference module
+    ``ref``'s model (the cell's ``reference``)."""
     from perfbench.harness.inputs import sub_seed
     with torch.device("meta"):
-        shapes = weights.floating_shapes(ref_model.build(config["config"]))
-    return weights.draw(shapes, sub_seed(seed, 0), config["config"], device)
+        model = ref.build(config["config"])
+    return weights.draw(weights.floating_shapes(model), sub_seed(seed, 0),
+                        config["config"], device, ref,
+                        weights.offset_levels(model))
 
 
 def host(out):
     return {k: out[k].cpu() for k in ("scores", "labels", "boxes")}
 
 
+KIND = "serve"
 CHIPS = (1,)
 
 
-def build(config, seed, device):
-    return Program(config, seed, device)
+def build(cell, seed, device):
+    return Program(cell.config, seed, device, ref=cell.reference)
 
 
 def warm_up(prog, pool, traffic, seed):
@@ -222,7 +228,7 @@ def hand_over(prog, first, w):
 
 def check_numbers(cell, seed, pool, held, device):
     return check(cell.config, cell.traffic, seed, pool, held["kept"],
-                 held["answers"], device, held["frames"])
+                 held["answers"], device, held["frames"], cell.reference)
 
 
 def consistent_topk(raw_logits, raw_boxes, sizes, ans):
@@ -242,8 +248,9 @@ def consistent_topk(raw_logits, raw_boxes, sizes, ans):
     prob = torch.sigmoid(lg[..., :Ke]).cpu().numpy()       # (B, Q, Ke)
     h, w = sizes[:, 0].float(), sizes[:, 1].float()
     scale = torch.stack([w, h, w, h], 1)[:, None]
-    xyxy = (ref_model.box_cxcywh_to_xyxy(raw_boxes.float().cpu())
-            * scale).numpy()                               # (B, Q, 4)
+    cx, cy, bw, bh = raw_boxes.float().cpu().unbind(-1)
+    xyxy = (torch.stack([cx - 0.5 * bw, cy - 0.5 * bh, cx + 0.5 * bw,
+                         cy + 0.5 * bh], dim=-1) * scale).numpy()  # (B, Q, 4)
     scale = scale.numpy()
     s = ans["scores"].float().numpy()
     lab = ans["labels"].long().numpy()
@@ -283,11 +290,12 @@ def _cat(parts):
     return tuple(_cat(list(p)) for p in zip(*parts))
 
 
-def forward_kept(ref, images, sizes, block):
+def forward_kept(ref, images, sizes, block, normalize):
     """The reference's own forward over one request, ``block`` frames at
-    a time, in the form the program's probes keep: the first frame's
-    stage-4 map, and over every frame the memory at a stride, the trunk's
-    state and outputs, and the raw outputs."""
+    a time (``normalize`` the reference module's), in the form the
+    program's probes keep: the first frame's stage-4 map, and over every
+    frame the memory at a stride, the trunk's state and outputs, and the
+    raw outputs."""
     vals = []
     hooks = [mod.register_forward_hook(
         lambda mod_, a, o, name=name: vals[-1].update(
@@ -296,8 +304,7 @@ def forward_kept(ref, images, sizes, block):
     try:
         for a in range(0, images.shape[0], block):
             vals.append({})
-            ref(*ref_model.normalize(images[a:a + block],
-                                     sizes[a:a + block]))
+            ref(*normalize(images[a:a + block], sizes[a:a + block]))
     finally:
         for h in hooks:
             h.remove()
@@ -307,7 +314,7 @@ def forward_kept(ref, images, sizes, block):
     return res
 
 
-def stage_outputs(ref, images, sizes, block, kept, frames):
+def stage_outputs(ref, images, sizes, block, kept, frames, normalize):
     """The reference's decoder, and for clips its temporal head, each run
     from the state that the program kept, ``block`` frames at a time: the
     decoder and its heads over the program's memory (its last layer's
@@ -316,7 +323,7 @@ def stage_outputs(ref, images, sizes, block, kept, frames):
     detr = ref.detr if hasattr(ref, "detr") else ref
     out = {}
     for a in range(0, images.shape[0], block):
-        _, mask = ref_model.normalize(images[a:a + block], sizes[a:a + block])
+        _, mask = normalize(images[a:a + block], sizes[a:a + block])
         st = {k: v[a:a + block].float() for k, v in kept["state"].items()}
         t = detr.decode_from(st["memory"], mask)
         res = {"decoder_hs": t["hs_last"], "decoder_logit": t["classes"][-1],
@@ -357,7 +364,8 @@ def _whole(kept, n, frames):
 
 
 @torch.no_grad()
-def check(config, traffic, seed, pool, kept, answers, device, frames):
+def check(config, traffic, seed, pool, kept, answers, device, frames,
+          ref_mod):
     """Compare the kept requests with the plain reference (f32, TF32 off)
     stage by stage. From the request's frames: the first frame's ResNet
     map and every frame's memory at a stride. From the program's own
@@ -369,12 +377,13 @@ def check(config, traffic, seed, pool, kept, answers, device, frames):
     the same reference with its operands rounded to bf16
     (``lowprec.bf16``) on the same inputs, pooled over the kept requests.
     The answers must be what the program's raw outputs give
-    (``post_mismatch``). Returns {number: value}."""
+    (``post_mismatch``). ``ref_mod``: the cell's reference module. Returns {number: value}."""
     from perfbench.harness.lowprec import bf16
+    norm = ref_mod.normalize
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref = ref_model.build(config["config"]).to(device)
-    weights.load(ref, draw_weights(config, seed, device))
+    ref = ref_mod.build(config["config"]).to(device)
+    weights.load(ref, draw_weights(config, seed, device, ref_mod))
     parts = ("features", "memory", "decoder_hs", "decoder_logit",
              "decoder_box") + (("temporal_hs", "temporal_logit",
                                 "temporal_box") if frames > 1 else ())
@@ -391,13 +400,13 @@ def check(config, traffic, seed, pool, kept, answers, device, frames):
             continue
         images = batch["images"].to(device)
         sizes = batch["sizes"].to(device)
-        ref_out = forward_kept(ref, images, sizes, block)
+        ref_out = forward_kept(ref, images, sizes, block, norm)
         ref_out.update(stage_outputs(ref, images, sizes, block, kept_i,
-                                     frames))
+                                     frames, norm))
         with bf16():
-            emu_out = forward_kept(ref, images, sizes, block)
+            emu_out = forward_kept(ref, images, sizes, block, norm)
             emu_out.update(stage_outputs(ref, images, sizes, block, kept_i,
-                                         frames))
+                                         frames, norm))
         prog = program_values(kept_i)
         for p in parts:
             if prog[p].shape != ref_out[p].shape:

@@ -5,7 +5,9 @@ Set-up builds one train state (model, AdamW state, dropout generator) from
 the seed and drives it through its first steps with the window's own call
 and feed, on distinct batches; those steps are what the reference
 follows. The window then goes on with the same object. Every step reads
-its loss to the host, as the CLI's train loop does.
+its loss to the host, as the CLI's train loop does. The reference it
+checks against is the cell's (``spec.reference``), which gives the train
+step's functions named in ``perfbench/README.md``.
 """
 from __future__ import annotations
 
@@ -18,8 +20,6 @@ import torch
 from perfbench.harness import weights
 from perfbench.harness.inputs import sub_seed
 from perfbench.loops.serve import MEMORY_STRIDE, draw_weights
-from perfbench.reference import model as ref_model
-from perfbench.reference import train as ref_train
 
 
 def train_seed(seed):
@@ -28,16 +28,23 @@ def train_seed(seed):
 
 
 class Program:
-    """The port's train state for a cell, with the run's weights."""
+    """The port's train state for a cell, with the run's weights (drawn
+    from the shapes of ``ref``, the configuration's reference module).
+    ``join``: called before the train state is made (a rank joins its
+    process group there)."""
 
-    def __init__(self, config, seed, device):
+    def __init__(self, config, seed, device, ref, join=None):
         from dfvod_tpu_torch.models import build_model
         from dfvod_tpu_torch.train.engine import create_train_state
         from dfvod_tpu_torch.utils.config import Config
+        self.reference = ref
         self.cfg = Config.from_flat(**config["config"], seed=train_seed(seed))
         model, self.criterion, _ = build_model(self.cfg, device=device,
                                                seed=seed)
-        weights.load(model, draw_weights(config, seed, device))
+        weights.load(model, draw_weights(config, seed, device,
+                                         self.reference))
+        if join is not None:
+            join()
         self.state = create_train_state(model, self.cfg)
         self.model = model
 
@@ -54,6 +61,7 @@ def first_steps(prog, pool, n):
     """Drive ``prog`` through its first ``n`` steps; what the check needs
     of them: each step's loss, each leaf's first gradient (from AdamW's
     state after step 1) and its change after step ``n``."""
+    ref = prog.reference
     start = {k: p.detach().clone() for k, p in prog.trainable().items()}
     losses, grads, out1 = [], None, {}
 
@@ -68,7 +76,7 @@ def first_steps(prog, pool, n):
         losses.append(float(prog(pool[i % len(pool)])["loss"]))
         if i == 0:
             hook.remove()
-            grads = ref_train.leaf_norms(ref_train.first_moment_grads(
+            grads = ref.leaf_norms(ref.first_moment_grads(
                 prog.state.optimizer, prog.trainable().items()))
     change = {k: float((p.detach() - start[k]).norm())
               for k, p in prog.trainable().items()}
@@ -76,11 +84,12 @@ def first_steps(prog, pool, n):
             "out1": out1}
 
 
+KIND = "train"
 CHIPS = (1,)
 
 
-def build(config, seed, device):
-    return Program(config, seed, device)
+def build(cell, seed, device):
+    return Program(cell.config, seed, device, ref=cell.reference)
 
 
 def warm_up(prog, pool, traffic, seed):
@@ -160,21 +169,28 @@ def check_numbers(cell, seed, pool, first, device):
     from perfbench.harness.cell import free
     from perfbench.harness.lowprec import bf16
     n = cell.traffic["check_steps"]
-    ref = reference_steps(cell.config, seed, pool, n, device)
+    ref = reference_steps(cell.config, seed, pool, n, device,
+                          cell.reference)
     free(device != "cpu")
-    emu = reference_steps(cell.config, seed, pool, n, device, lowprec=bf16)
-    return ratios(first, emu, ref)
+    emu = reference_steps(cell.config, seed, pool, n, device,
+                          cell.reference, lowprec=bf16)
+    return ratios(first, emu, ref, cell.reference)
 
 
-def reference_steps(config, seed, pool, n, device, lowprec=None):
-    """The reference's first ``n`` steps (f32, TF32 off), or with
-    ``lowprec`` a context that lowers its precision (the control)."""
+def reference_steps(config, seed, pool, n, device, ref_mod, lowprec=None,
+                    ranks=1):
+    """The reference module ``ref_mod``'s first ``n`` steps (f32, TF32
+    off), or with ``lowprec`` a context that lowers its precision (the
+    control); with ``ranks`` > 1 its ``DataParallelStep`` over that many
+    ranks' rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref = ref_model.build(config["config"]).to(device)
-    weights.load(ref, draw_weights(config, seed, device))
+    ref = ref_mod.build(config["config"]).to(device)
+    weights.load(ref, draw_weights(config, seed, device, ref_mod))
     c = config["config"]
-    step = ref_train.TrainStep(ref, c, c, train_seed(seed))
+    step = (ref_mod.TrainStep(ref, c, c, train_seed(seed)) if ranks == 1
+            else ref_mod.DataParallelStep(ref, c, c, train_seed(seed),
+                                          ranks))
     named = [(k, p) for k, p in ref.named_parameters() if p.requires_grad]
     start = {k: p.detach().clone() for k, p in named}
     losses, grads, out1 = [], None, None
@@ -186,7 +202,7 @@ def reference_steps(config, seed, pool, n, device, lowprec=None):
         else:
             losses.append(step(batch))
         if i == 0:
-            grads = ref_train.leaf_norms(ref_train.first_moment_grads(
+            grads = ref_mod.leaf_norms(ref_mod.first_moment_grads(
                 step.opt, named))
             out1 = step.last_out
     change = {k: float((p.detach() - start[k]).norm()) for k, p in named}
@@ -194,11 +210,11 @@ def reference_steps(config, seed, pool, n, device, lowprec=None):
             "out1": out1}
 
 
-def ratios(prog, emu, ref):
+def ratios(prog, emu, ref, ref_mod):
     """The numbers the check holds, each in units of the model's
     sensitivity to bf16: the program's gaps to the f32 reference
     (``compare``) over those of the reference with bf16 operands."""
-    p, e = compare(prog, ref), compare(emu, ref)
+    p, e = compare(prog, ref, ref_mod), compare(emu, ref, ref_mod)
     out = {}
     for k, key in (("memory", "memory"), ("logit", "pred_logits"),
                    ("box", "pred_boxes")):
@@ -225,7 +241,7 @@ def ratios(prog, emu, ref):
     return out
 
 
-def compare(prog, ref):
+def compare(prog, ref, ref_mod):
     """The numbers the check holds: the worst step's relative loss gap,
     and the worst leaf's gap of first-gradient norms and of change norms
     (against max(the leaf's reference norm, the median leaf's)). Leaves
@@ -251,7 +267,7 @@ def compare(prog, ref):
            "leaves_skipped": float(len(skip))}
     for name, p, r in (("grad", prog["grads"], g),
                        ("change", prog["change"], ref["change"])):
-        gaps = ref_train.leaf_gaps(p, r, skip)
+        gaps = ref_mod.leaf_gaps(p, r, skip)
         out[f"{name}_gap"] = max(gaps.values())
         out[f"{name}_median_gap"] = float(np.median(list(gaps.values())))
         out[f"_{name}_gaps"] = gaps

@@ -7,7 +7,8 @@ focal loss, L1 and GIoU on every decoder layer) with the assignment solved
 by ``scipy.optimize.linear_sum_assignment`` on the host, backward, the
 global-norm clip, and AdamW over the LateFusion parameter groups (RGB
 backbone frozen, the depth fusion layer at 10x, the sampling offsets and
-reference points at 0.1x). Imports nothing of the port.
+reference points at 0.1x). ``DataParallelStep`` is the same step over the
+global batch of data-parallel ranks. Imports nothing of the port.
 """
 from __future__ import annotations
 
@@ -131,9 +132,11 @@ def layer_losses(logits, boxes, targets, assign, num_boxes):
     return loss_ce, loss_bbox, loss_giou
 
 
-def criterion(out, targets, lc):
-    """Total weighted loss over the final and aux decoder layers."""
-    num_boxes = targets["valid"].float().sum().clamp(min=1.0)
+def criterion(out, targets, lc, num_boxes=None):
+    """Total weighted loss over the final and aux decoder layers, each
+    part over ``num_boxes`` (by default the valid slots of ``targets``)."""
+    if num_boxes is None:
+        num_boxes = targets["valid"].float().sum().clamp(min=1.0)
     total = 0.0
     for o in [out, *out["aux_outputs"]]:
         assign = match(o["pred_logits"], o["pred_boxes"], targets["labels"],
@@ -167,6 +170,11 @@ class TrainStep:
         self.last_out["memory"] = out["_trunk"]["memory"][:, ::16].detach()
         loss = criterion(out, batch, self.lc)
         loss.backward()
+        self.update()
+        return float(loss.detach())
+
+    def update(self):
+        """The global-norm clip of the gradients and one AdamW step."""
         params = [p for g in self.opt.param_groups for p in g["params"]
                   if p.grad is not None]
         norm = torch.sqrt(sum(p.grad.double().square().sum()
@@ -175,7 +183,60 @@ class TrainStep:
             for p in params:
                 p.grad.mul_((self.tc["clip_max_norm"] / norm).float())
         self.opt.step()
-        return float(loss.detach())
+
+
+class DataParallelStep(TrainStep):
+    """The step of ``ranks`` data-parallel ranks over one global batch,
+    rank r holding the r-th contiguous block of rows: one step over the
+    global batch, as the ranks' gradient all-reduce makes it. The DFormer
+    path's BatchNorms take the global batch's statistics (they run once
+    over every row); each loss part is over the global box count; rank
+    r's dropout masks come from its own generator, seeded ``train_seed +
+    r`` and drawn for its block alone. The rest of the model runs a block
+    at a time, so that the step fits where one block does."""
+
+    def __init__(self, model, tc, lc, train_seed: int, ranks: int):
+        super().__init__(model, tc, lc, train_seed)
+        device = next(model.parameters()).device
+        self.gens = [torch.Generator(device=device).manual_seed(
+            train_seed + r) for r in range(ranks)]
+
+    def __call__(self, batch):
+        self.opt.zero_grad(set_to_none=True)
+        self.model.train()
+        images, mask = normalize(batch["images"], batch["sizes"])
+        depth = (self.model.detr if hasattr(self.model, "detr")
+                 else self.model).depth_backbone
+        feat, dmask = depth(images[..., 3:4], mask)
+        feat_grad = torch.zeros_like(feat)
+        num_boxes = batch["valid"].float().sum().clamp(min=1.0)
+        n = images.shape[0] // len(self.gens)
+        total, outs = 0.0, []
+        try:
+            for r, gen in enumerate(self.gens):
+                rows = slice(r * n, (r + 1) * n)
+                part = feat[rows].detach().requires_grad_()
+                depth.forward = (lambda *a, part=part, m=dmask[rows]:
+                                 (part, m))
+                set_dropout_generator(self.model, gen)
+                out = self.model(images[rows], mask[rows])
+                outs.append({"pred_logits": out["pred_logits"].detach(),
+                             "pred_boxes": out["pred_boxes"].detach(),
+                             "memory": out["_trunk"]["memory"][
+                                 :, ::16].detach()})
+                loss = criterion(out, {k: v[rows] for k, v in batch.items()},
+                                 self.lc, num_boxes)
+                loss.backward()
+                feat_grad[rows] = part.grad
+                total += float(loss.detach())
+                del out, loss
+        finally:
+            depth.__dict__.pop("forward", None)
+        feat.backward(feat_grad)
+        self.last_out = {k: torch.cat([o[k] for o in outs])
+                         for k in outs[0]}
+        self.update()
+        return total
 
 
 def first_moment_grads(optimizer, named):

@@ -50,14 +50,14 @@ def test_fp8_reference_fails_serving(root, name):
 
 def test_fp8_control_fails(root):
     c = spec.Cell("tiny.train", root=root)
-    pool = inputs.pool(c.traffic, SEED, "cpu")
+    pool = inputs.pool(c.traffic, SEED, "cpu", c.kind)
     n = c.traffic["check_steps"]
-    low = train.reference_steps(c.config, SEED, pool, n, "cpu",
-                                lowprec=lowprec.fp8)
-    ref = train.reference_steps(c.config, SEED, pool, n, "cpu")
-    emu = train.reference_steps(c.config, SEED, pool, n, "cpu",
-                                lowprec=lowprec.bf16)
-    _, correct = cell.judge(train.ratios(low, emu, ref), cell.limits_of(c))
+    args = (c.config, SEED, pool, n, "cpu", c.reference)
+    low = train.reference_steps(*args, lowprec=lowprec.fp8)
+    ref = train.reference_steps(*args)
+    emu = train.reference_steps(*args, lowprec=lowprec.bf16)
+    _, correct = cell.judge(train.ratios(low, emu, ref, c.reference),
+                            cell.limits_of(c))
     assert not correct
 
 

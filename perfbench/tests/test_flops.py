@@ -1,9 +1,10 @@
 """The FLOP and byte counts of perfbench/harness/flops.py against hand
 counts."""
+import pytest
 import torch
 from torch import nn
 
-from perfbench.harness import flops
+from perfbench.harness import flops, spec
 from perfbench.reference import model as ref_model
 from perfbench.tests import tiny
 
@@ -40,9 +41,11 @@ def test_deformable_attention_hand_count():
 
 def test_model_count_adds_the_sampling():
     cfg = dict(tiny.TINY_MODEL)
-    base = spec_config()
+    file = spec.load_json(
+        f"{spec.PERFBENCH}/configs/latefusion_r50_dformer.json")
+    base = file["config"]
     base.update(cfg)
-    got = flops.count(base, 2, 64, 96)
+    got = flops.count(base, 2, 64, 96, spec.reference(file))
     with torch.device("meta"):
         m = ref_model.build(base)
         x = torch.empty(2, 64, 96, 4)
@@ -58,8 +61,31 @@ def test_model_count_adds_the_sampling():
     assert got["flops"] == dense + hand
 
 
-def spec_config():
-    from perfbench.harness import spec
-    return spec.load_json(
-        f"{spec.PERFBENCH}/configs/latefusion_r50_dformer.json")["config"]
 
+
+
+# (config, mix, train): model FLOPs a call, RoIAlign's FLOPs, MSDA calls,
+# K1's and K2's bounds in seconds, as the counts read before a
+# configuration could name its reference
+EXISTING = [
+    (("latefusion_r50_dformer", "serve.b32", False),
+     (4672028672000.0, 0.0, 13, 0.00024080811940298507,
+      0.0004077659701492537)),
+    (("transvodpp_latefusion_r50_dformer", "serve.c8x5", False),
+     (6225482465280.0, 4816896000.0, 16, 0.0003097676417910448,
+      0.0005261220298507463)),
+    (("latefusion_r50_dformer", "train.b32", True),
+     (6249008332800.0, 0.0, 13, 0.00024080811940298507,
+      0.0004077659701492537))]
+
+
+@pytest.mark.parametrize("cell,want", EXISTING)
+def test_existing_counts_are_unchanged(cell, want):
+    config, mix, train = cell
+    cfg = spec.load_json(f"{spec.PERFBENCH}/configs/{config}.json")
+    t = spec.load_json(f"{spec.PERFBENCH}/traffic/{mix}.json")
+    got = flops.count(cfg["config"], t["frames_per_request"], t["height"],
+                      t["width"], spec.reference(cfg), train=train)
+    assert (got["flops"], got["roi_flops"], len(got["msda"]),
+            flops.msda_fwd_bound_s(got["msda"]),
+            flops.msda_bwd_bound_s(got["msda"])) == want

@@ -22,17 +22,21 @@ def loaded_after(code):
 def test_harness_and_the_ports_paths_load_no_jax():
     tops = loaded_after(
         "import perfbench.harness.cli, perfbench.harness.cell, "
-        "perfbench.loops.serve, perfbench.loops.train, perfbench.control\n"
+        "perfbench.harness.ranks, perfbench.loops.serve, "
+        "perfbench.loops.train, perfbench.loops.train_ddp, "
+        "perfbench.control\n"
         "import dfvod_tpu_torch.serve, dfvod_tpu_torch.models.temporal, "
         "dfvod_tpu_torch.train.engine, dfvod_tpu_torch.ops.quant\n"
-        "import perfbench.reference.model, perfbench.reference.train")
+        "import perfbench.reference.model, perfbench.reference.train, "
+        "perfbench.reference.latefusion")
     assert "dfvod_tpu_torch" in tops
     assert not tops & set(FORBIDDEN)
 
 
 def test_reference_loads_nothing_of_the_port():
     tops = loaded_after("import perfbench.reference.model, "
-                        "perfbench.reference.train")
+                        "perfbench.reference.train, "
+                        "perfbench.reference.latefusion")
     assert "dfvod_tpu_torch" not in tops
     assert not tops & set(FORBIDDEN)
 

@@ -21,18 +21,19 @@ def tiny_config(name, **over):
 def test_forward_and_postprocess_agree(name):
     torch.manual_seed(0)
     cfg = tiny_config(name)
-    prog = serve.Program(cfg, 7, "cpu", dtype=torch.float32)
+    ref_mod = spec.reference(cfg)
+    prog = serve.Program(cfg, 7, "cpu", ref_mod, dtype=torch.float32)
     x, s = inputs.frames(2 * prog.frames, 64, 96,
                          tiny.TINY_FRAME["content_sizes"], 7, "cpu")
     prog.sample(7, 1)
     ans = serve.host(prog({"images": x, "sizes": s}))
     ref = ref_model.build(cfg["config"])
-    weights.load(ref, serve.draw_weights(cfg, 7, "cpu"))
+    weights.load(ref, serve.draw_weights(cfg, 7, "cpu", ref_mod))
     block = x.shape[0]
     with torch.no_grad():
-        out = serve.forward_kept(ref, x, s, block)
+        out = serve.forward_kept(ref, x, s, block, ref_model.normalize)
         stages = serve.stage_outputs(ref, x, s, block, prog.kept[0],
-                                     prog.frames)
+                                     prog.frames, ref_model.normalize)
     kept = prog.kept[0]
     for part in ("trunk", "final"):
         for got, want, tol in zip(kept[part], out[part], (1e-4, 1e-5)):
@@ -60,10 +61,11 @@ def test_train_steps_agree():
                "height": 64, "width": 96,
                "content_sizes": tiny.TINY_FRAME["content_sizes"],
                "target_slots": 8, "min_boxes": 1, "max_boxes": 4}
-    pool = inputs.pool(traffic, 5, "cpu")
-    prog = train.first_steps(train.Program(cfg, 5, "cpu"), pool, 3)
-    ref = train.reference_steps(cfg, 5, pool, 3, "cpu")
-    c = train.compare(prog, ref)
+    pool = inputs.pool(traffic, 5, "cpu", "train")
+    ref_mod = spec.reference(cfg)
+    prog = train.first_steps(train.Program(cfg, 5, "cpu", ref_mod), pool, 3)
+    ref = train.reference_steps(cfg, 5, pool, 3, "cpu", ref_mod)
+    c = train.compare(prog, ref, ref_mod)
     assert c["loss_gap"] < 1e-5
     assert c["grad_gap"] < 1e-3
     assert c["change_gap"] < 1e-2
